@@ -1,0 +1,126 @@
+"""The port's CUDA kernel and engine on the card.
+
+Marked ``cuda``; every test skips without a CUDA device.  On a machine
+with one, run them without the JAX test configuration:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from waveform_tpu import (
+    DB_MIN,
+    AudioInfo,
+    ChannelMode,
+    FFTWindow,
+    InterpMode,
+    Settings,
+    resolve,
+)
+from waveform_tpu_torch.kernels import exact_cuda
+from waveform_tpu_torch.runtime.serving import ServingEngine
+
+pytestmark = pytest.mark.cuda
+
+TOL = 2.5e-7
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _hann(n, dev):
+    w64 = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(n) / (n - 1)))
+    hi = w64.astype(np.float32)
+    lo = (w64 - hi.astype(np.float64)).astype(np.float32)
+    return w64, (torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev))
+
+
+@pytest.mark.parametrize("S", [1, 5, 256])
+@pytest.mark.parametrize("n", exact_cuda.SIZES)
+def test_kernel_matches_twin_and_f64(n, S, dev):
+    rng = np.random.default_rng(n + S)
+    x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
+    x[-1, -1] = 0.0
+    w64, win = _hann(n, dev)
+    xd = torch.from_numpy(x).to(dev)
+    before = exact_cuda.launches
+    mag, nz = exact_cuda.rfft_pair_mag(xd, win)
+    torch.cuda.synchronize()
+    assert exact_cuda.launches == before + 1
+    ref, nz_ref = exact_cuda.rfft_pair_mag_ref(xd, win)
+    assert exact_cuda.launches == before + 1
+    assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
+    want = np.abs(np.fft.rfft(x.astype(np.float64) * w64))[..., :n // 2]
+    got = mag.cpu().numpy().astype(np.float64)
+    assert np.abs(got - want).max() / want.max() <= TOL
+    np.testing.assert_array_equal(nz.cpu().numpy(),
+                                  np.count_nonzero(x, axis=-1))
+
+
+def test_corrupt_streams_isolated_on_card(dev):
+    n = 4096
+    rng = np.random.default_rng(1)
+    x = (0.5 * rng.standard_normal((6, 2, n))).astype(np.float32)
+    x[2] = 1e20 * rng.standard_normal((2, n))
+    x[4, 1, 100] = np.nan
+    mag, _ = exact_cuda.rfft_pair_mag(torch.from_numpy(x).to(dev))
+    got = mag.cpu().numpy().astype(np.float64)
+    want = np.abs(np.fft.rfft(x.astype(np.float64)))[..., :n // 2]
+    for s in (0, 1, 3, 5):
+        assert np.abs(got[s] - want[s]).max() / want[s].max() <= TOL, s
+    assert np.isfinite(got[2]).all()
+
+
+def test_wrapper_raises_instead_of_falling_back(dev):
+    x = torch.zeros((2, 2, 8192), device=dev)
+    with pytest.raises(NotImplementedError):
+        exact_cuda.rfft_pair_mag(x)
+    y = torch.zeros((2, 2, 2048), device=dev).transpose(0, 1)
+    with pytest.raises(ValueError):
+        exact_cuda.rfft_pair_mag(y)
+
+
+@pytest.mark.parametrize("per_stream", [False, True])
+def test_engine_on_card_matches_cpu_port(per_stream, dev):
+    """The card engine against the CPU port: the headline configuration
+    fed in lockstep (scalar ring push), and stereo with volume
+    normalization and roll-off fed per stream (ring gather, RMS ring)."""
+    if per_stream:
+        settings = Settings(fft_size=2048, width=400,
+                            channel_mode=ChannelMode.STEREO,
+                            normalize_volume=True, rolloff_q=1.0,
+                            rolloff_rate=6.0)
+    else:
+        settings = Settings(fft_size=4096, width=800, window=FFTWindow.HANN,
+                            interp_mode=InterpMode.LANCZOS)
+    cfg = resolve(settings, AudioInfo(48000, 2))
+    S = 4
+    card = ServingEngine(cfg, S, device=dev)
+    cpu = ServingEngine(cfg, S, device="cpu")
+    rng = np.random.default_rng(2)
+    before = exact_cuda.launches
+    for k in range(8):
+        x = (0.3 * rng.standard_normal((S, 2, 800))).astype(np.float32)
+        x[-1] = 0.0
+        now = 10_000_000_000 + k * 16_666_667
+        for eng in (card, cpu):
+            if per_stream:
+                for s in range(S):
+                    eng.feed(s, x[s, :, :800 - 50 * s], now, now_ns=now)
+            else:
+                eng.feed_batch(x, now, now_ns=now)
+            eng.tick(now_ns=now)
+    assert exact_cuda.launches == before + 8
+    db, want = card.read_decibels(), cpu.read_decibels()
+    vis = want > -120.0
+    np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)
+    floor = want == np.float32(DB_MIN)
+    np.testing.assert_array_equal(db[floor], want[floor])
+    np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
+    assert np.isfinite(card.read_pixels()).all()
