@@ -19,9 +19,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    at exactly DB_MIN, agreement with the CPU port on the first streams, and
    the bench's accuracy gate against the float64 oracle;
 5. times   — kernel, twin and full tick at S=256, N=4096 on the card's
-   clock (CUDA events, median of 30 after warmup).
+   clock (CUDA events, median of 30 after warmup);
+6. kernel3 — the 3-factor kernel (K2) against its twin and float64 numpy at
+   N in {4096, 8192, 16384, 32768, 65536}, S in {1, 7, 32}, the same windows
+   and bad streams as phase 3; at N=4096 (reached through K2's direct entry
+   point, since the router sends 4096 to K1) also against K1;
+7. slice3  — ``ServingEngine`` on the large-FFT configuration (stereo
+   48 kHz, N=65536 behind enable_large_fft, Hann, 800-px Lanczos rebin in
+   its gather form, S=32) for 84 ticks, enough to fill the 65536-sample
+   window: one K2 launch per tick and no K1 launch, finite pixels, the
+   silent stream at DB_MIN, the 440 Hz peak within one bin, agreement with
+   the CPU port on 2 streams and the accuracy gate against the float64
+   oracle;
+8. times3  — K2 and its twin at (N, S) = (8192, 256), (16384, 256),
+   (32768, 64), (65536, 32), and the full tick at N=65536, S=32.
 
-The last two lines are the kernels' JSON record and the result line.
+Every phase's seconds are printed before the kernels' JSON record and the
+result line, which are the last two lines.
 """
 
 from __future__ import annotations
@@ -36,7 +50,8 @@ import numpy as np
 import torch
 
 SR, HOP = 48000, 800
-TOL = 2.5e-7
+TOL = 2.5e-7          # kernel bound of the JAX package's tests
+TOL_SPLITS = 3e-7     # K2 vs K1 (tests/test_exact_pallas.py:217-229)
 SEED = 0
 
 
@@ -76,32 +91,47 @@ def cuda_median_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def phase_kernel(exact_cuda, dev):
-    """Kernel vs twin vs float64 over the size/stream/window matrix."""
-    rng = np.random.default_rng(SEED)
-    worst_twin = worst_f64 = 0.0
+def bad_streams(x: np.ndarray, rng) -> tuple:
+    """Make streams 1-4 of ``x`` [S, 2, N] silent / half silent / 1e20 /
+    NaN (when S >= 7); returns the streams that no bound applies to."""
+    if x.shape[0] < 7:
+        return ()
+    x[1] = 0.0                   # silent stream
+    x[2, 1] = 0.0                # silent channel
+    x[3] = 1e20 * rng.standard_normal((2, x.shape[-1]))
+    x[4, 0, 11] = np.nan
+    return (3, 4)
+
+
+def phase_kernel(exact_cuda, dev, kernel, twin, counter: str, sizes,
+                 streams, seed: int, vs_k1: bool = False):
+    """``kernel`` vs ``twin`` vs float64 over the size/stream/window
+    matrix: each call adds one to ``exact_cuda.<counter>``, agrees with
+    the twin and float64 within TOL, counts nonzeros exactly, and keeps
+    the 1e20/NaN streams to themselves.  With ``vs_k1``, sizes K1 serves
+    are also held against K1 within TOL_SPLITS.  Returns the number of
+    cases and the worst relative errors."""
+    rng = np.random.default_rng(seed)
+    worst = {"twin": 0.0, "f64": 0.0, "k1": 0.0}
     cases = 0
-    for n in exact_cuda.SIZES:
-        for S in (1, 7, 256):
+    for n in sizes:
+        for S in streams:
             for windowed in (True, False):
                 x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
                 x[0, 0] += np.sin(2 * np.pi * 440.0 * np.arange(n) / SR)
-                bad = ()
-                if S >= 7:
-                    x[1] = 0.0                   # silent stream
-                    x[2, 1] = 0.0                # silent channel
-                    x[3] = 1e20 * rng.standard_normal((2, n))
-                    x[4, 0, 11] = np.nan
-                    bad = (3, 4)
+                bad = bad_streams(x, rng)
                 good = [s for s in range(S) if s not in bad]
                 if windowed:
                     w64, win = hann_pair(n, dev)
                 else:
                     w64, win = np.ones(n), None
                 xd = torch.from_numpy(x).to(dev)
-                mag, nz = exact_cuda.rfft_pair_mag(xd, win)
+                before = getattr(exact_cuda, counter)
+                mag, nz = kernel(xd, win)
                 torch.cuda.synchronize()
-                ref, nz_ref = exact_cuda.rfft_pair_mag_ref(xd, win)
+                check(getattr(exact_cuda, counter) == before + 1,
+                      f"{counter} N={n} S={S}")
+                ref, nz_ref = twin(xd, win)
                 torch.cuda.synchronize()
                 mag, ref = mag.cpu().numpy(), ref.cpu().numpy()
                 want = np.abs(np.fft.rfft(x[good].astype(np.float64) * w64))
@@ -119,10 +149,16 @@ def phase_kernel(exact_cuda, dev):
                     check(np.isfinite(mag[3]).all(), "1e20 stream not finite")
                     check((mag[1] == 0).all() and (mag[2, 1] == 0).all(),
                           "silent rows not zero")
-                worst_twin = max(worst_twin, e_twin)
-                worst_f64 = max(worst_f64, e_f64)
+                if vs_k1 and n in exact_cuda.SIZES:
+                    m1, _ = exact_cuda.rfft_pair_mag(xd, win)
+                    m1 = m1.cpu().numpy()
+                    e_k1 = np.abs(mag[good] - m1[good]).max() / m1[good].max()
+                    check(e_k1 <= TOL_SPLITS, f"K2 vs K1 at N={n} {e_k1}")
+                    worst["k1"] = max(worst["k1"], e_k1)
+                worst["twin"] = max(worst["twin"], e_twin)
+                worst["f64"] = max(worst["f64"], e_f64)
                 cases += 1
-    return cases, worst_twin, worst_f64
+    return cases, worst
 
 
 def feed_signal(rng, S: int, k: int) -> np.ndarray:
@@ -134,9 +170,96 @@ def feed_signal(rng, S: int, k: int) -> np.ndarray:
     return x.astype(np.float32)
 
 
+def oracle_gate(wt, ServingEngine, fft_size: int, ticks: int, rng, now0):
+    """The bench's accuracy gate: TSmoothing NONE, one noise window in the
+    ring against the float64 oracle, max |dB err| on bins above -120 dBFS."""
+    gcfg = wt.resolve(wt.Settings(fft_size=fft_size,
+                                  enable_large_fft=fft_size > 8192,
+                                  width=800, window=wt.FFTWindow.HANN,
+                                  temporal_smoothing=wt.TSmoothingMode.NONE),
+                      wt.AudioInfo(SR, 2))
+    geng = ServingEngine(gcfg, 2, device="cuda")
+    for k in range(ticks):
+        now = now0 + k * 16_666_667
+        geng.feed_batch(rng.uniform(-0.5, 0.5, (2, 2, HOP)).astype(
+            np.float32), now, now_ns=now)
+        geng.tick(now_ns=now)
+    window = geng.ring.buf[0].cpu().numpy().astype(np.float64)
+    want, _ = wt.oracle.spectrum_frame(window, None, gcfg, dt=1 / 60)
+    got = geng.read_decibels()[0]
+    gvis = want > -120.0
+    gate = float(np.abs(got[gvis] - want[gvis]).max())
+    check(gate < 1e-4, f"N={fft_size} accuracy gate {gate} dB")
+    return gate
+
+
+def drive_slice(wt, exact_cuda, eng, cpu, packets, now0):
+    """Feed ``packets`` through the card engine (counts set to 0 just
+    before, read just after) and, for its first streams and the silent
+    last one, through the CPU port; check pixels, silence, the tone's peak
+    and card vs CPU.  Returns (launches, launches3, pixel shape, peak Hz,
+    card-vs-CPU dB)."""
+    exact_cuda.launches = exact_cuda.launches3 = 0
+    for k, x in enumerate(packets):
+        now = now0 + k * 16_666_667
+        eng.feed_batch(x, now, now_ns=now)
+        eng.tick(now_ns=now)
+    torch.cuda.synchronize()
+    counts = (exact_cuda.launches, exact_cuda.launches3)
+    n_cpu = cpu.S - 1
+    for k, x in enumerate(packets):
+        now = now0 + k * 16_666_667
+        cpu.feed_batch(np.concatenate([x[:n_cpu], x[-1:]]), now, now_ns=now)
+        cpu.tick(now_ns=now)
+    S, n = eng.S, eng.cfg.fft_size
+    px = eng.read_pixels()
+    db = eng.read_decibels()
+    check(px.shape == (S, 1, 800) and np.isfinite(px).all(), "pixels")
+    check((db[-1] == np.float32(wt.DB_MIN)).all(), "silent stream dB")
+    check(bool(eng.last_silent[-1]) and not eng.last_silent[:-1].any(),
+          "silence latch")
+    peak_hz = int(np.argmax(db[0, 0])) * SR / n
+    check(abs(peak_hz - 440.0) < SR / n, f"peak at {peak_hz} Hz")
+    db_cpu = cpu.read_decibels()
+    ref = db_cpu[:n_cpu]
+    vis = ref > -120.0
+    e_cpu = float(np.abs(db[:n_cpu][vis] - ref[vis]).max())
+    check(e_cpu < 1e-4, f"N={n} card vs CPU port {e_cpu} dB")
+    check(np.array_equal(db[-1], db_cpu[-1]), "silent stream vs CPU port")
+    return (*counts, px.shape, peak_hz, e_cpu)
+
+
+def tick_ms(eng, packets, now0) -> float:
+    """Median full tick (feed_batch + tick) on CUDA events, continuing the
+    engine's clock after ``packets``."""
+    k = [len(packets)]
+
+    def one_tick():
+        now = now0 + k[0] * 16_666_667
+        eng.feed_batch(packets[k[0] % len(packets)], now, now_ns=now)
+        eng.tick(now_ns=now)
+        k[0] += 1
+
+    return cuda_median_ms(one_tick)
+
+
+def kernel_times(kernel, twin, n: int, S: int, dev):
+    """(kernel ms, twin ms, max |kernel - twin|) at [S, 2, n], Hann."""
+    x = (0.5 * np.random.default_rng(SEED + 2).standard_normal(
+        (S, 2, n))).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    _, win = hann_pair(n, dev)
+    mag, _ = kernel(xd, win)
+    ref, _ = twin(xd, win)
+    max_abs = float((mag - ref).abs().max())
+    return (cuda_median_ms(lambda: kernel(xd, win)),
+            cuda_median_ms(lambda: twin(xd, win)), max_abs)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
+    secs = {}
 
     # 1. device -----------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -156,19 +279,24 @@ def main() -> None:
     regs = [ln.split(":", 1)[1].strip()
             for ln in exact_cuda.build_info.get("log", "").splitlines()
             if "registers" in ln]
-    print(f"build: {time.perf_counter() - t0:.2f} s "
+    secs["build"] = time.perf_counter() - t0
+    print(f"build: {secs['build']:.2f} s "
           f"({exact_cuda.build_info['library']}; ptxas: {regs}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, capability "
           f"{cap})", flush=True)
 
     # 3. kernel vs twin ---------------------------------------------------
-    cases, e_twin, e_f64 = phase_kernel(exact_cuda, dev)
-    torch.cuda.synchronize()
-    print(f"kernel: {cases} cases, max|d|/max|ref| vs twin {e_twin:.3e}, "
-          f"vs float64 {e_f64:.3e} (bound {TOL}); nz exact; 1e20/NaN "
-          "streams isolated", flush=True)
+    t0 = time.perf_counter()
+    cases, worst = phase_kernel(exact_cuda, dev, exact_cuda.rfft_pair_mag,
+                                exact_cuda.rfft_pair_mag_ref, "launches",
+                                exact_cuda.SIZES, (1, 7, 256), SEED)
+    secs["kernel"] = time.perf_counter() - t0
+    print(f"kernel: {cases} cases, max|d|/max|ref| vs twin "
+          f"{worst['twin']:.3e}, vs float64 {worst['f64']:.3e} (bound "
+          f"{TOL}); nz exact; 1e20/NaN streams isolated", flush=True)
 
     # 4. slice ------------------------------------------------------------
+    t0 = time.perf_counter()
     cfg = wt.resolve(wt.Settings(fft_size=4096, width=800,
                                  window=wt.FFTWindow.HANN,
                                  interp_mode=wt.InterpMode.LANCZOS),
@@ -179,90 +307,99 @@ def main() -> None:
     rng = np.random.default_rng(SEED + 1)
     packets = [feed_signal(rng, S, k) for k in range(ticks)]
     now0 = time.monotonic_ns()
-    exact_cuda.launches = 0
-    for k, x in enumerate(packets):
-        now = now0 + k * 16_666_667
-        eng.feed_batch(x, now, now_ns=now)
-        eng.tick(now_ns=now)
-    torch.cuda.synchronize()
-    launches = exact_cuda.launches
+    launches, launches3, px_shape, peak_hz, e_cpu = drive_slice(
+        wt, exact_cuda, eng, cpu, packets, now0)
     check(launches == ticks, f"{launches} kernel launches in {ticks} ticks")
-    for k, x in enumerate(packets):
-        now = now0 + k * 16_666_667
-        cpu.feed_batch(np.concatenate([x[:3], x[-1:]]), now, now_ns=now)
-        cpu.tick(now_ns=now)
-    px = eng.read_pixels()
-    db = eng.read_decibels()
-    check(px.shape == (S, 1, 800) and np.isfinite(px).all(), "pixels")
-    check((db[-1] == np.float32(wt.DB_MIN)).all(), "silent stream dB")
-    check(bool(eng.last_silent[-1]) and not eng.last_silent[:-1].any(),
-          "silence latch")
-    peak_hz = int(np.argmax(db[0, 0])) * SR / cfg.fft_size
-    check(abs(peak_hz - 440.0) < SR / cfg.fft_size, f"peak at {peak_hz} Hz")
-    db_cpu = cpu.read_decibels()
-    ref = db_cpu[:3]
-    vis = ref > -120.0
-    e_cpu = float(np.abs(db[:3][vis] - ref[vis]).max())
-    check(e_cpu < 1e-4, f"card vs CPU port {e_cpu} dB")
-    check(np.array_equal(db[-1], db_cpu[-1]), "silent stream vs CPU port")
-
-    # the bench's accuracy gate: TSmoothing NONE, one noise window in the
-    # ring against the float64 oracle, bins above -120 dBFS
-    gcfg = wt.resolve(wt.Settings(fft_size=4096, width=800,
-                                  window=wt.FFTWindow.HANN,
-                                  temporal_smoothing=wt.TSmoothingMode.NONE),
-                      wt.AudioInfo(SR, 2))
-    geng = ServingEngine(gcfg, 2, device="cuda")
-    for k in range(8):
-        now = now0 + k * 16_666_667
-        geng.feed_batch(rng.uniform(-0.5, 0.5, (2, 2, HOP)).astype(
-            np.float32), now, now_ns=now)
-        geng.tick(now_ns=now)
-    window = geng.ring.buf[0].cpu().numpy().astype(np.float64)
-    want, _ = wt.oracle.spectrum_frame(window, None, gcfg, dt=1 / 60)
-    got = geng.read_decibels()[0]
-    gvis = want > -120.0
-    gate = float(np.abs(got[gvis] - want[gvis]).max())
-    check(gate < 1e-4, f"accuracy gate {gate} dB")
+    check(launches3 == 0, f"{launches3} K2 launches at N=4096")
+    gate = oracle_gate(wt, ServingEngine, 4096, 8, rng, now0)
     torch.cuda.synchronize()
+    secs["slice"] = time.perf_counter() - t0
     print(f"slice: S={S} N=4096 800px Lanczos, {ticks} ticks, {launches} "
-          f"kernel launches, pixels {px.shape} finite, silent stream at "
+          f"kernel launches, pixels {px_shape} finite, silent stream at "
           f"DB_MIN, peak {peak_hz:.1f} Hz, card vs CPU port {e_cpu:.2e} dB, "
           f"oracle gate {gate:.2e} dB (< 1e-4), assembler "
           f"{'native' if eng._native is not None else 'python'}", flush=True)
 
     # 5. times ------------------------------------------------------------
-    xt = (0.5 * np.random.default_rng(SEED + 2).standard_normal(
-        (S, 2, 4096))).astype(np.float32)
-    xd = torch.from_numpy(xt).to(dev)
-    _, win = hann_pair(4096, dev)
-    mag, _ = exact_cuda.rfft_pair_mag(xd, win)
-    ref_mag, _ = exact_cuda.rfft_pair_mag_ref(xd, win)
-    max_abs = float((mag - ref_mag).abs().max())
-    k_ms = cuda_median_ms(lambda: exact_cuda.rfft_pair_mag(xd, win))
-    p_ms = cuda_median_ms(lambda: exact_cuda.rfft_pair_mag_ref(xd, win))
-    k = [ticks]
-
-    def one_tick():
-        now = now0 + k[0] * 16_666_667
-        eng.feed_batch(packets[k[0] % ticks], now, now_ns=now)
-        eng.tick(now_ns=now)
-        k[0] += 1
-
-    t_ms = cuda_median_ms(one_tick)
+    t0 = time.perf_counter()
+    k_ms, p_ms, max_abs = kernel_times(exact_cuda.rfft_pair_mag,
+                                       exact_cuda.rfft_pair_mag_ref, 4096, S,
+                                       dev)
+    t_ms = tick_ms(eng, packets, now0)
+    secs["times"] = time.perf_counter() - t0
     print(f"times [{card}]: kernel {k_ms * 1e3:.1f} us, twin "
           f"{p_ms * 1e3:.1f} us at S={S} N=4096; full tick (feed_batch + "
           f"tick) {t_ms * 1e3:.1f} us = {S / (t_ms * 1e-3):,.0f} frames/s",
           flush=True)
+    del eng, cpu
+
+    # 6. kernel3: K2 vs twin ----------------------------------------------
+    t0 = time.perf_counter()
+    cases3, worst3 = phase_kernel(
+        exact_cuda, dev, exact_cuda.rfft_pair_mag3,
+        exact_cuda.rfft_pair_mag3_ref, "launches3",
+        (4096,) + exact_cuda.SIZES3, (1, 7, 32), SEED + 3, vs_k1=True)
+    secs["kernel3"] = time.perf_counter() - t0
+    print(f"kernel3: {cases3} cases at N in {(4096,) + exact_cuda.SIZES3}, "
+          f"max|d|/max|ref| vs twin {worst3['twin']:.3e}, vs float64 "
+          f"{worst3['f64']:.3e} (bound {TOL}), vs K1 at N=4096 "
+          f"{worst3['k1']:.3e} (bound {TOL_SPLITS}); nz exact; 1e20/NaN "
+          "streams isolated", flush=True)
+
+    # 7. slice3: the large-FFT configuration --------------------------------
+    t0 = time.perf_counter()
+    cfg3 = wt.resolve(wt.Settings(fft_size=65536, enable_large_fft=True,
+                                  width=800, window=wt.FFTWindow.HANN,
+                                  interp_mode=wt.InterpMode.LANCZOS),
+                      wt.AudioInfo(SR, 2))
+    check(cfg3.fft_size == 65536, f"resolved fft_size {cfg3.fft_size}")
+    S3, ticks3 = 32, 84
+    eng3 = ServingEngine(cfg3, S3, device="cuda")
+    cpu3 = ServingEngine(cfg3, 2, device="cpu")
+    packets3 = [feed_signal(rng, S3, k) for k in range(ticks3)]
+    now3 = time.monotonic_ns()
+    k1_in_3, launches3, px3, peak3, e_cpu3 = drive_slice(
+        wt, exact_cuda, eng3, cpu3, packets3, now3)
+    check(launches3 == ticks3, f"{launches3} K2 launches in {ticks3} ticks")
+    check(k1_in_3 == 0, f"{k1_in_3} K1 launches at N=65536")
+    gate3 = oracle_gate(wt, ServingEngine, 65536, ticks3, rng, now3)
+    torch.cuda.synchronize()
+    secs["slice3"] = time.perf_counter() - t0
+    print(f"slice3: S={S3} N=65536 800px Lanczos (gather rebin), {ticks3} "
+          f"ticks, {launches3} K2 launches, {k1_in_3} K1 launches, pixels "
+          f"{px3} finite, silent stream at DB_MIN, peak {peak3:.2f} Hz, card "
+          f"vs CPU port (2 streams) {e_cpu3:.2e} dB, oracle gate "
+          f"{gate3:.2e} dB (< 1e-4)", flush=True)
+
+    # 8. times3 -------------------------------------------------------------
+    t0 = time.perf_counter()
+    for n, s_n in ((8192, 256), (16384, 256), (32768, 64), (65536, 32)):
+        k3_ms, p3_ms, max_abs3 = kernel_times(
+            exact_cuda.rfft_pair_mag3, exact_cuda.rfft_pair_mag3_ref, n, s_n,
+            dev)
+        print(f"times3 [{card}]: K2 {k3_ms * 1e3:.1f} us, twin "
+              f"{p3_ms * 1e3:.1f} us at S={s_n} N={n}", flush=True)
+    t3_ms = tick_ms(eng3, packets3, now3)
+    secs["times3"] = time.perf_counter() - t0
+    print(f"times3 [{card}]: full tick (feed_batch + tick) "
+          f"{t3_ms * 1e3:.1f} us at S={S3} N=65536 = "
+          f"{S3 / (t3_ms * 1e-3):,.0f} frames/s", flush=True)
 
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
-    print(json.dumps({"kernels": [{
-        "name": "exact_mag", "route": "cuda",
-        "source": "waveform_tpu_torch/csrc/exact_mag.cu",
-        "replaces": "waveform_tpu/kernels/exact_pallas.py:525",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    print("seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
+          flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "exact_mag", "route": "cuda",
+         "source": "waveform_tpu_torch/csrc/exact_mag.cu",
+         "replaces": "waveform_tpu/kernels/exact_pallas.py:525",
+         "launches": launches, "max_abs_err": max_abs,
+         "ms": k_ms, "plain_ms": p_ms},
+        {"name": "exact_mag3", "route": "cuda",
+         "source": "waveform_tpu_torch/csrc/exact_mag3.cu",
+         "replaces": "waveform_tpu/kernels/exact_pallas.py:825",
+         "launches": launches3, "max_abs_err": max_abs3,
+         "ms": k3_ms, "plain_ms": p3_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

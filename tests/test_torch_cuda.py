@@ -63,6 +63,31 @@ def test_kernel_matches_twin_and_f64(n, S, dev):
                                   np.count_nonzero(x, axis=-1))
 
 
+@pytest.mark.parametrize("S", [1, 5])
+@pytest.mark.parametrize("n", (4096,) + exact_cuda.SIZES3)
+def test_k2_matches_twin_and_f64(n, S, dev):
+    """K2 at every size it serves (N=4096 through its direct entry point,
+    which the router sends to K1), bit for bit against its twin."""
+    rng = np.random.default_rng(n + S + 7)
+    x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
+    x[-1, -1] = 0.0
+    w64, win = _hann(n, dev)
+    xd = torch.from_numpy(x).to(dev)
+    call = exact_cuda.rfft_pair_mag3 if n == 4096 else exact_cuda.rfft_pair_mag
+    before = (exact_cuda.launches, exact_cuda.launches3)
+    mag, nz = call(xd, win)
+    torch.cuda.synchronize()
+    assert (exact_cuda.launches, exact_cuda.launches3) == (before[0],
+                                                           before[1] + 1)
+    ref, nz_ref = exact_cuda.rfft_pair_mag3_ref(xd, win)
+    assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
+    want = np.abs(np.fft.rfft(x.astype(np.float64) * w64))[..., :n // 2]
+    got = mag.cpu().numpy().astype(np.float64)
+    assert np.abs(got - want).max() / want.max() <= TOL
+    np.testing.assert_array_equal(nz.cpu().numpy(),
+                                  np.count_nonzero(x, axis=-1))
+
+
 def test_corrupt_streams_isolated_on_card(dev):
     n = 4096
     rng = np.random.default_rng(1)
@@ -78,7 +103,7 @@ def test_corrupt_streams_isolated_on_card(dev):
 
 
 def test_wrapper_raises_instead_of_falling_back(dev):
-    x = torch.zeros((2, 2, 8192), device=dev)
+    x = torch.zeros((2, 2, 1040), device=dev)      # N % 128 != 0
     with pytest.raises(NotImplementedError):
         exact_cuda.rfft_pair_mag(x)
     y = torch.zeros((2, 2, 2048), device=dev).transpose(0, 1)
@@ -123,4 +148,35 @@ def test_engine_on_card_matches_cpu_port(per_stream, dev):
     floor = want == np.float32(DB_MIN)
     np.testing.assert_array_equal(db[floor], want[floor])
     np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
+    assert np.isfinite(card.read_pixels()).all()
+
+
+def test_large_fft_engine_on_card_matches_cpu_port(dev):
+    """N=16384 behind enable_large_fft: one K2 launch per tick (K1 not
+    launched), 21 ticks to fill the window, against the CPU port."""
+    cfg = resolve(Settings(fft_size=16384, enable_large_fft=True, width=800,
+                           window=FFTWindow.HANN,
+                           interp_mode=InterpMode.LANCZOS),
+                  AudioInfo(48000, 2))
+    S, ticks = 3, 21
+    card = ServingEngine(cfg, S, device=dev)
+    cpu = ServingEngine(cfg, S, device="cpu")
+    rng = np.random.default_rng(3)
+    before = (exact_cuda.launches, exact_cuda.launches3)
+    for k in range(ticks):
+        x = (0.3 * rng.standard_normal((S, 2, 800))).astype(np.float32)
+        x[-1] = 0.0
+        now = 10_000_000_000 + k * 16_666_667
+        for eng in (card, cpu):
+            eng.feed_batch(x, now, now_ns=now)
+            eng.tick(now_ns=now)
+    assert (exact_cuda.launches, exact_cuda.launches3) == (before[0],
+                                                           before[1] + ticks)
+    db, want = card.read_decibels(), cpu.read_decibels()
+    vis = want > -120.0
+    np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)
+    floor = want == np.float32(DB_MIN)
+    np.testing.assert_array_equal(db[floor], want[floor])
+    np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
+    assert card.last_silent[-1]
     assert np.isfinite(card.read_pixels()).all()

@@ -24,6 +24,7 @@ from waveform_tpu import (
 )
 from waveform_tpu.dsp import oracle
 from waveform_tpu.runtime.serving import ServingEngine as JaxEngine
+from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.runtime.serving import ServingEngine
 
 SR, HOP, T0 = 48000, 800, 10_000_000_000
@@ -153,16 +154,36 @@ def test_native_and_python_assembly_agree():
                                   engines[1].read_pixels())
 
 
-def test_slice_meets_oracle_gate():
+def test_large_fft_slice_matches_jax(kernel_on, monkeypatch):
+    """The large-FFT path at full width: N=8192 (the FFT-size slider's top
+    without enable_large_fft), 800 px, Hann, Lanczos, stereo capture; the
+    port runs its 3-factor twin (K2), the JAX kernel is forced to its
+    3-factor body."""
+    monkeypatch.setenv("WAVEFORM_TPU_STAGE1_SPLIT", "3")
+    cfg = resolve(Settings(fft_size=8192, width=800, window=FFTWindow.HANN,
+                           interp_mode=InterpMode.LANCZOS), AudioInfo(SR, 2))
+    assert exact_cuda.stage1_split(cfg.fft_size) == 3
+    S = 2
+    port, ref = _engines(cfg, S)
+    rng = np.random.default_rng(45)
+    for k in range(5):
+        x = _audio(rng, S, k)
+        now = T0 + k * FRAME_NS
+        for eng in (port, ref):
+            eng.feed_batch(x, now, now_ns=now)
+            eng.tick(now_ns=now)
+    _assert_same(port, ref)
+    assert port.read_pixels().shape == (S, 1, 800)
+
+
+def _oracle_gate(settings, ticks, seed):
     """The bench's accuracy gate on the port: a TSmoothing-NONE engine's
     frame against the float64 oracle on the window in its ring, max |dB
     err| < 1e-4 on the bins above -120 dBFS."""
-    cfg = resolve(Settings(fft_size=4096, width=800, window=FFTWindow.HANN,
-                           temporal_smoothing=TSmoothingMode.NONE),
-                  AudioInfo(SR, 2))
+    cfg = resolve(settings, AudioInfo(SR, 2))
     eng = ServingEngine(cfg, 2, device="cpu")
-    rng = np.random.default_rng(60)
-    for k in range(8):
+    rng = np.random.default_rng(seed)
+    for k in range(ticks):
         x = rng.uniform(-0.5, 0.5, (2, 2, HOP)).astype(np.float32)
         now = T0 + k * FRAME_NS
         eng.feed_batch(x, now, now_ns=now)
@@ -173,6 +194,21 @@ def test_slice_meets_oracle_gate():
     vis = want > -120.0
     assert vis.sum() > 1000
     assert np.abs(got[vis] - want[vis]).max() < 1e-4
+
+
+def test_slice_meets_oracle_gate():
+    _oracle_gate(Settings(fft_size=4096, width=800, window=FFTWindow.HANN,
+                          temporal_smoothing=TSmoothingMode.NONE), 8, 60)
+
+
+def test_large_fft_slice_meets_oracle_gate():
+    """N=16384 behind enable_large_fft, through K2's twin; the ring holds a
+    whole window of noise after 21 hops."""
+    settings = Settings(fft_size=16384, enable_large_fft=True, width=800,
+                        window=FFTWindow.HANN,
+                        temporal_smoothing=TSmoothingMode.NONE)
+    assert resolve(settings, AudioInfo(SR, 2)).fft_size == 16384
+    _oracle_gate(settings, 21, 61)
 
 
 def test_cuda_engine_requires_a_card():

@@ -1,0 +1,209 @@
+// Shared device code of the exact |rFFT| kernels (exact_mag.cu, exact_mag3.cu).
+//
+// Every rounding is spelled out with __fmul_rn/__fadd_rn/__fsub_rn, and the
+// build passes -fmad=false, so the error-free transforms (TwoSum, Veltkamp/
+// Dekker TwoProd) stay error-free and the plain PyTorch twin in
+// kernels/exact_cuda.py gives the same bits.
+//
+// Stage 2 (stage2_slice + stage2_mag) is the kept-half DFT over j2 that both
+// kernels end with: per (stream, channel, k1) row of 256 f32 values [br | bi],
+// one pow2 scale, the fast fixed-point digit slice, 10 exact int8 digit-pair
+// products against the 128 KB of f2 digits, ((w0 + w1) + w2) + w3, a clamp to
+// +-2^63 and sqrt(cr^2 + ci^2).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wf {
+
+constexpr int kLanes = 128;          // N2: stage-2 transform length
+constexpr int kKeep = 64;            // kept stage-2 bins per re/im half
+constexpr int kRow2 = 2 * kLanes;    // stage-2 contraction depth [br | bi]
+constexpr int kWords2 = kRow2 / 4;   // packed int8x4 words per stage-2 row
+constexpr int kThreads = 256;
+constexpr int kDigits = 4;           // digit planes (pairs i + j <= 3)
+constexpr int kTop = 27;             // fixed-point bits of the slice
+constexpr int kBias = (64 << 21) + (64 << 14) + (64 << 7) + 64;
+
+__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
+
+// max that keeps a NaN: a NaN lane must poison its own scale (as the
+// reference's max does) rather than be skipped the way fmaxf skips it
+__device__ __forceinline__ float nanmax(float a, float b) {
+  if (a != a) return a;
+  return (b != b || b > a) ? b : a;
+}
+
+// (s, 1/s) = 2^e, e = clip(ceil(log2(max(m, 1e-30))) + 1, -125, 125),
+// with ceil(log2) read exactly from the exponent and mantissa bits.
+__device__ __forceinline__ void pow2_scale(float m, float* s, float* s_inv) {
+  if (m != m) {
+    *s = m;
+    *s_inv = m;
+    return;
+  }
+  m = fmaxf(m, 1e-30f);
+  const int bits = __float_as_int(m);
+  int e = ((bits >> 23) & 255) - 127 + ((bits & 0x7fffff) != 0) + 1;
+  e = min(max(e, -125), 125);
+  *s = __int_as_float((e + 127) << 23);
+  *s_inv = __int_as_float((127 - e) << 23);
+}
+
+// rint(v * s_inv * 2^27) as int32, NaN -> 0 (the conversion's own rule)
+__device__ __forceinline__ int fixed27(float v, float s_inv) {
+  return __float2int_rn(fmul(fmul(v, s_inv), 134217728.0f));
+}
+
+// digit k of the offset-binary fields of u = i + BIAS, as a byte
+__device__ __forceinline__ uint32_t digit_byte(int u, int k) {
+  const int sh = kTop - 6 - 7 * k;
+  return static_cast<uint32_t>(((u >> sh) & 127) - 64) & 0xffu;
+}
+
+// class sums -> f32: ((w0 + w1) + w2) + w3, w_t = acc_t * (2^-(12+7t) * s)
+__device__ __forceinline__ float recombine(const int acc[kDigits], float s) {
+  const float w0 = fmul(__int2float_rn(acc[0]), fmul(0x1p-12f, s));
+  const float w1 = fmul(__int2float_rn(acc[1]), fmul(0x1p-19f, s));
+  const float w2 = fmul(__int2float_rn(acc[2]), fmul(0x1p-26f, s));
+  const float w3 = fmul(__int2float_rn(acc[3]), fmul(0x1p-33f, s));
+  return fadd(fadd(fadd(w0, w1), w2), w3);
+}
+
+// clamp to +-2^63 that lets a NaN through
+__device__ __forceinline__ float clamp63(float v) {
+  const float lim = 0x1p63f;
+  return v < -lim ? -lim : (v > lim ? lim : v);
+}
+
+// Veltkamp split (12-bit halves) and Dekker TwoProd, without fma
+__device__ __forceinline__ void vsplit(float a, float* h, float* l) {
+  const float t = fmul(4097.0f, a);
+  *h = fsub(t, fsub(t, a));
+  *l = fsub(a, *h);
+}
+
+__device__ __forceinline__ void two_sum(float a, float b, float* s, float* e) {
+  *s = fadd(a, b);
+  const float bb = fsub(*s, a);
+  *e = fadd(fsub(a, fsub(*s, bb)), fsub(b, bb));
+}
+
+// (ah, al) + (bh, bl) as a double-float: TwoSum of the highs, the lows
+// added into the error, TwoSum again
+__device__ __forceinline__ void df_add(float ah, float al, float bh, float bl,
+                                       float* h, float* l) {
+  float s, e;
+  two_sum(ah, bh, &s, &e);
+  two_sum(s, fadd(e, fadd(al, bl)), h, l);
+}
+
+// x * (w_hi + w_lo) as a double-float (hi, lo)
+__device__ __forceinline__ void windowed_df(float x, float wh, float wl,
+                                            float* hi, float* lo) {
+  const float p = fmul(x, wh);
+  float xh, xl, bh, bl;
+  vsplit(x, &xh, &xl);
+  vsplit(wh, &bh, &bl);
+  float e = fadd(fadd(fsub(fmul(xh, bh), p), fmul(xh, bl)), fmul(xl, bh));
+  e = fadd(e, fmul(xl, bl));
+  two_sum(p, fadd(e, fmul(x, wl)), hi, lo);
+}
+
+// Stage-2 slice, one warp per row: each row's 256 f32 values [br | bi] get
+// one pow2 scale (row_scale[r] = s) and are overwritten in place by their
+// packed digit words [plane][kWords2].  The block's kThreads threads call it.
+template <int kRows>
+__device__ __forceinline__ void stage2_slice(float (*rows)[kRow2],
+                                             float* row_scale) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    const float4 v0 = reinterpret_cast<const float4*>(rows[r])[2 * lane];
+    const float4 v1 = reinterpret_cast<const float4*>(rows[r])[2 * lane + 1];
+    const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    float rm = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) rm = nanmax(rm, fabsf(v[q]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      rm = nanmax(rm, __shfl_xor_sync(0xffffffffu, rm, off));
+    float s2, s2_inv;
+    pow2_scale(rm, &s2, &s2_inv);
+    uint32_t packed[kDigits][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}, {0u, 0u}};
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int u = fixed27(v[q], s2_inv) + kBias;
+#pragma unroll
+      for (int k = 0; k < kDigits; ++k)
+        packed[k][q >> 2] |= digit_byte(u, k) << (8 * (q & 3));
+    }
+    __syncwarp();
+    int* words = reinterpret_cast<int*>(rows[r]);
+#pragma unroll
+    for (int k = 0; k < kDigits; ++k) {
+      words[k * kWords2 + 2 * lane] = static_cast<int>(packed[k][0]);
+      words[k * kWords2 + 2 * lane + 1] = static_cast<int>(packed[k][1]);
+    }
+    if (lane == 0) row_scale[r] = s2;
+  }
+}
+
+// Stage 2 proper over kRows sliced rows: thread (k2, row group) runs the re
+// and im columns of its k2 together, the f2 digit words (f2w [4][64][128]
+// packed int8x4 along the [br | bi] row) streaming from L2.  emit(r, k2, m)
+// receives the magnitude of row r at kept bin k2.
+template <int kRows, class Emit>
+__device__ __forceinline__ void stage2_mag(const float (*rows)[kRow2],
+                                           const float* row_scale,
+                                           const int* __restrict__ f2w,
+                                           Emit emit) {
+  constexpr int kRowsPerGroup = kRows / (kThreads / kKeep);
+  constexpr int kTile = kRowsPerGroup < 8 ? kRowsPerGroup : 8;
+  const int k2 = threadIdx.x & (kKeep - 1);
+  const int group = threadIdx.x / kKeep;
+  for (int r0 = group * kRowsPerGroup; r0 < (group + 1) * kRowsPerGroup;
+       r0 += kTile) {
+    int acc[kTile][2][kDigits];
+#pragma unroll
+    for (int r = 0; r < kTile; ++r)
+#pragma unroll
+      for (int k = 0; k < kDigits; ++k) acc[r][0][k] = acc[r][1][k] = 0;
+    for (int kc = 0; kc < kWords2; ++kc) {
+      int fr[kDigits], fi[kDigits];
+#pragma unroll
+      for (int p = 0; p < kDigits; ++p) {
+        fr[p] = __ldg(f2w + (p * kWords2 + kc) * kLanes + k2);
+        fi[p] = __ldg(f2w + (p * kWords2 + kc) * kLanes + kKeep + k2);
+      }
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) {
+        const int* words = reinterpret_cast<const int*>(rows[r0 + r]);
+        int dw[kDigits];
+#pragma unroll
+        for (int p = 0; p < kDigits; ++p) dw[p] = words[p * kWords2 + kc];
+#pragma unroll
+        for (int t = 0; t < kDigits; ++t) {
+#pragma unroll
+          for (int i = 0; i <= t; ++i) {
+            acc[r][0][t] = __dp4a(dw[t - i], fr[i], acc[r][0][t]);
+            acc[r][1][t] = __dp4a(dw[t - i], fi[i], acc[r][1][t]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+      const float s2 = row_scale[r0 + r];
+      const float cr = clamp63(recombine(acc[r][0], s2));
+      const float ci = clamp63(recombine(acc[r][1], s2));
+      emit(r0 + r, k2, sqrtf(fadd(fmul(cr, cr), fmul(ci, ci))));
+    }
+  }
+}
+
+}  // namespace wf

@@ -1,22 +1,33 @@
-"""Exact |rFFT| of channel pairs: the Hopper kernel, its plain twin, the build.
+"""Exact |rFFT| of channel pairs: the Hopper kernels, their plain twins, the build.
 
 The PyTorch counterpart of ``waveform_tpu/kernels/exact_pallas.py``'s
-real-split magnitude kernel (``_kernel_real_mag``, 2-factor stage 1, f32
-twiddle tier).  :func:`rfft_pair_mag` is the entry point:
+real-split magnitude kernels at the f32 twiddle tier: K1
+(``_kernel_real_mag``, 2-factor stage 1) and K2 (``_kernel_real_mag3``,
+3-factor stage 1: a df32 radix-4 butterfly, then two twiddle-folded DFT_a
+digit GEMMs).  :func:`rfft_pair_mag` is the entry point; it routes by size
+(:func:`stage1_split`):
 
-* a CUDA tensor launches the hand-written kernel in ``csrc/exact_mag.cu``,
-  built with ``nvcc`` at first use into ``build/waveform_tpu_torch/`` and
-  bound with ``ctypes``; a build or launch failure raises;
-* a CPU tensor runs :func:`rfft_pair_mag_ref`, the same arithmetic in
-  torch ops (digit products in float64, exact because every integer
-  partial sum stays far below 2^53).
+* a CUDA tensor launches the hand-written kernel, ``csrc/exact_mag.cu``
+  (K1) or ``csrc/exact_mag3.cu`` (K2), built with ``nvcc`` at first use into
+  ``build/waveform_tpu_torch/`` and bound with ``ctypes``; a build or launch
+  failure raises;
+* a CPU tensor runs the twin, :func:`rfft_pair_mag_ref` or
+  :func:`rfft_pair_mag3_ref`: the same arithmetic in torch ops (digit
+  products in float64, exact because every integer partial sum stays far
+  below 2^53).
 
-The kernel and the twin take the same rounding steps in the same order,
+Each kernel and its twin take the same rounding steps in the same order,
 so they agree bit for bit.  Bins come out in natural order.
 
 Geometry: N = 128·N1 (j = 128·j1 + j2, k = k1 + N1·k2), 4 base-2^7 digit
 planes with the first 6 bits deep, digit pairs with i + j <= 3 kept
-(``exactfft.DIGIT_BITS/FIRST_SHIFT/MAX_T``).
+(``exactfft.DIGIT_BITS/FIRST_SHIFT/MAX_T``).  K2 splits N1 = 4a
+(j1 = jq·a + jp, k1 = kq + 4·kp) and produces its rows chunk-major
+(pos = kq·a + kp).
+
+Scale rule: K1 takes one pow2 scale per (stream, j2) column over both
+channels; K2 one per (stream, channel, j2) column, for U02 = [u0; u2] and
+U13 = [u1; u3] separately, as ``_kernel_real_mag3`` does.
 """
 
 from __future__ import annotations
@@ -32,11 +43,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .exactfft import DIGIT_BITS, FIRST_SHIFT, MAX_T, _windowed_df
+from .exactfft import (DIGIT_BITS, FIRST_SHIFT, MAX_T, _windowed_df,
+                       df_add, df_neg)
 
 LANES = 128                     # N2: the stage-2 transform length
 N_DIGITS = MAX_T + 1
-SIZES = (1024, 2048, 4096)      # N1 = 8, 16, 32: what the kernel is built for
+SIZES = (1024, 2048, 4096)      # N1 = 8, 16, 32: what K1 is built for
+SIZES3 = (8192, 16384, 32768, 65536)   # the K2 sizes the JAX plan ships
+MAX_N3 = 65536                  # K2 serves N1 % 32 == 0 up to here
 
 # fixed-point geometry of the parallel digit extraction: i = rint(r·2^27)
 # splits into 4 offset-binary base-128 fields
@@ -45,9 +59,26 @@ _SLICE_BIAS = sum(64 << (_SLICE_TOP - FIRST_SHIFT - DIGIT_BITS * k)
                   for k in range(N_DIGITS))
 _CLAMP = 2.0 ** 63
 
-# count of kernel launches (not of twin calls): a run reads it to show
-# that its main path went through the kernel
+# counts of kernel launches (not of twin calls), K1 and K2 apart: a run
+# reads them to show that its main path went through the kernel it expects
 launches = 0
+launches3 = 0
+
+
+def stage1_split(n: int) -> int:
+    """The kernel that serves size ``n``: 2 (K1, ``exact_mag.cu``) for
+    N1 = n/128 in {8, 16, 32}, 3 (K2, ``exact_mag3.cu``) for
+    8192 <= n <= 65536 with N1 % 32 == 0.  Other sizes raise
+    NotImplementedError."""
+    n1, rem = divmod(n, LANES)
+    if rem == 0 and n1 in (8, 16, 32):
+        return 2
+    if rem == 0 and n1 % 32 == 0 and 8192 <= n <= MAX_N3:
+        return 3
+    raise NotImplementedError(
+        f"the exact |rFFT| kernels cover N/128 in {{8, 16, 32}} and "
+        f"8192 <= N <= {MAX_N3} with N/128 % 32 == 0, got N={n}; other "
+        "sizes wait for the exactfft lowering (ROADMAP A3)")
 
 
 # ---------------------------------------------------------------------------
@@ -88,37 +119,110 @@ def _kernel_plan_real(n: int):
     """
     n1, n2 = n // LANES, LANES
     f1 = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
-    f2 = np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2)
-    tw = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n2)) / n)
     f1r = np.concatenate([f1.real, f1.imag], axis=0)          # [2n1, n1]
-    keep = n2 // 2
-    f2b_kept = np.block([[f2.real[:, :keep], f2.imag[:, :keep]],
-                         [-f2.imag[:, :keep], f2.real[:, :keep]]])
+    return (n1, n2, _digit_planes(f1r), _f2_kept_planes(),
+            *_twiddle_df(np.arange(n1), n))
+
+
+def _f2_kept_planes() -> np.ndarray:
+    """Digit planes [4, 2n2, n2] of the kept-half stage-2 block
+    [[Re f2, Im f2], [-Im f2, Re f2]] restricted to k2 < n2/2."""
+    n2, keep = LANES, LANES // 2
+    f2 = np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2)
+    return _digit_planes(np.block([[f2.real[:, :keep], f2.imag[:, :keep]],
+                                   [-f2.imag[:, :keep], f2.real[:, :keep]]]))
+
+
+def _twiddle_df(k1_rows: np.ndarray, n: int):
+    """The outer twiddle exp(-2πi·k1·j2/n) for rows ``k1_rows`` as
+    (twr_hi, twr_lo, twi_hi, twi_lo, twr_h, twi_h): df32 pairs and the
+    Veltkamp-high halves of the hi words."""
+    tw = np.exp(-2j * np.pi * np.outer(k1_rows, np.arange(LANES)) / n)
     twr_hi = tw.real.astype(np.float32)
     twi_hi = tw.imag.astype(np.float32)
     twr_lo = (tw.real - twr_hi.astype(np.float64)).astype(np.float32)
     twi_lo = (tw.imag - twi_hi.astype(np.float64)).astype(np.float32)
-    return (n1, n2, _digit_planes(f1r), _digit_planes(f2b_kept),
-            twr_hi, twr_lo, twi_hi, twi_lo,
+    return (twr_hi, twr_lo, twi_hi, twi_lo,
             _vsplit_host(twr_hi), _vsplit_host(twi_hi))
+
+
+def _row_unscramble(n: int) -> np.ndarray:
+    """pos(k1) of K2's chunk-major rows: natural k1 lives at row
+    (k1 % 4)·a + k1 // 4."""
+    n1 = n // LANES
+    k1 = np.arange(n1)
+    return (k1 % 4) * (n1 // 4) + k1 // 4
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_plan_real3(n: int):
+    """Constants of the 3-factor real-split transform at size ``n``.
+
+    Returns ``(n1, n2, a, c02d, c13d, f2d, twr_hi, twr_lo, twi_hi, twi_lo,
+    twr_h, twi_h)``: ``c02d``/``c13d`` [4, 4a, 2a] digit planes of the
+    twiddle-folded DFT_a blocks (pair (0, 2) maps [u0; u2] to
+    [A0r; A0i; A2r; A2i], pair (1, 3) maps [u1; u3] to [A1r; A1i; A3r;
+    A3i]), ``f2d`` as in :func:`_kernel_plan_real`, and the outer twiddle
+    with its rows in chunk-major order (pos = kq·a + kp holds
+    k1 = kq + 4·kp).
+    """
+    n1, n2 = n // LANES, LANES
+    a = n1 // 4
+    fa = np.exp(-2j * np.pi * np.outer(np.arange(a), np.arange(a)) / a)
+    g = [fa * np.exp(-2j * np.pi * np.arange(a) * kq / n1)[None, :]
+         for kq in range(4)]
+    c02 = np.block([[g[0].real, g[0].real],
+                    [g[0].imag, g[0].imag],
+                    [g[2].real, -g[2].real],
+                    [g[2].imag, -g[2].imag]])
+    c13 = np.block([[g[1].real, g[1].imag],
+                    [g[1].imag, -g[1].real],
+                    [g[3].real, -g[3].imag],
+                    [g[3].imag, g[3].real]])
+    k1_of_pos = np.arange(n1) // a + 4 * (np.arange(n1) % a)
+    return (n1, n2, a, _digit_planes(c02), _digit_planes(c13),
+            _f2_kept_planes(), *_twiddle_df(k1_of_pos, n))
 
 
 @functools.lru_cache(maxsize=16)
 def _consts(n: int, device: torch.device):
-    """The plan as tensors on ``device``: the digit planes as float64
+    """K1's plan as tensors on ``device``: the digit planes as float64
     matrices (``f1``, ``f2``) for the twin's exact products, and packed
     four int8 digits to an int32 word along each GEMM's contraction axis
     (``f1w`` [4, 2n1, n1/4] over j1, ``f2w`` [4, 2n2/4, n2] over the
     [br | bi] row), the layout the kernel's ``__dp4a`` reads."""
     n1, n2, f1d, f2d, twr, _, twi, _, _, _ = _kernel_plan_real(n)
-    f1b = np.ascontiguousarray(f1d.astype(np.int8))
-    f2b = np.ascontiguousarray(
-        f2d.astype(np.int8).reshape(N_DIGITS, 2 * n2 // 4, 4, n2)
-        .transpose(0, 1, 3, 2))
-    host = {"twr": twr, "twi": twi,
-            "f1": f1d.astype(np.float64), "f2": f2d.astype(np.float64),
-            "f1w": f1b.view("<i4").copy(), "f2w": f2b.view("<i4").copy()}
+    host = {"twr": twr, "twi": twi, "f1": f1d.astype(np.float64),
+            "f1w": _words(f1d), **_f2_consts(f2d)}
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+@functools.lru_cache(maxsize=16)
+def _consts3(n: int, device: torch.device):
+    """K2's plan as tensors on ``device``: ``c02``/``c13`` as float64
+    [4, 4a, 2a] for the twin, ``c02w``/``c13w`` [4, 4a, a/2] packed along
+    the 2a contraction for the kernel, the chunk-major twiddle, and the
+    stage-2 digits as in :func:`_consts`."""
+    _, _, _, c02d, c13d, f2d, twr, _, twi, _, _, _ = _kernel_plan_real3(n)
+    host = {"twr": twr, "twi": twi,
+            "c02": c02d.astype(np.float64), "c13": c13d.astype(np.float64),
+            "c02w": _words(c02d), "c13w": _words(c13d), **_f2_consts(f2d)}
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def _words(planes: np.ndarray) -> np.ndarray:
+    """Digit planes [..., K] -> int32 words packing 4 int8 digits along the
+    last (contraction) axis, lowest index in the lowest byte."""
+    return np.ascontiguousarray(planes.astype(np.int8)).view("<i4").copy()
+
+
+def _f2_consts(f2d: np.ndarray) -> dict:
+    """Stage-2 digits: float64 ``f2`` [4, 2n2, n2] for the twin, and
+    ``f2w`` [4, 2n2/4, n2] packed along the [br | bi] row for the kernel."""
+    n2 = f2d.shape[-1]
+    f2b = f2d.astype(np.int8).reshape(N_DIGITS, 2 * n2 // 4, 4, n2) \
+        .transpose(0, 1, 3, 2)
+    return {"f2": f2d.astype(np.float64), "f2w": _words(f2b)[..., 0]}
 
 
 # ---------------------------------------------------------------------------
@@ -167,34 +271,36 @@ def _recombine(dots: list[torch.Tensor], s: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def rfft_pair_mag_ref(x: torch.Tensor, window=None):
-    """Plain PyTorch twin of the kernel: ``x`` [S, 2, N] f32 ->
-    ``(mag [S, 2, N/2] f32, nzcount [S, 2] f32)``, bins in natural order.
-
-    ``window`` is a (w_hi, w_lo) df32 pair of [N] tensors or None.
-    """
+def _windowed_blocks(x: torch.Tensor, window):
+    """Raw nonzero counts [S, 2] f32 of ``x`` [S, 2, N], and its df32
+    windowed samples (hi, lo) as [S, 2, N1, 128] blocks (j = 128·j1 + j2)."""
     S, _, n = x.shape
-    n1, n2 = n // LANES, LANES
-    keep = n2 // 2
-    c = _consts(n, x.device)
-    nz = (x != 0).sum(-1).to(torch.float32)
+    n1 = n // LANES
     w_hi, w_lo = _window_pair(window, n, x.device)
-    xb = x.reshape(S, 2, n1, n2)
-    hi, lo = _windowed_df(xb, w_hi.reshape(n1, n2), w_lo.reshape(n1, n2))
+    hi, lo = _windowed_df(x.reshape(S, 2, n1, LANES),
+                          w_hi.reshape(n1, LANES), w_lo.reshape(n1, LANES))
+    return (x != 0).sum(-1).to(torch.float32), hi, lo
 
-    # stage 1: per-channel real DFT over j1, one pow2 scale per (s, j2)
-    # column taken over both channels
-    s, s_inv = _pow2_scale(hi.abs().amax(dim=(1, 2), keepdim=True))
+
+def _digit_gemm(planes: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+                s: torch.Tensor, s_inv: torch.Tensor) -> torch.Tensor:
+    """Digit-exact ``planes`` [4, R, K] @ the df32 columns (hi, lo)
+    [..., K, M] scaled by ``s_inv``: fast slice, the 10 digit pairs
+    i + j <= 3, plain f32 recombination -> [..., R, M] f32."""
     d = _digits(_fixed27(hi, s_inv) + _fixed27(lo, s_inv))
-    a = _recombine([sum(c["f1"][i] @ d[t - i] for i in range(t + 1))
-                    for t in range(N_DIGITS)], s)          # [S, 2, 2n1, n2]
-    ar, ai = a[..., :n1, :], a[..., n1:, :]
+    return _recombine([sum(planes[i] @ d[t - i] for i in range(t + 1))
+                       for t in range(N_DIGITS)], s)
 
+
+def _twiddle_stage2(ar: torch.Tensor, ai: torch.Tensor, c: dict):
+    """The tail both kernels share: f32 twiddle of the stage-1 rows
+    ``ar``/``ai`` [S, 2, n1, n2] (rows in the order of ``c``'s twiddle),
+    kept-half stage 2 with one pow2 scale per (s, c, row) over [br | bi],
+    clamp, magnitude -> [S, 2, n1, n2/2]."""
+    keep = LANES // 2
     # f32 twiddle: every product rounded on its own
     br = ar * c["twr"] - ai * c["twi"]
     bi = ar * c["twi"] + ai * c["twr"]
-
-    # stage 2: one pow2 scale per (s, c, k1) row of [br | bi]
     b = torch.cat([br, bi], dim=-1)                        # [S, 2, n1, 2n2]
     s2, s2_inv = _pow2_scale(b.abs().amax(dim=-1, keepdim=True))
     d2 = _digits(_fixed27(b, s2_inv))
@@ -202,7 +308,62 @@ def rfft_pair_mag_ref(x: torch.Tensor, window=None):
                      for t in range(N_DIGITS)], s2)        # [S, 2, n1, n2]
     cr = torch.clamp(cc[..., :keep], -_CLAMP, _CLAMP)
     ci = torch.clamp(cc[..., keep:], -_CLAMP, _CLAMP)
-    mag = torch.sqrt(cr * cr + ci * ci)                    # [S, 2, k1, k2]
+    return torch.sqrt(cr * cr + ci * ci)
+
+
+def rfft_pair_mag_ref(x: torch.Tensor, window=None):
+    """Plain PyTorch twin of K1: ``x`` [S, 2, N] f32 ->
+    ``(mag [S, 2, N/2] f32, nzcount [S, 2] f32)``, bins in natural order.
+
+    ``window`` is a (w_hi, w_lo) df32 pair of [N] tensors or None.
+    """
+    S, _, n = x.shape
+    n1 = n // LANES
+    c = _consts(n, x.device)
+    nz, hi, lo = _windowed_blocks(x, window)
+
+    # stage 1: per-channel real DFT over j1, one pow2 scale per (s, j2)
+    # column taken over both channels
+    s, s_inv = _pow2_scale(hi.abs().amax(dim=(1, 2), keepdim=True))
+    a = _digit_gemm(c["f1"], hi, lo, s, s_inv)            # [S, 2, 2n1, n2]
+    mag = _twiddle_stage2(a[..., :n1, :], a[..., n1:, :], c)
+    return mag.transpose(-1, -2).reshape(S, 2, n // 2), nz
+
+
+def rfft_pair_mag3_ref(x: torch.Tensor, window=None):
+    """Plain PyTorch twin of K2, the same contract as
+    :func:`rfft_pair_mag_ref`: ``x`` [S, 2, N] f32 with N = 512·a,
+    a % 8 == 0."""
+    S, _, n = x.shape
+    a = n // LANES // 4
+    c = _consts3(n, x.device)
+    nz, hi, lo = _windowed_blocks(x, window)
+
+    # radix-4 butterflies over the four a-row chunks, df32 adds
+    ch = [(hi[:, :, q * a:(q + 1) * a], lo[:, :, q * a:(q + 1) * a])
+          for q in range(4)]
+    u0 = df_add(ch[0], ch[2])
+    u1 = df_add(ch[0], df_neg(ch[2]))
+    u2 = df_add(ch[1], ch[3])
+    u3 = df_add(ch[1], df_neg(ch[3]))
+
+    # two digit GEMMs, one pow2 scale per (s, c, j2) column of each of
+    # U02 = [u0; u2] and U13 = [u1; u3]
+    def stage1(planes, top, bottom):
+        h = torch.cat([top[0], bottom[0]], dim=2)          # [S, 2, 2a, 128]
+        l = torch.cat([top[1], bottom[1]], dim=2)
+        s, s_inv = _pow2_scale(h.abs().amax(dim=2, keepdim=True))
+        return _digit_gemm(planes, h, l, s, s_inv)         # [S, 2, 4a, 128]
+
+    a02 = stage1(c["c02"], u0, u2)      # rows [A0r; A0i; A2r; A2i]
+    a13 = stage1(c["c13"], u1, u3)      # rows [A1r; A1i; A3r; A3i]
+    # chunk-major rows: pos = kq·a + kp
+    ar = torch.cat([a02[:, :, :a], a13[:, :, :a],
+                    a02[:, :, 2 * a:3 * a], a13[:, :, 2 * a:3 * a]], dim=2)
+    ai = torch.cat([a02[:, :, a:2 * a], a13[:, :, a:2 * a],
+                    a02[:, :, 3 * a:], a13[:, :, 3 * a:]], dim=2)
+    unscramble = torch.from_numpy(_row_unscramble(n)).to(x.device)
+    mag = _twiddle_stage2(ar, ai, c)[:, :, unscramble]
     return mag.transpose(-1, -2).reshape(S, 2, n // 2), nz
 
 
@@ -214,14 +375,13 @@ def _window_pair(window, n: int, device: torch.device):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel: build, bind, launch
+# the CUDA kernels: build, bind, launch
 # ---------------------------------------------------------------------------
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "waveform_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 _lib = None
 build_info: dict = {}    # "library": the .so path; "log": nvcc's output
@@ -240,7 +400,8 @@ def _nvcc() -> str:
 
 def build() -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` into a shared library (once per source hash)
-    and bind it.  Raises on a failed build."""
+    and bind it: one ``nvcc`` per source, all started together, then one
+    link.  Raises on a failed build."""
     global _lib
     if _lib is not None:
         return _lib
@@ -252,20 +413,64 @@ def build() -> ctypes.CDLL:
     if not out.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        nvcc = _nvcc()
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        try:
+            for src, proc, log in zip(sources, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+            r = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                                str(tmp), *map(str, objs)],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                                   f"{r.stderr}")
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, out)
-        build_info["log"] = r.stderr
+        build_info["log"] = "".join(logs)
     build_info["library"] = str(out)
     lib = ctypes.CDLL(str(out))
     lib.wf_exact_mag.restype = ctypes.c_int
     lib.wf_exact_mag.argtypes = ([ctypes.c_void_p] * 9
                                  + [ctypes.c_int, ctypes.c_int,
                                     ctypes.c_void_p])
+    lib.wf_exact_mag3.restype = ctypes.c_int
+    lib.wf_exact_mag3.argtypes = ([ctypes.c_void_p] * 12
+                                  + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p])
     _lib = lib
     return lib
+
+
+def _check_pair(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32 or x.dim() != 3 or x.shape[1] != 2:
+        raise ValueError(f"expected [S, 2, N] float32, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+
+
+def _checked_window(x: torch.Tensor, window):
+    """The df32 window pair for ``x`` (ones/zeros for None), checked, and
+    ``x``'s device checked: CPU takes a twin, CUDA a contiguous launch."""
+    n = x.shape[-1]
+    w_hi, w_lo = _window_pair(window, n, x.device)
+    for w in (w_hi, w_lo):
+        if (w.shape != (n,) or w.dtype != torch.float32
+                or w.device != x.device or not w.is_contiguous()):
+            raise ValueError("window must be a pair of contiguous [N] float32 "
+                             "tensors on the input's device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    return w_hi, w_lo
 
 
 def rfft_pair_mag(x: torch.Tensor, window=None):
@@ -273,31 +478,18 @@ def rfft_pair_mag(x: torch.Tensor, window=None):
 
     Returns ``(mag [S, 2, N/2] f32, nzcount [S, 2] f32)`` in natural bin
     order.  ``window`` is a (w_hi, w_lo) df32 pair of [N] f32 tensors on
-    ``x``'s device, or None for no window.  A CUDA tensor launches the
-    kernel, a CPU tensor takes :func:`rfft_pair_mag_ref`.
+    ``x``'s device, or None for no window.  The size picks the kernel
+    (:func:`stage1_split`): K1 here, K2 through :func:`rfft_pair_mag3`.  A
+    CUDA tensor launches the kernel, a CPU tensor takes its twin.
     """
     global launches
-    if x.dtype != torch.float32 or x.dim() != 3 or x.shape[1] != 2:
-        raise ValueError(f"expected [S, 2, N] float32, got {tuple(x.shape)} "
-                         f"{x.dtype}")
+    _check_pair(x)
     n = x.shape[-1]
-    if n not in SIZES:
-        raise NotImplementedError(
-            f"exact |rFFT| kernel covers N in {SIZES}, got N={n}; other sizes "
-            "wait for the 3-factor kernel and the exactfft lowering "
-            "(ROADMAP B2, B4)")
-    w_hi, w_lo = _window_pair(window, n, x.device)
-    for w in (w_hi, w_lo):
-        if (w.shape != (n,) or w.dtype != torch.float32
-                or w.device != x.device or not w.is_contiguous()):
-            raise ValueError("window must be a pair of contiguous [N] float32 "
-                             "tensors on the input's device")
+    if stage1_split(n) == 3:
+        return rfft_pair_mag3(x, window)
+    w_hi, w_lo = _checked_window(x, window)
     if x.device.type == "cpu":
         return rfft_pair_mag_ref(x, (w_hi, w_lo))
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
     lib = build()
     S = x.shape[0]
     mag = torch.empty((S, 2, n // 2), dtype=torch.float32, device=x.device)
@@ -312,4 +504,41 @@ def rfft_pair_mag(x: torch.Tensor, window=None):
     if err != 0:
         raise RuntimeError(f"exact_mag kernel launch failed: cudaError {err}")
     launches += 1
+    return mag, nz
+
+
+def rfft_pair_mag3(x: torch.Tensor, window=None):
+    """K2 directly, at any N = 512·a with a % 8 == 0 up to 65536 (N=4096
+    included, which :func:`rfft_pair_mag` sends to K1).  The contract of
+    :func:`rfft_pair_mag`; a CPU tensor takes :func:`rfft_pair_mag3_ref`.
+    """
+    global launches3
+    _check_pair(x)
+    n = x.shape[-1]
+    n1, rem = divmod(n, LANES)
+    if rem or n1 % 32 or not 4096 <= n <= MAX_N3:
+        raise NotImplementedError(
+            f"the 3-factor kernel covers N = 4096·k up to {MAX_N3}, got N={n}")
+    w_hi, w_lo = _checked_window(x, window)
+    if x.device.type == "cpu":
+        return rfft_pair_mag3_ref(x, (w_hi, w_lo))
+    lib = build()
+    S = x.shape[0]
+    dev = x.device
+    mag = torch.empty((S, 2, n // 2), dtype=torch.float32, device=dev)
+    nz = torch.empty((S, 2), dtype=torch.float32, device=dev)
+    # stage-1 output rows [br | bi] and the int32 nonzero sums
+    rows = torch.empty((S, 2, n1, 2 * LANES), dtype=torch.float32, device=dev)
+    nz_int = torch.empty((S, 2), dtype=torch.int32, device=dev)
+    c = _consts3(n, dev)
+    with torch.cuda.device(dev):
+        err = lib.wf_exact_mag3(
+            x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+            c["c02w"].data_ptr(), c["c13w"].data_ptr(), c["f2w"].data_ptr(),
+            c["twr"].data_ptr(), c["twi"].data_ptr(), rows.data_ptr(),
+            nz_int.data_ptr(), mag.data_ptr(), nz.data_ptr(), S, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"exact_mag3 kernel launch failed: cudaError {err}")
+    launches3 += 1
     return mag, nz
