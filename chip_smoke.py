@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's spectrum serving path once on an NVIDIA GPU.
+"""Drive the PyTorch port's spectrum serving paths once on an NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -8,8 +8,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 
 1. device  — a CUDA device of compute capability 9.0; prints its name and
    power limit as nvidia-smi reports them;
-2. build   — the exact |rFFT| kernel compiled from ``waveform_tpu_torch/
-   csrc`` with nvcc;
+2. build   — the exact FFT kernels compiled from ``waveform_tpu_torch/
+   csrc`` with nvcc (one process per source); prints ptxas's entry
+   function and register lines as nvcc gives them;
 3. kernel  — the kernel against its plain PyTorch twin and float64 numpy at
    N in {1024, 2048, 4096}, S in {1, 7, 256}, Hann df32 window and none,
    with a silent stream, a silent channel, a 1e20 stream and a NaN stream;
@@ -32,7 +33,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
    the CPU port on 2 streams and the accuracy gate against the float64
    oracle;
 8. times3  — K2 and its twin at (N, S) = (8192, 256), (16384, 256),
-   (32768, 64), (65536, 32), and the full tick at N=65536, S=32.
+   (32768, 64), (65536, 32), and the full tick at N=65536, S=32;
+9. cfft    — the complex kernel (K3) against its twin and float64 numpy at
+   N in {1024, 3072, 4096, 16384, 32768}, S in {1, 7, 64}, and at the
+   slice's (4096, 256); on f32 pairs, on Hann-windowed df32 pairs (path
+   a's input) and on a Hann-windowed df32 real part with a zero imaginary
+   part (path b's input), with the bad streams of phase 3; one launch per
+   call;
+10. slice_packed — ``ServingEngine`` under WAVEFORM_TPU_EXACT_FUSED=never
+   at the headline configuration, stereo (path a) and mono capture (path
+   b), 8 ticks each: one K3 launch per tick and no K1/K2 launch, finite
+   pixels, the silent stream at DB_MIN, the 440 Hz peak within one bin,
+   agreement with the CPU port on the first streams, and the accuracy
+   gate against the float64 oracle;
+11. slice_small — the auto FFT size (N=800 at 48 kHz and 60 fps), stereo,
+   S=256, the gate unset (path c), 8 ticks: the digit lowering in torch
+   ops and no kernel launch of any kind, with the checks of phase 10;
+12. times_cfft — K3 and its twin at (N, S) = (4096, 256), (32768, 32), and
+   the full tick of paths a and c at S=256.
 
 Every phase's seconds are printed before the kernels' JSON record and the
 result line, which are the last two lines.
@@ -40,7 +58,9 @@ result line, which are the last two lines.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -53,6 +73,20 @@ SR, HOP = 48000, 800
 TOL = 2.5e-7          # kernel bound of the JAX package's tests
 TOL_SPLITS = 3e-7     # K2 vs K1 (tests/test_exact_pallas.py:217-229)
 SEED = 0
+
+
+@contextlib.contextmanager
+def env(name: str, value: str | None):
+    """Set (or, for None, unset) one environment variable for a block."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        os.environ.pop(name, None)
+        if old is not None:
+            os.environ[name] = old
 
 
 def check(cond: bool, msg: str) -> None:
@@ -161,27 +195,89 @@ def phase_kernel(exact_cuda, dev, kernel, twin, counter: str, sizes,
     return cases, worst
 
 
-def feed_signal(rng, S: int, k: int) -> np.ndarray:
-    """[S, 2, HOP]: a 440 Hz tone plus noise; the last stream is silent."""
+def c128(z) -> np.ndarray:
+    """((re_hi, re_lo), (im_hi, im_lo)) df32 tensors -> complex128."""
+    def val(p):
+        return (p[0].double() + p[1].double()).cpu().numpy()
+    return val(z[0]) + 1j * val(z[1])
+
+
+def phase_cfft(exact_cuda, exactfft, dev, shapes, seed: int):
+    """K3 vs its twin vs float64 at each (N, S) of ``shapes`` on three
+    inputs made from ``x`` [S, 2, N]: the channel pair as f32 tensors, as
+    Hann-windowed df32 pairs (the packed pair's input), and channel 0 as
+    a Hann-windowed df32 real part with a zero f32 imaginary part (the
+    mono input).  Each call adds one to ``exact_cuda.launches_cfft`` and
+    agrees with the twin and float64 within TOL; a silent stream stays
+    exactly 0, the 1e20 stream finite, and the 1e20/NaN streams keep to
+    themselves.  Returns the number of cases and the worst relative
+    errors."""
+    rng = np.random.default_rng(seed)
+    worst = {"twin": 0.0, "f64": 0.0}
+    cases = 0
+    for n, S in shapes:
+        for kind in ("f32", "df32", "mono"):
+            x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
+            x[0, 0] += np.sin(2 * np.pi * 440.0 * np.arange(n) / SR)
+            bad = bad_streams(x, rng)
+            good = [s for s in range(S) if s not in bad]
+            xd = torch.from_numpy(x).to(dev)
+            w64, win = hann_pair(n, dev)
+            if kind == "f32":
+                w64 = np.ones(n)
+                re, im = xd[:, 0].contiguous(), xd[:, 1].contiguous()
+            elif kind == "df32":
+                re, im = (exactfft._windowed_df(xd[:, c], *win)
+                          for c in range(2))
+            else:
+                x[:, 1] = 0.0
+                re = exactfft._windowed_df(xd[:, 0], *win)
+                im = torch.zeros_like(xd[:, 0])
+            before = exact_cuda.launches_cfft
+            got = c128(exact_cuda.cfft_exact_kernel(re, im))
+            torch.cuda.synchronize()
+            check(exact_cuda.launches_cfft == before + 1,
+                  f"launches_cfft N={n} S={S} {kind}")
+            twin = c128(exact_cuda.cfft_exact_ref(re, im))
+            want = np.fft.fft((x[good, 0].astype(np.float64)
+                               + 1j * x[good, 1].astype(np.float64)) * w64)
+            scale = np.abs(want).max()
+            e_twin = np.abs(got[good] - twin[good]).max() / scale
+            e_f64 = np.abs(got[good] - want).max() / scale
+            check(e_twin <= TOL, f"K3 N={n} S={S} {kind} vs twin {e_twin}")
+            check(e_f64 <= TOL, f"K3 N={n} S={S} {kind} vs f64 {e_f64}")
+            if bad:
+                check(np.isfinite(got[3]).all(), "1e20 stream not finite")
+                check((got[1] == 0).all(), "silent stream not zero")
+            worst["twin"] = max(worst["twin"], e_twin)
+            worst["f64"] = max(worst["f64"], e_f64)
+            cases += 1
+    return cases, worst
+
+
+def feed_signal(rng, S: int, k: int, channels: int = 2) -> np.ndarray:
+    """[S, channels, HOP]: a 440 Hz tone plus noise; the last stream is
+    silent."""
     t = (np.arange(HOP) + k * HOP) / SR
     x = 0.5 * np.sin(2 * np.pi * 440.0 * t) + 0.05 * rng.standard_normal(
-        (S, 2, HOP))
+        (S, channels, HOP))
     x[-1] = 0.0
     return x.astype(np.float32)
 
 
-def oracle_gate(wt, ServingEngine, fft_size: int, ticks: int, rng, now0):
+def oracle_gate(wt, ServingEngine, fft_size: int, ticks: int, rng, now0,
+                channels: int = 2):
     """The bench's accuracy gate: TSmoothing NONE, one noise window in the
     ring against the float64 oracle, max |dB err| on bins above -120 dBFS."""
     gcfg = wt.resolve(wt.Settings(fft_size=fft_size,
                                   enable_large_fft=fft_size > 8192,
                                   width=800, window=wt.FFTWindow.HANN,
                                   temporal_smoothing=wt.TSmoothingMode.NONE),
-                      wt.AudioInfo(SR, 2))
+                      wt.AudioInfo(SR, channels))
     geng = ServingEngine(gcfg, 2, device="cuda")
     for k in range(ticks):
         now = now0 + k * 16_666_667
-        geng.feed_batch(rng.uniform(-0.5, 0.5, (2, 2, HOP)).astype(
+        geng.feed_batch(rng.uniform(-0.5, 0.5, (2, channels, HOP)).astype(
             np.float32), now, now_ns=now)
         geng.tick(now_ns=now)
     window = geng.ring.buf[0].cpu().numpy().astype(np.float64)
@@ -197,15 +293,16 @@ def drive_slice(wt, exact_cuda, eng, cpu, packets, now0):
     """Feed ``packets`` through the card engine (counts set to 0 just
     before, read just after) and, for its first streams and the silent
     last one, through the CPU port; check pixels, silence, the tone's peak
-    and card vs CPU.  Returns (launches, launches3, pixel shape, peak Hz,
-    card-vs-CPU dB)."""
-    exact_cuda.launches = exact_cuda.launches3 = 0
+    and card vs CPU.  Returns (launches, launches3, launches_cfft, pixel
+    shape, peak Hz, card-vs-CPU dB)."""
+    exact_cuda.launches = exact_cuda.launches3 = exact_cuda.launches_cfft = 0
     for k, x in enumerate(packets):
         now = now0 + k * 16_666_667
         eng.feed_batch(x, now, now_ns=now)
         eng.tick(now_ns=now)
     torch.cuda.synchronize()
-    counts = (exact_cuda.launches, exact_cuda.launches3)
+    counts = (exact_cuda.launches, exact_cuda.launches3,
+              exact_cuda.launches_cfft)
     n_cpu = cpu.S - 1
     for k, x in enumerate(packets):
         now = now0 + k * 16_666_667
@@ -256,6 +353,27 @@ def kernel_times(kernel, twin, n: int, S: int, dev):
             cuda_median_ms(lambda: twin(xd, win)), max_abs)
 
 
+def cfft_times(exact_cuda, exactfft, n: int, S: int, dev):
+    """(K3 ms, twin ms, max |K3 - twin| over the four df32 outputs) on a
+    Hann-windowed df32 pair [S, n], the packed pair's input; the
+    difference must stay within TOL of the twin's largest bin."""
+    rng = np.random.default_rng(SEED + 5)
+    x = torch.from_numpy((0.5 * rng.standard_normal((S, 2, n))).astype(
+        np.float32)).to(dev)
+    _, win = hann_pair(n, dev)
+    re, im = (exactfft._windowed_df(x[:, c], *win) for c in range(2))
+    z = exact_cuda.cfft_exact_kernel(re, im)
+    ref = exact_cuda.cfft_exact_ref(re, im)
+    max_abs = max(float((a - b).abs().max())
+                  for a, b in zip((*z[0], *z[1]), (*ref[0], *ref[1])))
+    scale = max(float(ref[0][0].abs().max()), float(ref[1][0].abs().max()))
+    check(max_abs <= TOL * scale,
+          f"K3 vs twin at N={n} S={S}: {max_abs} > {TOL} x {scale}")
+    return (cuda_median_ms(lambda: exact_cuda.cfft_exact_kernel(re, im)),
+            cuda_median_ms(lambda: exact_cuda.cfft_exact_ref(re, im)),
+            max_abs)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -270,20 +388,19 @@ def main() -> None:
     print(card, flush=True)              # nvidia-smi's name, power.limit
 
     import waveform_tpu_torch as wt
-    from waveform_tpu_torch.kernels import exact_cuda
+    from waveform_tpu_torch.kernels import exact_cuda, exactfft
     from waveform_tpu_torch.runtime.serving import ServingEngine
 
     # 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     exact_cuda.build()
-    regs = [ln.split(":", 1)[1].strip()
-            for ln in exact_cuda.build_info.get("log", "").splitlines()
-            if "registers" in ln]
     secs["build"] = time.perf_counter() - t0
     print(f"build: {secs['build']:.2f} s "
-          f"({exact_cuda.build_info['library']}; ptxas: {regs}; torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}, capability "
-          f"{cap})", flush=True)
+          f"({exact_cuda.build_info['library']}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, capability {cap})", flush=True)
+    for ln in exact_cuda.build_info.get("log", "").splitlines():
+        if "entry function" in ln or "registers" in ln:
+            print(f"build: {ln.strip()}", flush=True)
 
     # 3. kernel vs twin ---------------------------------------------------
     t0 = time.perf_counter()
@@ -307,10 +424,11 @@ def main() -> None:
     rng = np.random.default_rng(SEED + 1)
     packets = [feed_signal(rng, S, k) for k in range(ticks)]
     now0 = time.monotonic_ns()
-    launches, launches3, px_shape, peak_hz, e_cpu = drive_slice(
+    launches, launches3, n_cfft, px_shape, peak_hz, e_cpu = drive_slice(
         wt, exact_cuda, eng, cpu, packets, now0)
     check(launches == ticks, f"{launches} kernel launches in {ticks} ticks")
-    check(launches3 == 0, f"{launches3} K2 launches at N=4096")
+    check(launches3 == 0 and n_cfft == 0,
+          f"{launches3} K2 and {n_cfft} K3 launches at N=4096")
     gate = oracle_gate(wt, ServingEngine, 4096, 8, rng, now0)
     torch.cuda.synchronize()
     secs["slice"] = time.perf_counter() - t0
@@ -358,10 +476,11 @@ def main() -> None:
     cpu3 = ServingEngine(cfg3, 2, device="cpu")
     packets3 = [feed_signal(rng, S3, k) for k in range(ticks3)]
     now3 = time.monotonic_ns()
-    k1_in_3, launches3, px3, peak3, e_cpu3 = drive_slice(
+    k1_in_3, launches3, k3_in_3, px3, peak3, e_cpu3 = drive_slice(
         wt, exact_cuda, eng3, cpu3, packets3, now3)
     check(launches3 == ticks3, f"{launches3} K2 launches in {ticks3} ticks")
-    check(k1_in_3 == 0, f"{k1_in_3} K1 launches at N=65536")
+    check(k1_in_3 == 0 and k3_in_3 == 0,
+          f"{k1_in_3} K1 and {k3_in_3} K3 launches at N=65536")
     gate3 = oracle_gate(wt, ServingEngine, 65536, ticks3, rng, now3)
     torch.cuda.synchronize()
     secs["slice3"] = time.perf_counter() - t0
@@ -384,6 +503,97 @@ def main() -> None:
     print(f"times3 [{card}]: full tick (feed_batch + tick) "
           f"{t3_ms * 1e3:.1f} us at S={S3} N=65536 = "
           f"{S3 / (t3_ms * 1e-3):,.0f} frames/s", flush=True)
+    del eng3, cpu3
+
+    # 9. cfft: K3 vs twin ---------------------------------------------------
+    t0 = time.perf_counter()
+    sizes_c = (1024, 3072, 4096, 16384, 32768)
+    shapes_c = [(n, s_n) for n in sizes_c for s_n in (1, 7, 64)]
+    cases_c, worst_c = phase_cfft(exact_cuda, exactfft, dev,
+                                  shapes_c + [(4096, S)], SEED + 4)
+    secs["cfft"] = time.perf_counter() - t0
+    print(f"cfft: {cases_c} cases at N in {sizes_c} and (N, S) = "
+          f"(4096, {S}), f32/df32/mono inputs, max|d|/max|ref| vs "
+          f"twin {worst_c['twin']:.3e}, vs float64 {worst_c['f64']:.3e} "
+          f"(bound {TOL}); silent stream 0, 1e20/NaN streams isolated",
+          flush=True)
+
+    # 10. slice_packed: paths a (stereo) and b (mono) under FUSED=never -----
+    t0 = time.perf_counter()
+    packed = {}
+    with env("WAVEFORM_TPU_EXACT_FUSED", "never"):
+        for path, channels in (("a", 2), ("b", 1)):
+            cfg_p = wt.resolve(wt.Settings(fft_size=4096, width=800,
+                                           window=wt.FFTWindow.HANN,
+                                           interp_mode=wt.InterpMode.LANCZOS),
+                               wt.AudioInfo(SR, channels))
+            eng_p = ServingEngine(cfg_p, S, device="cuda")
+            cpu_p = ServingEngine(cfg_p, 4, device="cpu")
+            pk = [feed_signal(rng, S, k, channels) for k in range(ticks)]
+            now_p = time.monotonic_ns()
+            k1_p, k2_p, k3_p, px_p, peak_p, e_cpu_p = drive_slice(
+                wt, exact_cuda, eng_p, cpu_p, pk, now_p)
+            check(k3_p == ticks and k1_p == 0 and k2_p == 0,
+                  f"path {path}: {k3_p} K3, {k1_p} K1, {k2_p} K2 launches "
+                  f"in {ticks} ticks")
+            gate_p = oracle_gate(wt, ServingEngine, 4096, 8, rng, now_p,
+                                 channels)
+            packed[path] = (eng_p, pk, now_p, k3_p)
+            print(f"slice_packed: path {path} ({channels}-channel capture, "
+                  f"EXACT_FUSED=never) S={S} N=4096 800px Lanczos, {ticks} "
+                  f"ticks, {k3_p} K3 launches, {k1_p} K1, {k2_p} K2, pixels "
+                  f"{px_p} finite, silent stream at DB_MIN, peak "
+                  f"{peak_p:.1f} Hz, card vs CPU port {e_cpu_p:.2e} dB, "
+                  f"oracle gate {gate_p:.2e} dB (< 1e-4)", flush=True)
+            del cpu_p
+    torch.cuda.synchronize()
+    secs["slice_packed"] = time.perf_counter() - t0
+
+    # 11. slice_small: path c, the auto FFT size through the lowering -----
+    t0 = time.perf_counter()
+    with env("WAVEFORM_TPU_EXACT_FUSED", None):
+        cfg_c = wt.resolve(wt.Settings(auto_fft_size=True, width=800,
+                                       window=wt.FFTWindow.HANN,
+                                       interp_mode=wt.InterpMode.LANCZOS),
+                           wt.AudioInfo(SR, 2))
+        check(cfg_c.fft_size == 800, f"auto fft_size {cfg_c.fft_size}")
+        eng_c = ServingEngine(cfg_c, S, device="cuda")
+        cpu_c = ServingEngine(cfg_c, 4, device="cpu")
+        pk_c = [feed_signal(rng, S, k) for k in range(ticks)]
+        now_c = time.monotonic_ns()
+        counts_c = drive_slice(wt, exact_cuda, eng_c, cpu_c, pk_c, now_c)
+        check(counts_c[:3] == (0, 0, 0), f"path c kernel launches "
+              f"{counts_c[:3]}")
+        gate_c = oracle_gate(wt, ServingEngine, 800, 2, rng, now_c)
+    torch.cuda.synchronize()
+    secs["slice_small"] = time.perf_counter() - t0
+    print(f"slice_small: path c (auto FFT size) S={S} N=800 800px Lanczos, "
+          f"{ticks} ticks, K1/K2/K3 launches {counts_c[:3]}, pixels "
+          f"{counts_c[3]} finite, silent stream at DB_MIN, peak "
+          f"{counts_c[4]:.1f} Hz, card vs CPU port {counts_c[5]:.2e} dB, "
+          f"oracle gate {gate_c:.2e} dB (< 1e-4)", flush=True)
+    del cpu_c
+
+    # 12. times_cfft --------------------------------------------------------
+    t0 = time.perf_counter()
+    for n, s_n in ((4096, 256), (32768, 32)):
+        kc_ms, pc_ms, max_abs_c = cfft_times(exact_cuda, exactfft, n, s_n,
+                                             dev)
+        print(f"times_cfft [{card}]: K3 {kc_ms * 1e3:.1f} us, twin "
+              f"{pc_ms * 1e3:.1f} us at S={s_n} N={n}, max|K3 - twin| "
+              f"{max_abs_c:.1e}", flush=True)
+        if n == 4096:
+            cfft_row = (kc_ms, pc_ms, max_abs_c)
+    with env("WAVEFORM_TPU_EXACT_FUSED", "never"):
+        eng_a, pk_a, now_a, launches_c = packed["a"]
+        ta_ms = tick_ms(eng_a, pk_a, now_a)
+    with env("WAVEFORM_TPU_EXACT_FUSED", None):
+        tc_ms = tick_ms(eng_c, pk_c, now_c)
+    secs["times_cfft"] = time.perf_counter() - t0
+    for path, n, t_ms in (("a", 4096, ta_ms), ("c", 800, tc_ms)):
+        print(f"times_cfft [{card}]: full tick (feed_batch + tick) path "
+              f"{path} {t_ms * 1e3:.1f} us at S={S} N={n} = "
+              f"{S / (t_ms * 1e-3):,.0f} frames/s", flush=True)
 
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "jax was imported")
@@ -399,7 +609,12 @@ def main() -> None:
          "source": "waveform_tpu_torch/csrc/exact_mag3.cu",
          "replaces": "waveform_tpu/kernels/exact_pallas.py:825",
          "launches": launches3, "max_abs_err": max_abs3,
-         "ms": k3_ms, "plain_ms": p3_ms}]}))
+         "ms": k3_ms, "plain_ms": p3_ms},
+        {"name": "exact_cfft", "route": "cuda",
+         "source": "waveform_tpu_torch/csrc/exact_cfft.cu",
+         "replaces": "waveform_tpu/kernels/exact_pallas.py:479",
+         "launches": launches_c, "max_abs_err": cfft_row[2],
+         "ms": cfft_row[0], "plain_ms": cfft_row[1]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

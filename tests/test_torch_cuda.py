@@ -180,3 +180,67 @@ def test_large_fft_engine_on_card_matches_cpu_port(dev):
     np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
     assert card.last_silent[-1]
     assert np.isfinite(card.read_pixels()).all()
+
+
+@pytest.mark.parametrize("n", [1024, 3072, 32768])
+def test_k3_matches_twin_and_f64(n, dev):
+    """K3 on df32 windowed pairs, bit for bit against its twin, one launch
+    per call, within 2.5e-7 of float64."""
+    from waveform_tpu_torch.kernels.exactfft import _windowed_df
+
+    S = 5
+    rng = np.random.default_rng(n + 11)
+    x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
+    x[-1] = 0.0
+    w64, win = _hann(n, dev)
+    xd = torch.from_numpy(x).to(dev)
+    re, im = (_windowed_df(xd[:, c], *win) for c in range(2))
+    before = exact_cuda.launches_cfft
+    z = exact_cuda.cfft_exact_kernel(re, im)
+    torch.cuda.synchronize()
+    assert exact_cuda.launches_cfft == before + 1
+    ref = exact_cuda.cfft_exact_ref(re, im)
+    assert exact_cuda.launches_cfft == before + 1
+    for got, want in zip((*z[0], *z[1]), (*ref[0], *ref[1])):
+        assert torch.equal(got, want)
+    got = ((z[0][0].double() + z[0][1].double()).cpu().numpy()
+           + 1j * (z[1][0].double() + z[1][1].double()).cpu().numpy())
+    want = np.fft.fft((x[:, 0].astype(np.float64)
+                       + 1j * x[:, 1].astype(np.float64)) * w64)
+    assert np.abs(got - want).max() / np.abs(want).max() <= TOL
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("channels", [2, 1])
+def test_fused_never_engine_on_card_matches_cpu_port(channels, dev,
+                                                     monkeypatch):
+    """``WAVEFORM_TPU_EXACT_FUSED=never`` at N=1024: one K3 launch per tick
+    and no pair-kernel launch, stereo and mono capture, against the CPU
+    port."""
+    monkeypatch.setenv("WAVEFORM_TPU_EXACT_FUSED", "never")
+    cfg = resolve(Settings(fft_size=1024, width=400, window=FFTWindow.HANN,
+                           interp_mode=InterpMode.LANCZOS),
+                  AudioInfo(48000, channels))
+    S = 4
+    card = ServingEngine(cfg, S, device=dev)
+    cpu = ServingEngine(cfg, S, device="cpu")
+    rng = np.random.default_rng(4)
+    before = (exact_cuda.launches, exact_cuda.launches3,
+              exact_cuda.launches_cfft)
+    for k in range(6):
+        x = (0.3 * rng.standard_normal((S, channels, 800))).astype(np.float32)
+        x[-1] = 0.0
+        now = 10_000_000_000 + k * 16_666_667
+        for eng in (card, cpu):
+            eng.feed_batch(x, now, now_ns=now)
+            eng.tick(now_ns=now)
+    assert (exact_cuda.launches, exact_cuda.launches3,
+            exact_cuda.launches_cfft) == (before[0], before[1], before[2] + 6)
+    db, want = card.read_decibels(), cpu.read_decibels()
+    vis = want > -120.0
+    np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)
+    floor = want == np.float32(DB_MIN)
+    np.testing.assert_array_equal(db[floor], want[floor])
+    np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
+    assert card.last_silent[-1]
+    assert np.isfinite(card.read_pixels()).all()

@@ -176,6 +176,43 @@ def test_large_fft_slice_matches_jax(kernel_on, monkeypatch):
     assert port.read_pixels().shape == (S, 1, 800)
 
 
+@pytest.mark.parametrize("n,channels,fused", [
+    (800, 2, None), (1024, 2, "never"), (1024, 1, "never")])
+def test_packed_pair_slice_matches_jax(n, channels, fused, kernel_on,
+                                       monkeypatch):
+    """The packed-pair path: the auto FFT size N=800 (48 kHz at 60 fps)
+    through the digit lowering, and N=1024 under
+    ``WAVEFORM_TPU_EXACT_FUSED=never`` through K3, stereo and mono capture.
+    Hann, Lanczos, a silent stream; no pair-kernel launch and, on the CPU,
+    no K3 launch either (the twin runs)."""
+    if fused:
+        monkeypatch.setenv("WAVEFORM_TPU_EXACT_FUSED", fused)
+    else:
+        monkeypatch.delenv("WAVEFORM_TPU_EXACT_FUSED", raising=False)
+    settings = (Settings(auto_fft_size=True, width=400,
+                         window=FFTWindow.HANN, interp_mode=InterpMode.LANCZOS)
+                if n == 800 else
+                Settings(fft_size=n, width=400, window=FFTWindow.HANN,
+                         interp_mode=InterpMode.LANCZOS))
+    cfg = resolve(settings, AudioInfo(SR, channels))
+    assert cfg.fft_size == n
+    S = 3
+    port, ref = _engines(cfg, S)
+    rng = np.random.default_rng(70 + n + channels)
+    before = (exact_cuda.launches, exact_cuda.launches3,
+              exact_cuda.launches_cfft)
+    for k in range(4):
+        x = _audio(rng, S, k, silent=[2])[:, :channels]
+        now = T0 + k * FRAME_NS
+        for eng in (port, ref):
+            eng.feed_batch(x, now, now_ns=now)
+            eng.tick(now_ns=now)
+        _assert_same(port, ref)
+    assert port.last_silent[2] and not port.last_silent[:2].any()
+    assert (exact_cuda.launches, exact_cuda.launches3,
+            exact_cuda.launches_cfft) == before
+
+
 def _oracle_gate(settings, ticks, seed):
     """The bench's accuracy gate on the port: a TSmoothing-NONE engine's
     frame against the float64 oracle on the window in its ring, max |dB
@@ -192,13 +229,26 @@ def _oracle_gate(settings, ticks, seed):
     want, _ = oracle.spectrum_frame(window, None, cfg, dt=1 / 60)
     got = eng.read_decibels()[0]
     vis = want > -120.0
-    assert vis.sum() > 1000
+    assert vis.sum() > min(1000, vis.size // 2)
     assert np.abs(got[vis] - want[vis]).max() < 1e-4
 
 
 def test_slice_meets_oracle_gate():
     _oracle_gate(Settings(fft_size=4096, width=800, window=FFTWindow.HANN,
                           temporal_smoothing=TSmoothingMode.NONE), 8, 60)
+
+
+@pytest.mark.parametrize("n,fused", [(800, None), (4096, "never")])
+def test_packed_slice_meets_oracle_gate(n, fused, monkeypatch):
+    """The packed pair end to end: N=800 through the lowering, N=4096 under
+    ``WAVEFORM_TPU_EXACT_FUSED=never`` through K3's twin."""
+    if fused:
+        monkeypatch.setenv("WAVEFORM_TPU_EXACT_FUSED", fused)
+    else:
+        monkeypatch.delenv("WAVEFORM_TPU_EXACT_FUSED", raising=False)
+    _oracle_gate(Settings(fft_size=n, width=800, window=FFTWindow.HANN,
+                          temporal_smoothing=TSmoothingMode.NONE),
+                 n // HOP + 2, 62)
 
 
 def test_large_fft_slice_meets_oracle_gate():

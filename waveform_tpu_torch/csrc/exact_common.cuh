@@ -1,9 +1,14 @@
-// Shared device code of the exact |rFFT| kernels (exact_mag.cu, exact_mag3.cu).
+// Shared device code of the exact FFT kernels (exact_mag.cu, exact_mag3.cu,
+// exact_cfft.cu).
 //
 // Every rounding is spelled out with __fmul_rn/__fadd_rn/__fsub_rn, and the
 // build passes -fmad=false, so the error-free transforms (TwoSum, Veltkamp/
-// Dekker TwoProd) stay error-free and the plain PyTorch twin in
-// kernels/exact_cuda.py gives the same bits.
+// Dekker TwoProd) stay error-free and the plain PyTorch twins in
+// kernels/exact_cuda.py give the same bits.
+//
+// The df tier's pieces (slice_serial, recombine_df, df_mul) serve the
+// complex kernel exact_cfft.cu; they are the arithmetic of
+// kernels/exactfft.py's _slice_df, _digit_gemm and df_mul.
 //
 // Stage 2 (stage2_slice + stage2_mag) is the kept-half DFT over j2 that both
 // kernels end with: per (stream, channel, k1) row of 256 f32 values [br | bi],
@@ -93,6 +98,16 @@ __device__ __forceinline__ void two_sum(float a, float b, float* s, float* e) {
   *e = fadd(fsub(a, fsub(*s, bb)), fsub(b, bb));
 }
 
+// a * b = p + e exactly (Dekker, Veltkamp splits of both operands)
+__device__ __forceinline__ void two_prod(float a, float b, float* p, float* e) {
+  *p = fmul(a, b);
+  float ah, al, bh, bl;
+  vsplit(a, &ah, &al);
+  vsplit(b, &bh, &bl);
+  *e = fadd(fadd(fadd(fsub(fmul(ah, bh), *p), fmul(ah, bl)), fmul(al, bh)),
+            fmul(al, bl));
+}
+
 // (ah, al) + (bh, bl) as a double-float: TwoSum of the highs, the lows
 // added into the error, TwoSum again
 __device__ __forceinline__ void df_add(float ah, float al, float bh, float bl,
@@ -102,16 +117,49 @@ __device__ __forceinline__ void df_add(float ah, float al, float bh, float bl,
   two_sum(s, fadd(e, fadd(al, bl)), h, l);
 }
 
+// (ah, al) * (bh, bl) as a double-float: TwoProd of the highs, the cross
+// terms added into the error, TwoSum
+__device__ __forceinline__ void df_mul(float ah, float al, float bh, float bl,
+                                       float* h, float* l) {
+  float p, e;
+  two_prod(ah, bh, &p, &e);
+  two_sum(p, fadd(e, fadd(fmul(ah, bl), fmul(al, bh))), h, l);
+}
+
 // x * (w_hi + w_lo) as a double-float (hi, lo)
 __device__ __forceinline__ void windowed_df(float x, float wh, float wl,
                                             float* hi, float* lo) {
-  const float p = fmul(x, wh);
-  float xh, xl, bh, bl;
-  vsplit(x, &xh, &xl);
-  vsplit(wh, &bh, &bl);
-  float e = fadd(fadd(fsub(fmul(xh, bh), p), fmul(xh, bl)), fmul(xl, bh));
-  e = fadd(e, fmul(xl, bl));
+  float p, e;
+  two_prod(x, wh, &p, &e);
   two_sum(p, fadd(e, fmul(x, wl)), hi, lo);
+}
+
+// Serial 4-digit slice of (hi, lo) scaled by the power of two s_inv:
+// digit k = rint(r * 2^(6+7k)) (half to even), r -= digit * 2^-(6+7k); the
+// lo word joins the residual at k = 3.  |r| <= 1/2 keeps the digits within
+// +-68: they fit int8.
+__device__ __forceinline__ void slice_serial(float hi, float lo, float s_inv,
+                                             int d[kDigits]) {
+  float r = fmul(hi, s_inv);
+#pragma unroll
+  for (int k = 0; k < kDigits; ++k) {
+    if (k == 3) r = fadd(r, fmul(lo, s_inv));
+    const float sc = static_cast<float>(1 << (6 + 7 * k));
+    const float dk = rintf(fmul(r, sc));
+    d[k] = static_cast<int>(dk);
+    r = fsub(r, fmul(dk, 1.0f / sc));
+  }
+}
+
+// class sums -> df32: w_t = acc_t * (2^-(12+7t) * s),
+// TwoSum(w0, (w3 + w2) + w1)
+__device__ __forceinline__ void recombine_df(const int acc[kDigits], float s,
+                                             float* h, float* l) {
+  const float w0 = fmul(__int2float_rn(acc[0]), fmul(0x1p-12f, s));
+  const float w1 = fmul(__int2float_rn(acc[1]), fmul(0x1p-19f, s));
+  const float w2 = fmul(__int2float_rn(acc[2]), fmul(0x1p-26f, s));
+  const float w3 = fmul(__int2float_rn(acc[3]), fmul(0x1p-33f, s));
+  two_sum(w0, fadd(fadd(w3, w2), w1), h, l);
 }
 
 // Stage-2 slice, one warp per row: each row's 256 f32 values [br | bi] get

@@ -1,20 +1,22 @@
-"""Exact |rFFT| of channel pairs: the Hopper kernels, their plain twins, the build.
+"""Exact FFT kernels: the Hopper kernels, their plain twins, the build.
 
-The PyTorch counterpart of ``waveform_tpu/kernels/exact_pallas.py``'s
-real-split magnitude kernels at the f32 twiddle tier: K1
-(``_kernel_real_mag``, 2-factor stage 1) and K2 (``_kernel_real_mag3``,
-3-factor stage 1: a df32 radix-4 butterfly, then two twiddle-folded DFT_a
-digit GEMMs).  :func:`rfft_pair_mag` is the entry point; it routes by size
-(:func:`stage1_split`):
+The PyTorch counterpart of ``waveform_tpu/kernels/exact_pallas.py``: its
+routing predicates (:func:`supports`, :func:`supports_cfft`,
+:func:`kernel_would_run`), the real-split magnitude kernels at the f32
+twiddle tier, K1 (``_kernel_real_mag``, 2-factor stage 1) and K2
+(``_kernel_real_mag3``, 3-factor stage 1: a df32 radix-4 butterfly, then
+two twiddle-folded DFT_a digit GEMMs), and the complex df32 kernel K3
+(``_kernel``).  Entry points: :func:`rfft_pair_mag` (K1/K2, routed by size
+through :func:`stage1_split`) and :func:`cfft_exact_kernel` (K3).
 
 * a CUDA tensor launches the hand-written kernel, ``csrc/exact_mag.cu``
-  (K1) or ``csrc/exact_mag3.cu`` (K2), built with ``nvcc`` at first use into
-  ``build/waveform_tpu_torch/`` and bound with ``ctypes``; a build or launch
-  failure raises;
-* a CPU tensor runs the twin, :func:`rfft_pair_mag_ref` or
-  :func:`rfft_pair_mag3_ref`: the same arithmetic in torch ops (digit
-  products in float64, exact because every integer partial sum stays far
-  below 2^53).
+  (K1), ``csrc/exact_mag3.cu`` (K2) or ``csrc/exact_cfft.cu`` (K3), built
+  with ``nvcc`` at first use into ``build/waveform_tpu_torch/`` and bound
+  with ``ctypes``; a build or launch failure raises;
+* a CPU tensor runs the twin, :func:`rfft_pair_mag_ref`,
+  :func:`rfft_pair_mag3_ref` or :func:`cfft_exact_ref`: the same arithmetic
+  in torch ops (digit products in float64, exact because every integer
+  partial sum stays far below 2^53).
 
 Each kernel and its twin take the same rounding steps in the same order,
 so they agree bit for bit.  Bins come out in natural order.
@@ -27,7 +29,11 @@ planes with the first 6 bits deep, digit pairs with i + j <= 3 kept
 
 Scale rule: K1 takes one pow2 scale per (stream, j2) column over both
 channels; K2 one per (stream, channel, j2) column, for U02 = [u0; u2] and
-U13 = [u1; u3] separately, as ``_kernel_real_mag3`` does.
+U13 = [u1; u3] separately, as ``_kernel_real_mag3`` does; K3 one per
+(stream, j2) column over [x_r; x_i] in stage 1 and one per (stream, k1)
+row over [b_r | b_i] in stage 2.  K1 and K2 slice with the fast
+fixed-point extract and sum their digit classes in plain f32; K3 slices
+serially and recombines with TwoSum, as the df tier does.
 """
 
 from __future__ import annotations
@@ -43,42 +49,76 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .exactfft import (DIGIT_BITS, FIRST_SHIFT, MAX_T, _windowed_df,
-                       df_add, df_neg)
+from .exactfft import (_CLAMP, DIGIT_BITS, FIRST_SHIFT, N_DIGITS,
+                       _df_cmul, _df_pair, _digit_gemm, _digit_planes, _left,
+                       _right, _slice_df, _windowed_df, df_add, df_neg)
 
 LANES = 128                     # N2: the stage-2 transform length
-N_DIGITS = MAX_T + 1
 SIZES = (1024, 2048, 4096)      # N1 = 8, 16, 32: what K1 is built for
 SIZES3 = (8192, 16384, 32768, 65536)   # the K2 sizes the JAX plan ships
 MAX_N3 = 65536                  # K2 serves N1 % 32 == 0 up to here
+MAX_NC = 32768                  # K3 serves N1 % 8 == 0 up to here
 
 # fixed-point geometry of the parallel digit extraction: i = rint(r·2^27)
 # splits into 4 offset-binary base-128 fields
 _SLICE_TOP = FIRST_SHIFT + (N_DIGITS - 1) * DIGIT_BITS            # 27
 _SLICE_BIAS = sum(64 << (_SLICE_TOP - FIRST_SHIFT - DIGIT_BITS * k)
                   for k in range(N_DIGITS))
-_CLAMP = 2.0 ** 63
 
-# counts of kernel launches (not of twin calls), K1 and K2 apart: a run
+# counts of kernel launches (not of twin calls), K1, K2 and K3 apart: a run
 # reads them to show that its main path went through the kernel it expects
 launches = 0
 launches3 = 0
+launches_cfft = 0
+
+
+# ---------------------------------------------------------------------------
+# routing: the JAX package's predicates
+# ---------------------------------------------------------------------------
+
+def supports(n: int) -> bool:
+    """``exact_pallas.supports(n)``: the pair-kernel geometry, N1 = n/128 a
+    multiple of 8, with the heuristic stage-1 split: 2-factor below
+    N = 32768, 3-factor from 32768 up to 65536, where it needs
+    N1 % 32 == 0.  The JAX package's v5e plan table never applies on this
+    card."""
+    n1, rem = divmod(n, LANES)
+    if rem or n1 % 8:
+        return False
+    return n < 32768 or (n1 % 32 == 0 and n <= MAX_N3)
+
+
+def supports_cfft(n: int) -> bool:
+    """``exact_pallas.supports_cfft(n)``: K3 runs the 2-factor stage 1,
+    N1 % 8 == 0 up to N = 32768."""
+    n1, rem = divmod(n, LANES)
+    return rem == 0 and n1 % 8 == 0 and n <= MAX_NC
+
+
+def kernel_would_run(n: int) -> bool:
+    """``exact_pallas.kernel_would_run(n)``: the pair kernel serves ``n``
+    unless ``WAVEFORM_TPU_EXACT_FUSED=never`` (read at call time) routes the
+    stream to the packed pair (``exactfft.rfft_pair_mag_exact``)."""
+    return (supports(n)
+            and os.environ.get("WAVEFORM_TPU_EXACT_FUSED", "auto") != "never")
 
 
 def stage1_split(n: int) -> int:
-    """The kernel that serves size ``n``: 2 (K1, ``exact_mag.cu``) for
+    """The pair kernel that serves size ``n``: 2 (K1, ``exact_mag.cu``) for
     N1 = n/128 in {8, 16, 32}, 3 (K2, ``exact_mag3.cu``) for
     8192 <= n <= 65536 with N1 % 32 == 0.  Other sizes raise
-    NotImplementedError."""
+    NotImplementedError: of those, the ones :func:`supports` admits (3072,
+    5120, ...) are where the JAX package runs K1."""
     n1, rem = divmod(n, LANES)
     if rem == 0 and n1 in (8, 16, 32):
         return 2
     if rem == 0 and n1 % 32 == 0 and 8192 <= n <= MAX_N3:
         return 3
     raise NotImplementedError(
-        f"the exact |rFFT| kernels cover N/128 in {{8, 16, 32}} and "
-        f"8192 <= N <= {MAX_N3} with N/128 % 32 == 0, got N={n}; other "
-        "sizes wait for the exactfft lowering (ROADMAP A3)")
+        f"the exact |rFFT| pair kernels cover N/128 in {{8, 16, 32}} and "
+        f"8192 <= N <= {MAX_N3} with N/128 % 32 == 0, got N={n}; the other "
+        "sizes the JAX package sends to K1 wait for ROADMAP B1-gen "
+        "(generalise K1 to N/128 % 8 == 0, N <= 32768)")
 
 
 # ---------------------------------------------------------------------------
@@ -90,18 +130,6 @@ def _vsplit_host(a_f32: np.ndarray) -> np.ndarray:
     c = np.float32(4097.0)
     t = (c * a_f32).astype(np.float32)
     return (t - (t - a_f32).astype(np.float32)).astype(np.float32)
-
-
-def _digit_planes(a64: np.ndarray) -> np.ndarray:
-    """f64 constant -> N_DIGITS integer digit planes (f32 storage)."""
-    out = np.empty((N_DIGITS,) + a64.shape, np.float32)
-    r = a64.astype(np.float64)
-    for k in range(N_DIGITS):
-        sc = 2.0 ** (FIRST_SHIFT + DIGIT_BITS * k)
-        d = np.rint(r * sc)
-        out[k] = d.astype(np.float32)
-        r = r - d / sc
-    return out
 
 
 @functools.lru_cache(maxsize=8)
@@ -217,19 +245,53 @@ def _words(planes: np.ndarray) -> np.ndarray:
 
 
 def _f2_consts(f2d: np.ndarray) -> dict:
-    """Stage-2 digits: float64 ``f2`` [4, 2n2, n2] for the twin, and
-    ``f2w`` [4, 2n2/4, n2] packed along the [br | bi] row for the kernel."""
-    n2 = f2d.shape[-1]
-    f2b = f2d.astype(np.int8).reshape(N_DIGITS, 2 * n2 // 4, 4, n2) \
+    """Stage-2 digits [4, K, M] (K = 256 contraction rows [br | bi]):
+    float64 ``f2`` for the twin, and ``f2w`` [4, K/4, M] packed along the
+    contraction for the kernel."""
+    _, k, m = f2d.shape
+    f2b = f2d.astype(np.int8).reshape(N_DIGITS, k // 4, 4, m) \
         .transpose(0, 1, 3, 2)
     return {"f2": f2d.astype(np.float64), "f2w": _words(f2b)[..., 0]}
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_plan_cfft(n: int):
+    """Constants of K3 at size ``n`` (``exact_pallas._kernel_plan(n, 1)``
+    before class stacking).
+
+    Returns ``(n1, n2, f1d, f2d, twr_hi, twr_lo, twi_hi, twi_lo)``: ``f1d``
+    [4, 2n1, 2n1] digit planes of F1b = [[Re f1, -Im f1], [Im f1, Re f1]]
+    (stage 1, contracting its columns against [x_r; x_i]), ``f2d``
+    [4, 2n2, 2n2] digit planes of F2b = [[Re f2, Im f2], [-Im f2, Re f2]]
+    (stage 2, contracting its rows against [b_r | b_i]), and the outer
+    twiddle exp(-2πi·k1·j2/n) [n1, n2] as df32 pairs.
+    """
+    n1, n2 = n // LANES, LANES
+    f1 = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
+    f2 = np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2)
+    f1b = np.block([[f1.real, -f1.imag], [f1.imag, f1.real]])
+    f2b = np.block([[f2.real, f2.imag], [-f2.imag, f2.real]])
+    return (n1, n2, _digit_planes(f1b), _digit_planes(f2b),
+            *_twiddle_df(np.arange(n1), n)[:4])
+
+
+@functools.lru_cache(maxsize=16)
+def _consts_cfft(n: int, device: torch.device):
+    """K3's plan as tensors on ``device``: ``f1``/``f2`` float64 for the
+    twin, ``f1w`` [4, 2n1, n1/2] and ``f2w`` [4, 64, 256] packed int8x4
+    along each contraction for the kernel, and ``tw`` [4, n1, 128] =
+    (twr_hi, twr_lo, twi_hi, twi_lo)."""
+    _, _, f1d, f2d, *tw = _kernel_plan_cfft(n)
+    host = {"f1": f1d.astype(np.float64), "f1w": _words(f1d),
+            "tw": np.stack(tw), **_f2_consts(f2d)}
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
 # ---------------------------------------------------------------------------
 # the plain PyTorch twin
 # ---------------------------------------------------------------------------
 
-def _pow2_scale(m: torch.Tensor):
+def _pow2_scale_lane(m: torch.Tensor):
     """(s, 1/s) = 2^e with e = clip(ceil(log2(max(m, 1e-30))) + 1, ±125).
 
     ceil(log2) is read exactly from the float's exponent and mantissa bits,
@@ -282,8 +344,9 @@ def _windowed_blocks(x: torch.Tensor, window):
     return (x != 0).sum(-1).to(torch.float32), hi, lo
 
 
-def _digit_gemm(planes: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
-                s: torch.Tensor, s_inv: torch.Tensor) -> torch.Tensor:
+def _digit_gemm_fast(planes: torch.Tensor, hi: torch.Tensor,
+                     lo: torch.Tensor, s: torch.Tensor,
+                     s_inv: torch.Tensor) -> torch.Tensor:
     """Digit-exact ``planes`` [4, R, K] @ the df32 columns (hi, lo)
     [..., K, M] scaled by ``s_inv``: fast slice, the 10 digit pairs
     i + j <= 3, plain f32 recombination -> [..., R, M] f32."""
@@ -302,7 +365,7 @@ def _twiddle_stage2(ar: torch.Tensor, ai: torch.Tensor, c: dict):
     br = ar * c["twr"] - ai * c["twi"]
     bi = ar * c["twi"] + ai * c["twr"]
     b = torch.cat([br, bi], dim=-1)                        # [S, 2, n1, 2n2]
-    s2, s2_inv = _pow2_scale(b.abs().amax(dim=-1, keepdim=True))
+    s2, s2_inv = _pow2_scale_lane(b.abs().amax(dim=-1, keepdim=True))
     d2 = _digits(_fixed27(b, s2_inv))
     cc = _recombine([sum(d2[t - i] @ c["f2"][i] for i in range(t + 1))
                      for t in range(N_DIGITS)], s2)        # [S, 2, n1, n2]
@@ -324,8 +387,8 @@ def rfft_pair_mag_ref(x: torch.Tensor, window=None):
 
     # stage 1: per-channel real DFT over j1, one pow2 scale per (s, j2)
     # column taken over both channels
-    s, s_inv = _pow2_scale(hi.abs().amax(dim=(1, 2), keepdim=True))
-    a = _digit_gemm(c["f1"], hi, lo, s, s_inv)            # [S, 2, 2n1, n2]
+    s, s_inv = _pow2_scale_lane(hi.abs().amax(dim=(1, 2), keepdim=True))
+    a = _digit_gemm_fast(c["f1"], hi, lo, s, s_inv)       # [S, 2, 2n1, n2]
     mag = _twiddle_stage2(a[..., :n1, :], a[..., n1:, :], c)
     return mag.transpose(-1, -2).reshape(S, 2, n // 2), nz
 
@@ -352,8 +415,8 @@ def rfft_pair_mag3_ref(x: torch.Tensor, window=None):
     def stage1(planes, top, bottom):
         h = torch.cat([top[0], bottom[0]], dim=2)          # [S, 2, 2a, 128]
         l = torch.cat([top[1], bottom[1]], dim=2)
-        s, s_inv = _pow2_scale(h.abs().amax(dim=2, keepdim=True))
-        return _digit_gemm(planes, h, l, s, s_inv)         # [S, 2, 4a, 128]
+        s, s_inv = _pow2_scale_lane(h.abs().amax(dim=2, keepdim=True))
+        return _digit_gemm_fast(planes, h, l, s, s_inv)    # [S, 2, 4a, 128]
 
     a02 = stage1(c["c02"], u0, u2)      # rows [A0r; A0i; A2r; A2i]
     a13 = stage1(c["c13"], u1, u3)      # rows [A1r; A1i; A3r; A3i]
@@ -365,6 +428,41 @@ def rfft_pair_mag3_ref(x: torch.Tensor, window=None):
     unscramble = torch.from_numpy(_row_unscramble(n)).to(x.device)
     mag = _twiddle_stage2(ar, ai, c)[:, :, unscramble]
     return mag.transpose(-1, -2).reshape(S, 2, n // 2), nz
+
+
+def cfft_exact_ref(re, im):
+    """Plain PyTorch twin of K3 (``exact_pallas._core``): the exact complex
+    FFT of [..., N] f32 tensors or df32 (hi, lo) pairs ``re``/``im``.
+    Returns ``((zr_hi, zr_lo), (zi_hi, zi_lo))`` [..., N], bins in natural
+    order."""
+    re, im = _df_pair(re), _df_pair(im)
+    shp, n = re[0].shape[:-1], re[0].shape[-1]
+    n1 = n // LANES
+    c = _consts_cfft(n, re[0].device)
+
+    def blocks(a, b):                                 # [S, 2n1, 128]
+        return torch.cat([a.reshape(-1, n1, LANES),
+                          b.reshape(-1, n1, LANES)], dim=1)
+
+    x_hi, x_lo = blocks(re[0], im[0]), blocks(re[1], im[1])
+    # stage 1: one pow2 scale per (s, j2) column over [x_r; x_i]
+    s, s_inv = _pow2_scale_lane(x_hi.abs().amax(dim=1, keepdim=True))
+    a_hi, a_lo = _digit_gemm(_left, c["f1"], _slice_df(x_hi, x_lo, s_inv), s)
+    br, bi = _df_cmul((a_hi[:, :n1], a_lo[:, :n1]),
+                      (a_hi[:, n1:], a_lo[:, n1:]),
+                      (c["tw"][0], c["tw"][1]), (c["tw"][2], c["tw"][3]))
+    # stage 2: one pow2 scale per (s, k1) row over [b_r | b_i]
+    b_hi = torch.cat([br[0], bi[0]], dim=-1)              # [S, n1, 256]
+    b_lo = torch.cat([br[1], bi[1]], dim=-1)
+    s2, s2_inv = _pow2_scale_lane(b_hi.abs().amax(dim=-1, keepdim=True))
+    c_hi, c_lo = _digit_gemm(_right, c["f2"],
+                             _slice_df(b_hi, b_lo, s2_inv), s2)
+
+    def fin(a):                         # [S, n1, 128] -> k = k1 + n1·k2
+        return a.transpose(-1, -2).reshape(*shp, n)
+
+    return ((fin(c_hi[..., :LANES]), fin(c_lo[..., :LANES])),
+            (fin(c_hi[..., LANES:]), fin(c_lo[..., LANES:])))
 
 
 def _window_pair(window, n: int, device: torch.device):
@@ -444,6 +542,10 @@ def build() -> ctypes.CDLL:
                                     ctypes.c_void_p])
     lib.wf_exact_mag3.restype = ctypes.c_int
     lib.wf_exact_mag3.argtypes = ([ctypes.c_void_p] * 12
+                                  + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p])
+    lib.wf_exact_cfft.restype = ctypes.c_int
+    lib.wf_exact_cfft.argtypes = ([ctypes.c_void_p] * 9
                                   + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p])
     _lib = lib
@@ -542,3 +644,47 @@ def rfft_pair_mag3(x: torch.Tensor, window=None):
         raise RuntimeError(f"exact_mag3 kernel launch failed: cudaError {err}")
     launches3 += 1
     return mag, nz
+
+
+def cfft_exact_kernel(re, im):
+    """K3: the exact complex FFT of [..., N] f32 tensors or df32 (hi, lo)
+    pairs ``re``/``im`` (one shape, one device), N = 128·N1 with
+    N1 % 8 == 0 up to 32768 (:func:`supports_cfft`).  Returns
+    ``((zr_hi, zr_lo), (zi_hi, zi_lo))`` [..., N] df32, bins in natural
+    order.  A CUDA tensor launches ``csrc/exact_cfft.cu`` (two kernels,
+    one count), a CPU tensor takes :func:`cfft_exact_ref`."""
+    global launches_cfft
+    re, im = _df_pair(re), _df_pair(im)
+    parts = (*re, *im)
+    shp, n = parts[0].shape[:-1], parts[0].shape[-1]
+    for p in parts:
+        if (p.dtype != torch.float32 or p.shape != parts[0].shape
+                or p.device != parts[0].device):
+            raise ValueError("re and im must be float32 tensors (or df32 "
+                             "pairs of them) of one shape on one device")
+    if not supports_cfft(n):
+        raise NotImplementedError(
+            f"K3 covers N = 128·N1 with N1 % 8 == 0 up to {MAX_NC}, got N={n}")
+    dev = parts[0].device
+    if dev.type == "cpu":
+        return cfft_exact_ref(re, im)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = build()
+    S = int(np.prod(shp)) if shp else 1
+    flat = [p.reshape(S, n).contiguous() for p in parts]
+    c = _consts_cfft(n, dev)
+    # stage-1 rows after the twiddle, (hi, lo) planes of [S, n1, 256]
+    rows = torch.empty((2, S, n // LANES, 2 * LANES), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((4, S, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.wf_exact_cfft(
+            *(p.data_ptr() for p in flat), c["f1w"].data_ptr(),
+            c["f2w"].data_ptr(), c["tw"].data_ptr(), rows.data_ptr(),
+            out.data_ptr(), S, n, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"exact_cfft kernel launch failed: cudaError {err}")
+    launches_cfft += 1
+    z = out.reshape(4, *shp, n)
+    return (z[0], z[1]), (z[2], z[3])
