@@ -50,10 +50,29 @@ Phases, one line each; any failure raises and the script exits non-zero:
    S=256, the gate unset (path c), 8 ticks: the digit lowering in torch
    ops and no kernel launch of any kind, with the checks of phase 10;
 12. times_cfft — K3 and its twin at (N, S) = (4096, 256), (32768, 32), and
-   the full tick of paths a and c at S=256.
+   the full tick of paths a and c at S=256;
+13. kernel_gen — K1-gen (K1's body at every other N1 % 8 == 0) through the
+   router against its twin and float64 numpy at N in {3072, 5120, 6144,
+   7168, 9216, 16384, 31744}, S in {1, 7, 64}, at (6144, 256), and at
+   N=32768 under WAVEFORM_TPU_STAGE1_SPLIT=2, with the windows and bad
+   streams of phase 3; against K2 at 8192 and 16384; through its direct
+   entry point bit for bit against K1 at N=4096;
+14. slice_gen — ``ServingEngine`` at N=6144 (an FFT-size slider position),
+   the headline configuration otherwise, S=256, 8 ticks: one K1-gen launch
+   per tick and no K1/K2/K3 launch, with the checks of phase 4; then
+   N=16384 behind enable_large_fft, S=64, 21 ticks, which the JAX split
+   rule sends to K1-gen too;
+15. times_gen — K1-gen, its twin and the library call
+   ``torch.fft.rfft(x.double() * w).abs()`` at (6144, 256) and (16384,
+   256), K2 and its twin at (16384, 256), K1-gen's direct entry point
+   against K1 at (4096, 256), and the full tick at N=6144, S=256.
 
 Every phase's seconds are printed before the kernels' JSON record and the
-result line, which are the last two lines.
+result line, which are the last two lines.  Each kernel's record carries
+its time, its plain twin's, the library call's (timed here, never called
+by the port) and its bound: the larger of its int8 operations at the
+card's peak and the bytes it must move (inputs read once, outputs written
+once) at its memory rate.
 """
 
 from __future__ import annotations
@@ -73,6 +92,8 @@ SR, HOP = 48000, 800
 TOL = 2.5e-7          # kernel bound of the JAX package's tests
 TOL_SPLITS = 3e-7     # K2 vs K1 (tests/test_exact_pallas.py:217-229)
 SEED = 0
+INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak, ops/s
+HBM = 3.35e12         # H100 SXM device memory, bytes/s
 
 
 @contextlib.contextmanager
@@ -138,15 +159,16 @@ def bad_streams(x: np.ndarray, rng) -> tuple:
 
 
 def phase_kernel(exact_cuda, dev, kernel, twin, counter: str, sizes,
-                 streams, seed: int, vs_k1: bool = False):
+                 streams, seed: int, versus=None):
     """``kernel`` vs ``twin`` vs float64 over the size/stream/window
     matrix: each call adds one to ``exact_cuda.<counter>``, agrees with
     the twin and float64 within TOL, counts nonzeros exactly, and keeps
-    the 1e20/NaN streams to themselves.  With ``vs_k1``, sizes K1 serves
-    are also held against K1 within TOL_SPLITS.  Returns the number of
-    cases and the worst relative errors."""
+    the 1e20/NaN streams to themselves.  ``versus`` = (other kernel, its
+    sizes) also holds those sizes against the other kernel within
+    TOL_SPLITS.  Returns the number of cases and the worst relative
+    errors."""
     rng = np.random.default_rng(seed)
-    worst = {"twin": 0.0, "f64": 0.0, "k1": 0.0}
+    worst = {"twin": 0.0, "f64": 0.0, "versus": 0.0}
     cases = 0
     for n in sizes:
         for S in streams:
@@ -183,16 +205,62 @@ def phase_kernel(exact_cuda, dev, kernel, twin, counter: str, sizes,
                     check(np.isfinite(mag[3]).all(), "1e20 stream not finite")
                     check((mag[1] == 0).all() and (mag[2, 1] == 0).all(),
                           "silent rows not zero")
-                if vs_k1 and n in exact_cuda.SIZES:
-                    m1, _ = exact_cuda.rfft_pair_mag(xd, win)
+                if versus is not None and n in versus[1]:
+                    m1, _ = versus[0](xd, win)
                     m1 = m1.cpu().numpy()
-                    e_k1 = np.abs(mag[good] - m1[good]).max() / m1[good].max()
-                    check(e_k1 <= TOL_SPLITS, f"K2 vs K1 at N={n} {e_k1}")
-                    worst["k1"] = max(worst["k1"], e_k1)
+                    e_vs = np.abs(mag[good] - m1[good]).max() / m1[good].max()
+                    check(e_vs <= TOL_SPLITS,
+                          f"{counter} vs {versus[0].__name__} at N={n} {e_vs}")
+                    worst["versus"] = max(worst["versus"], e_vs)
                 worst["twin"] = max(worst["twin"], e_twin)
                 worst["f64"] = max(worst["f64"], e_f64)
                 cases += 1
     return cases, worst
+
+
+def bound(name: str, n: int, S: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one call of kernel ``name`` on S streams of
+    size n: the larger of its int8 operations (2 per digit-pair MAC, 10
+    digit pairs a product) at INT8_OPS and the bytes it must move (each
+    input, window and constant read once, each output written once) at
+    HBM."""
+    n1 = n // 128
+    macs2 = 655360 * n1                       # kept-half or full stage 2
+    tw = 2 * n1 * 128 * 4                     # twiddle (f32, or df32 pair)
+    if name == "exact_cfft":
+        macs1 = 5120 * n1 * n1                # F1b [2N1, 2N1] x 128 columns
+        io = 8 * S * n * 4                    # df32 re/im in, df32 out
+        consts = 4 * (2 * n1) ** 2 + 4 * 256 * 256 + 2 * tw
+    else:
+        io = S * 2 * n * 4 + 2 * n * 4 + S * 2 * (n // 2) * 4 + S * 2 * 4
+        if name == "exact_mag3":
+            a = n1 // 4
+            macs1 = 2 * 2 * (4 * a) * (2 * a) * 128 * 10   # c02, c13
+            consts = 2 * 4 * (4 * a) * (2 * a)
+        else:
+            macs1 = 5120 * n1 * n1            # F1r [2N1, N1], two channels
+            consts = 4 * 2 * n1 * n1
+        consts += 4 * 256 * 128 + tw
+    ops_ms = 2 * S * (macs1 + macs2) / INT8_OPS * 1e3
+    bytes_ms = (io + consts) / HBM * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def library_ms(n: int, S: int, dev, pair: bool = True) -> float:
+    """The library call that computes a kernel's function in float64, timed
+    on CUDA events (the port never calls it): ``torch.fft.rfft(x.double()
+    * w).abs()`` for the pair kernels on [S, 2, n], ``torch.fft.fft`` of
+    the complex128 pair for K3 on [S, n]."""
+    rng = np.random.default_rng(SEED + 6)
+    x = torch.from_numpy((0.5 * rng.standard_normal((S, 2, n))).astype(
+        np.float32)).to(dev)
+    w64, _ = hann_pair(n, dev)
+    w = torch.from_numpy(w64).to(dev)
+    if pair:
+        return cuda_median_ms(lambda: torch.fft.rfft(x.double() * w).abs())
+    return cuda_median_ms(lambda: torch.fft.fft(torch.complex(
+        x[:, 0].double() * w, x[:, 1].double() * w)))
 
 
 def c128(z) -> np.ndarray:
@@ -293,16 +361,17 @@ def drive_slice(wt, exact_cuda, eng, cpu, packets, now0):
     """Feed ``packets`` through the card engine (counts set to 0 just
     before, read just after) and, for its first streams and the silent
     last one, through the CPU port; check pixels, silence, the tone's peak
-    and card vs CPU.  Returns (launches, launches3, launches_cfft, pixel
-    shape, peak Hz, card-vs-CPU dB)."""
-    exact_cuda.launches = exact_cuda.launches3 = exact_cuda.launches_cfft = 0
+    and card vs CPU.  Returns ((K1, K2, K3, K1-gen launches), pixel shape,
+    peak Hz, card-vs-CPU dB)."""
+    exact_cuda.launches = exact_cuda.launches3 = 0
+    exact_cuda.launches_cfft = exact_cuda.launches_gen = 0
     for k, x in enumerate(packets):
         now = now0 + k * 16_666_667
         eng.feed_batch(x, now, now_ns=now)
         eng.tick(now_ns=now)
     torch.cuda.synchronize()
     counts = (exact_cuda.launches, exact_cuda.launches3,
-              exact_cuda.launches_cfft)
+              exact_cuda.launches_cfft, exact_cuda.launches_gen)
     n_cpu = cpu.S - 1
     for k, x in enumerate(packets):
         now = now0 + k * 16_666_667
@@ -323,7 +392,7 @@ def drive_slice(wt, exact_cuda, eng, cpu, packets, now0):
     e_cpu = float(np.abs(db[:n_cpu][vis] - ref[vis]).max())
     check(e_cpu < 1e-4, f"N={n} card vs CPU port {e_cpu} dB")
     check(np.array_equal(db[-1], db_cpu[-1]), "silent stream vs CPU port")
-    return (*counts, px.shape, peak_hz, e_cpu)
+    return counts, px.shape, peak_hz, e_cpu
 
 
 def tick_ms(eng, packets, now0) -> float:
@@ -424,11 +493,12 @@ def main() -> None:
     rng = np.random.default_rng(SEED + 1)
     packets = [feed_signal(rng, S, k) for k in range(ticks)]
     now0 = time.monotonic_ns()
-    launches, launches3, n_cfft, px_shape, peak_hz, e_cpu = drive_slice(
-        wt, exact_cuda, eng, cpu, packets, now0)
+    (launches, launches3, n_cfft, n_gen), px_shape, peak_hz, e_cpu = \
+        drive_slice(wt, exact_cuda, eng, cpu, packets, now0)
     check(launches == ticks, f"{launches} kernel launches in {ticks} ticks")
-    check(launches3 == 0 and n_cfft == 0,
-          f"{launches3} K2 and {n_cfft} K3 launches at N=4096")
+    check(launches3 == 0 and n_cfft == 0 and n_gen == 0,
+          f"{launches3} K2, {n_cfft} K3 and {n_gen} K1-gen launches at "
+          "N=4096")
     gate = oracle_gate(wt, ServingEngine, 4096, 8, rng, now0)
     torch.cuda.synchronize()
     secs["slice"] = time.perf_counter() - t0
@@ -456,12 +526,13 @@ def main() -> None:
     cases3, worst3 = phase_kernel(
         exact_cuda, dev, exact_cuda.rfft_pair_mag3,
         exact_cuda.rfft_pair_mag3_ref, "launches3",
-        (4096,) + exact_cuda.SIZES3, (1, 7, 32), SEED + 3, vs_k1=True)
+        (4096,) + exact_cuda.SIZES3, (1, 7, 32), SEED + 3,
+        versus=(exact_cuda.rfft_pair_mag, exact_cuda.SIZES))
     secs["kernel3"] = time.perf_counter() - t0
     print(f"kernel3: {cases3} cases at N in {(4096,) + exact_cuda.SIZES3}, "
           f"max|d|/max|ref| vs twin {worst3['twin']:.3e}, vs float64 "
           f"{worst3['f64']:.3e} (bound {TOL}), vs K1 at N=4096 "
-          f"{worst3['k1']:.3e} (bound {TOL_SPLITS}); nz exact; 1e20/NaN "
+          f"{worst3['versus']:.3e} (bound {TOL_SPLITS}); nz exact; 1e20/NaN "
           "streams isolated", flush=True)
 
     # 7. slice3: the large-FFT configuration --------------------------------
@@ -476,11 +547,12 @@ def main() -> None:
     cpu3 = ServingEngine(cfg3, 2, device="cpu")
     packets3 = [feed_signal(rng, S3, k) for k in range(ticks3)]
     now3 = time.monotonic_ns()
-    k1_in_3, launches3, k3_in_3, px3, peak3, e_cpu3 = drive_slice(
-        wt, exact_cuda, eng3, cpu3, packets3, now3)
+    (k1_in_3, launches3, k3_in_3, gen_in_3), px3, peak3, e_cpu3 = \
+        drive_slice(wt, exact_cuda, eng3, cpu3, packets3, now3)
     check(launches3 == ticks3, f"{launches3} K2 launches in {ticks3} ticks")
-    check(k1_in_3 == 0 and k3_in_3 == 0,
-          f"{k1_in_3} K1 and {k3_in_3} K3 launches at N=65536")
+    check(k1_in_3 == 0 and k3_in_3 == 0 and gen_in_3 == 0,
+          f"{k1_in_3} K1, {k3_in_3} K3 and {gen_in_3} K1-gen launches at "
+          "N=65536")
     gate3 = oracle_gate(wt, ServingEngine, 65536, ticks3, rng, now3)
     torch.cuda.synchronize()
     secs["slice3"] = time.perf_counter() - t0
@@ -498,6 +570,7 @@ def main() -> None:
             dev)
         print(f"times3 [{card}]: K2 {k3_ms * 1e3:.1f} us, twin "
               f"{p3_ms * 1e3:.1f} us at S={s_n} N={n}", flush=True)
+    mag3_row = (k3_ms, p3_ms, max_abs3)           # (65536, 32)
     t3_ms = tick_ms(eng3, packets3, now3)
     secs["times3"] = time.perf_counter() - t0
     print(f"times3 [{card}]: full tick (feed_batch + tick) "
@@ -531,11 +604,11 @@ def main() -> None:
             cpu_p = ServingEngine(cfg_p, 4, device="cpu")
             pk = [feed_signal(rng, S, k, channels) for k in range(ticks)]
             now_p = time.monotonic_ns()
-            k1_p, k2_p, k3_p, px_p, peak_p, e_cpu_p = drive_slice(
+            (k1_p, k2_p, k3_p, gen_p), px_p, peak_p, e_cpu_p = drive_slice(
                 wt, exact_cuda, eng_p, cpu_p, pk, now_p)
-            check(k3_p == ticks and k1_p == 0 and k2_p == 0,
-                  f"path {path}: {k3_p} K3, {k1_p} K1, {k2_p} K2 launches "
-                  f"in {ticks} ticks")
+            check(k3_p == ticks and k1_p == 0 and k2_p == 0 and gen_p == 0,
+                  f"path {path}: {k3_p} K3, {k1_p} K1, {k2_p} K2, {gen_p} "
+                  f"K1-gen launches in {ticks} ticks")
             gate_p = oracle_gate(wt, ServingEngine, 4096, 8, rng, now_p,
                                  channels)
             packed[path] = (eng_p, pk, now_p, k3_p)
@@ -562,15 +635,15 @@ def main() -> None:
         pk_c = [feed_signal(rng, S, k) for k in range(ticks)]
         now_c = time.monotonic_ns()
         counts_c = drive_slice(wt, exact_cuda, eng_c, cpu_c, pk_c, now_c)
-        check(counts_c[:3] == (0, 0, 0), f"path c kernel launches "
-              f"{counts_c[:3]}")
+        check(counts_c[0] == (0, 0, 0, 0), f"path c kernel launches "
+              f"{counts_c[0]}")
         gate_c = oracle_gate(wt, ServingEngine, 800, 2, rng, now_c)
     torch.cuda.synchronize()
     secs["slice_small"] = time.perf_counter() - t0
     print(f"slice_small: path c (auto FFT size) S={S} N=800 800px Lanczos, "
-          f"{ticks} ticks, K1/K2/K3 launches {counts_c[:3]}, pixels "
-          f"{counts_c[3]} finite, silent stream at DB_MIN, peak "
-          f"{counts_c[4]:.1f} Hz, card vs CPU port {counts_c[5]:.2e} dB, "
+          f"{ticks} ticks, K1/K2/K3/K1-gen launches {counts_c[0]}, pixels "
+          f"{counts_c[1]} finite, silent stream at DB_MIN, peak "
+          f"{counts_c[2]:.1f} Hz, card vs CPU port {counts_c[3]:.2e} dB, "
           f"oracle gate {gate_c:.2e} dB (< 1e-4)", flush=True)
     del cpu_c
 
@@ -595,26 +668,147 @@ def main() -> None:
               f"{path} {t_ms * 1e3:.1f} us at S={S} N={n} = "
               f"{S / (t_ms * 1e-3):,.0f} frames/s", flush=True)
 
-    check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
-          "jax was imported")
+    # 13. kernel_gen: K1-gen vs twin, float64, K2 and K1 ----------------
+    t0 = time.perf_counter()
+    sizes_g = (3072, 5120, 6144, 7168, 8192, 9216, 16384, 31744)
+    check(all(exact_cuda.stage1_split(n) == 2 and n not in exact_cuda.SIZES
+              for n in sizes_g), "K1-gen sizes route to split 2")
+    cases_g, worst_g = phase_kernel(
+        exact_cuda, dev, exact_cuda.rfft_pair_mag,
+        exact_cuda.rfft_pair_mag_ref, "launches_gen", sizes_g, (1, 7, 64),
+        SEED + 7, versus=(exact_cuda.rfft_pair_mag3, (8192, 16384)))
+    cases_s, worst_s = phase_kernel(
+        exact_cuda, dev, exact_cuda.rfft_pair_mag,
+        exact_cuda.rfft_pair_mag_ref, "launches_gen", (6144,), (S,),
+        SEED + 8)
+    with env("WAVEFORM_TPU_STAGE1_SPLIT", "2"):
+        check(exact_cuda.supports(32768) and exact_cuda.stage1_split(32768)
+              == 2, "N=32768 under STAGE1_SPLIT=2")
+        cases_32, worst_32 = phase_kernel(
+            exact_cuda, dev, exact_cuda.rfft_pair_mag,
+            exact_cuda.rfft_pair_mag_ref, "launches_gen", (32768,),
+            (1, 7, 64), SEED + 9)
+    rng_b = np.random.default_rng(SEED + 10)
+    for s_b in (1, 7, 64):
+        for windowed in (True, False):
+            x = (0.5 * rng_b.standard_normal((s_b, 2, 4096))).astype(
+                np.float32)
+            bad_streams(x, rng_b)
+            win = hann_pair(4096, dev)[1] if windowed else None
+            xd = torch.from_numpy(x).to(dev)
+            before = exact_cuda.launches_gen
+            g, nz_g = exact_cuda.rfft_pair_mag_gen(xd, win)
+            check(exact_cuda.launches_gen == before + 1, "launches_gen 4096")
+            k1, nz_k1 = exact_cuda.rfft_pair_mag(xd, win)
+            # NaN != NaN: the NaN stream's lanes compare by position
+            check(torch.equal(torch.nan_to_num(g, nan=-1.0),
+                              torch.nan_to_num(k1, nan=-1.0))
+                  and torch.equal(nz_g, nz_k1),
+                  f"K1-gen vs K1 at N=4096 S={s_b}: not bit-identical")
+    secs["kernel_gen"] = time.perf_counter() - t0
+    for w in (worst_s, worst_32):
+        worst_g = {k: max(v, w[k]) for k, v in worst_g.items()}
+    print(f"kernel_gen: {cases_g + cases_s + cases_32} cases at N in "
+          f"{sizes_g}, (6144, {S}) and 32768 under STAGE1_SPLIT=2, "
+          f"max|d|/max|ref| vs twin {worst_g['twin']:.3e}, vs float64 "
+          f"{worst_g['f64']:.3e} (bound {TOL}), vs K2 at 8192/16384 "
+          f"{worst_g['versus']:.3e} (bound {TOL_SPLITS}); bit-identical to "
+          "K1 at N=4096 (6 cases); nz exact; 1e20/NaN streams isolated",
+          flush=True)
+
+    # 14. slice_gen: N=6144 (a slider position) and N=16384 -------------
+    t0 = time.perf_counter()
+    gen = {}
+    for n_g, s_g, ticks_g, n_cpu in ((6144, S, ticks, 4), (16384, 64, 21, 2)):
+        cfg_g = wt.resolve(wt.Settings(fft_size=n_g,
+                                       enable_large_fft=n_g > 8192,
+                                       width=800, window=wt.FFTWindow.HANN,
+                                       interp_mode=wt.InterpMode.LANCZOS),
+                           wt.AudioInfo(SR, 2))
+        check(cfg_g.fft_size == n_g, f"resolved fft_size {cfg_g.fft_size}")
+        eng_g = ServingEngine(cfg_g, s_g, device="cuda")
+        cpu_g = ServingEngine(cfg_g, n_cpu, device="cpu")
+        pk_g = [feed_signal(rng, s_g, k) for k in range(ticks_g)]
+        now_g = time.monotonic_ns()
+        (k1_g, k2_g, k3_g, gen_g), px_g, peak_g, e_cpu_g = drive_slice(
+            wt, exact_cuda, eng_g, cpu_g, pk_g, now_g)
+        check(gen_g == ticks_g and k1_g == 0 and k2_g == 0 and k3_g == 0,
+              f"N={n_g}: {gen_g} K1-gen, {k1_g} K1, {k2_g} K2, {k3_g} K3 "
+              f"launches in {ticks_g} ticks")
+        gate_g = oracle_gate(wt, ServingEngine, n_g, ticks_g, rng, now_g)
+        print(f"slice_gen: S={s_g} N={n_g} 800px Lanczos, {ticks_g} ticks, "
+              f"{gen_g} K1-gen launches, K1/K2/K3 {k1_g}/{k2_g}/{k3_g}, "
+              f"pixels {px_g} finite, silent stream at DB_MIN, peak "
+              f"{peak_g:.2f} Hz, card vs CPU port ({n_cpu} streams) "
+              f"{e_cpu_g:.2e} dB, oracle gate {gate_g:.2e} dB (< 1e-4)",
+              flush=True)
+        if n_g == 6144:
+            gen_slice = (eng_g, pk_g, now_g, gen_g)
+        del eng_g, cpu_g
+    torch.cuda.synchronize()
+    secs["slice_gen"] = time.perf_counter() - t0
+
+    # 15. times_gen ---------------------------------------------------------
+    t0 = time.perf_counter()
+    for n, s_n in ((6144, S), (16384, S)):
+        kg_ms, pg_ms, max_abs_g = kernel_times(
+            exact_cuda.rfft_pair_mag, exact_cuda.rfft_pair_mag_ref, n, s_n,
+            dev)
+        lg_ms = library_ms(n, s_n, dev)
+        bg_ms, bg_by = bound("exact_mag_gen", n, s_n)
+        gen[n] = (kg_ms, pg_ms, max_abs_g, lg_ms, bg_ms, bg_by)
+        print(f"times_gen [{card}]: K1-gen {kg_ms * 1e3:.1f} us, twin "
+              f"{pg_ms * 1e3:.1f} us, library {lg_ms * 1e3:.1f} us, bound "
+              f"{bg_ms * 1e3:.2f} us ({bg_by}) at S={s_n} N={n}, "
+              f"max|K1-gen - twin| {max_abs_g:.1e}", flush=True)
+    k2_ms, p2_ms, _ = kernel_times(exact_cuda.rfft_pair_mag3,
+                                   exact_cuda.rfft_pair_mag3_ref, 16384, S,
+                                   dev)
+    b2_ms, b2_by = bound("exact_mag3", 16384, S)
+    print(f"times_gen [{card}]: K2 {k2_ms * 1e3:.1f} us, twin "
+          f"{p2_ms * 1e3:.1f} us, bound {b2_ms * 1e3:.2f} us ({b2_by}) at "
+          f"S={S} N=16384", flush=True)
+    # K1's own sizes: the router keeps them on K1 while K1 is the faster
+    g4_ms, k4_ms, d4 = kernel_times(exact_cuda.rfft_pair_mag_gen,
+                                    exact_cuda.rfft_pair_mag, 4096, S, dev)
+    print(f"times_gen [{card}]: K1-gen (direct entry) {g4_ms * 1e3:.1f} us, "
+          f"K1 {k4_ms * 1e3:.1f} us at S={S} N=4096, max|K1-gen - K1| "
+          f"{d4:.1e}", flush=True)
+    eng_g, pk_g, now_g, launches_gen = gen_slice
+    tg_ms = tick_ms(eng_g, pk_g, now_g)
+    print(f"times_gen [{card}]: full tick (feed_batch + tick) "
+          f"{tg_ms * 1e3:.1f} us at S={S} N=6144 = "
+          f"{S / (tg_ms * 1e-3):,.0f} frames/s", flush=True)
+    libs = {"exact_mag": library_ms(4096, S, dev),
+            "exact_mag3": library_ms(65536, 32, dev),
+            "exact_cfft": library_ms(4096, S, dev, pair=False)}
+    secs["times_gen"] = time.perf_counter() - t0
+
+    jax_mods = [m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]
+    check(not jax_mods, f"the JAX package or jax was imported: {jax_mods}")
     print("seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
           flush=True)
-    print(json.dumps({"kernels": [
-        {"name": "exact_mag", "route": "cuda",
-         "source": "waveform_tpu_torch/csrc/exact_mag.cu",
-         "replaces": "waveform_tpu/kernels/exact_pallas.py:525",
-         "launches": launches, "max_abs_err": max_abs,
-         "ms": k_ms, "plain_ms": p_ms},
-        {"name": "exact_mag3", "route": "cuda",
-         "source": "waveform_tpu_torch/csrc/exact_mag3.cu",
-         "replaces": "waveform_tpu/kernels/exact_pallas.py:825",
-         "launches": launches3, "max_abs_err": max_abs3,
-         "ms": k3_ms, "plain_ms": p3_ms},
-        {"name": "exact_cfft", "route": "cuda",
-         "source": "waveform_tpu_torch/csrc/exact_cfft.cu",
-         "replaces": "waveform_tpu/kernels/exact_pallas.py:479",
-         "launches": launches_c, "max_abs_err": cfft_row[2],
-         "ms": cfft_row[0], "plain_ms": cfft_row[1]}]}))
+    records = []
+    for name, line, n, s_n, count, row in (
+            ("exact_mag", 525, 4096, S, launches, (k_ms, p_ms, max_abs)),
+            ("exact_mag3", 825, 65536, 32, launches3, mag3_row),
+            ("exact_cfft", 479, 4096, S, launches_c, cfft_row),
+            ("exact_mag_gen", 525, 6144, S, launches_gen, gen[6144][:3])):
+        b_ms, b_by = bound(name, n, s_n)
+        lib = gen[6144][3] if name == "exact_mag_gen" else libs[name]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"waveform_tpu_torch/csrc/{name}.cu",
+            "replaces": f"waveform_tpu/kernels/exact_pallas.py:{line}",
+            "launches": count, "max_abs_err": row[2], "ms": row[0],
+            "plain_ms": row[1], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib})
+        print(f"bound: {name} at (N, S) = ({n}, {s_n}): kernel "
+              f"{row[0] * 1e3:.1f} us, twin {row[1] * 1e3:.1f} us, library "
+              f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})",
+              flush=True)
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

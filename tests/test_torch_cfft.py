@@ -184,17 +184,20 @@ def test_kernel_would_run_honours_fused_gate(monkeypatch):
 
 
 def test_sizes_without_pair_kernel_geometry_raise(monkeypatch):
-    """Where the JAX package runs K1 but the port's pair kernels lack the
-    geometry (22 sizes, 3072 the first), the port raises and names the
-    ROADMAP item instead of routing elsewhere."""
+    """The pair kernel raises exactly at the sizes the JAX package's
+    ``supports`` refuses; every size it admits has a kernel in the port
+    (the 22 that K1-gen added among them, 3072 to 31744), and the router
+    sends the others to the packed pair."""
     monkeypatch.delenv("WAVEFORM_TPU_EXACT_FUSED", raising=False)
-    gap = []
-    for n in range(128, 65537, 16):
-        if exact_cuda.supports(n):
-            try:
-                exact_cuda.stage1_split(n)
-            except NotImplementedError:
-                gap.append(n)
-    assert len(gap) == 22 and gap[0] == 3072 and gap[-1] == 31744
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tex.rfft_mag_exact(torch.zeros((1, 2, 3072)))
+    monkeypatch.delenv("WAVEFORM_TPU_STAGE1_SPLIT", raising=False)
+    admitted = [n for n in range(128, 65537, 16) if jep.supports(n)]
+    assert len(admitted) == 40 and admitted[0] == 1024
+    gen = [n for n in admitted
+           if exact_cuda.stage1_split(n) == 2 and n not in exact_cuda.SIZES]
+    assert len(gen) == 28 and gen[0] == 3072 and gen[-1] == 31744
+    for n in (128, 1040, 3080, 65536 + 128):
+        assert not jep.supports(n)
+        with pytest.raises(NotImplementedError):
+            exact_cuda.rfft_pair_mag(torch.zeros((1, 2, n)))
+    mag, nz = tex.rfft_mag_exact(torch.zeros((1, 2, 3072)))
+    assert mag.shape == (1, 2, 1536) and not mag.any() and not nz.any()

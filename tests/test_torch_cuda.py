@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and engine on the card.
+"""The port's CUDA kernels and engine on the card.
 
 Marked ``cuda``; every test skips without a CUDA device.  On a machine
 with one, run them without the JAX test configuration:
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from waveform_tpu import (
+from waveform_tpu_torch import (
     DB_MIN,
     AudioInfo,
     ChannelMode,
@@ -32,6 +32,12 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     return torch.device("cuda", 0)
+
+
+def _counts():
+    """(K1, K2, K3, K1-gen) launch counts."""
+    return (exact_cuda.launches, exact_cuda.launches3,
+            exact_cuda.launches_cfft, exact_cuda.launches_gen)
 
 
 def _hann(n, dev):
@@ -66,19 +72,20 @@ def test_kernel_matches_twin_and_f64(n, S, dev):
 @pytest.mark.parametrize("S", [1, 5])
 @pytest.mark.parametrize("n", (4096,) + exact_cuda.SIZES3)
 def test_k2_matches_twin_and_f64(n, S, dev):
-    """K2 at every size it serves (N=4096 through its direct entry point,
-    which the router sends to K1), bit for bit against its twin."""
+    """K2 at every size it serves, bit for bit against its twin: through
+    the router at 32768 and 65536, through its direct entry point below
+    (the router sends 4096 to K1 and 8192/16384 to K1-gen)."""
     rng = np.random.default_rng(n + S + 7)
     x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
     x[-1, -1] = 0.0
     w64, win = _hann(n, dev)
     xd = torch.from_numpy(x).to(dev)
-    call = exact_cuda.rfft_pair_mag3 if n == 4096 else exact_cuda.rfft_pair_mag
-    before = (exact_cuda.launches, exact_cuda.launches3)
+    call = (exact_cuda.rfft_pair_mag if exact_cuda.stage1_split(n) == 3
+            else exact_cuda.rfft_pair_mag3)
+    before = _counts()
     mag, nz = call(xd, win)
     torch.cuda.synchronize()
-    assert (exact_cuda.launches, exact_cuda.launches3) == (before[0],
-                                                           before[1] + 1)
+    assert _counts() == (before[0], before[1] + 1, before[2], before[3])
     ref, nz_ref = exact_cuda.rfft_pair_mag3_ref(xd, win)
     assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
     want = np.abs(np.fft.rfft(x.astype(np.float64) * w64))[..., :n // 2]
@@ -152,8 +159,9 @@ def test_engine_on_card_matches_cpu_port(per_stream, dev):
 
 
 def test_large_fft_engine_on_card_matches_cpu_port(dev):
-    """N=16384 behind enable_large_fft: one K2 launch per tick (K1 not
-    launched), 21 ticks to fill the window, against the CPU port."""
+    """N=16384 behind enable_large_fft: one K1-gen launch per tick, as the
+    JAX package's split rule sends 16384 to its 2-factor body (no K1, K2
+    or K3 launch), 21 ticks to fill the window, against the CPU port."""
     cfg = resolve(Settings(fft_size=16384, enable_large_fft=True, width=800,
                            window=FFTWindow.HANN,
                            interp_mode=InterpMode.LANCZOS),
@@ -162,7 +170,7 @@ def test_large_fft_engine_on_card_matches_cpu_port(dev):
     card = ServingEngine(cfg, S, device=dev)
     cpu = ServingEngine(cfg, S, device="cpu")
     rng = np.random.default_rng(3)
-    before = (exact_cuda.launches, exact_cuda.launches3)
+    before = _counts()
     for k in range(ticks):
         x = (0.3 * rng.standard_normal((S, 2, 800))).astype(np.float32)
         x[-1] = 0.0
@@ -170,8 +178,7 @@ def test_large_fft_engine_on_card_matches_cpu_port(dev):
         for eng in (card, cpu):
             eng.feed_batch(x, now, now_ns=now)
             eng.tick(now_ns=now)
-    assert (exact_cuda.launches, exact_cuda.launches3) == (before[0],
-                                                           before[1] + ticks)
+    assert _counts() == (*before[:3], before[3] + ticks)
     db, want = card.read_decibels(), cpu.read_decibels()
     vis = want > -120.0
     np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)
@@ -236,6 +243,75 @@ def test_fused_never_engine_on_card_matches_cpu_port(channels, dev,
             eng.tick(now_ns=now)
     assert (exact_cuda.launches, exact_cuda.launches3,
             exact_cuda.launches_cfft) == (before[0], before[1], before[2] + 6)
+    db, want = card.read_decibels(), cpu.read_decibels()
+    vis = want > -120.0
+    np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)
+    floor = want == np.float32(DB_MIN)
+    np.testing.assert_array_equal(db[floor], want[floor])
+    np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
+    assert card.last_silent[-1]
+    assert np.isfinite(card.read_pixels()).all()
+
+
+@pytest.mark.parametrize("S", [1, 5])
+@pytest.mark.parametrize("n", [3072, 6144, 16384, 31744])
+def test_k1_gen_matches_twin_and_f64(n, S, dev):
+    """K1-gen through the router, bit for bit against its twin, one launch
+    per call and no other kernel, within 2.5e-7 of float64."""
+    rng = np.random.default_rng(n + S + 13)
+    x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
+    x[-1, -1] = 0.0
+    w64, win = _hann(n, dev)
+    xd = torch.from_numpy(x).to(dev)
+    before = _counts()
+    mag, nz = exact_cuda.rfft_pair_mag(xd, win)
+    torch.cuda.synchronize()
+    assert _counts() == (*before[:3], before[3] + 1)
+    ref, nz_ref = exact_cuda.rfft_pair_mag_ref(xd, win)
+    assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
+    want = np.abs(np.fft.rfft(x.astype(np.float64) * w64))[..., :n // 2]
+    got = mag.cpu().numpy().astype(np.float64)
+    assert np.abs(got - want).max() / want.max() <= TOL
+    np.testing.assert_array_equal(nz.cpu().numpy(),
+                                  np.count_nonzero(x, axis=-1))
+
+
+@pytest.mark.parametrize("n", exact_cuda.SIZES)
+def test_k1_gen_matches_k1_bitwise(n, dev):
+    """K1-gen's direct entry point at K1's own sizes gives K1's bits."""
+    rng = np.random.default_rng(n + 17)
+    x = (0.5 * rng.standard_normal((7, 2, n))).astype(np.float32)
+    x[3] = 1e20 * rng.standard_normal((2, n))
+    x[4, 0, 11] = np.nan
+    _, win = _hann(n, dev)
+    xd = torch.from_numpy(x).to(dev)
+    gen, nz_gen = exact_cuda.rfft_pair_mag_gen(xd, win)
+    k1, nz_k1 = exact_cuda.rfft_pair_mag(xd, win)
+    # NaN != NaN: compare the NaN stream's lanes by position
+    assert torch.equal(torch.nan_to_num(gen, nan=-1.0),
+                       torch.nan_to_num(k1, nan=-1.0))
+    assert torch.equal(nz_gen, nz_k1)
+
+
+def test_k1_gen_engine_on_card_matches_cpu_port(dev):
+    """N=6144 (an FFT-size slider position): one K1-gen launch per tick and
+    no other kernel, against the CPU port."""
+    cfg = resolve(Settings(fft_size=6144, width=800, window=FFTWindow.HANN,
+                           interp_mode=InterpMode.LANCZOS),
+                  AudioInfo(48000, 2))
+    S, ticks = 4, 9
+    card = ServingEngine(cfg, S, device=dev)
+    cpu = ServingEngine(cfg, S, device="cpu")
+    rng = np.random.default_rng(5)
+    before = _counts()
+    for k in range(ticks):
+        x = (0.3 * rng.standard_normal((S, 2, 800))).astype(np.float32)
+        x[-1] = 0.0
+        now = 10_000_000_000 + k * 16_666_667
+        for eng in (card, cpu):
+            eng.feed_batch(x, now, now_ns=now)
+            eng.tick(now_ns=now)
+    assert _counts() == (*before[:3], before[3] + ticks)
     db, want = card.read_decibels(), cpu.read_decibels()
     vis = want > -120.0
     np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)

@@ -5,7 +5,10 @@ four a-row chunks of stage 1, then two twiddle-folded DFT_a digit GEMMs.
 The port's plain twin ``rfft_pair_mag3_ref`` (what a CPU tensor runs) is
 held here against that Pallas body in interpret mode (forced to split 3:
 on the CPU the JAX package resolves 8192 to the 2-factor body, because its
-plan table applies on a v5e only) and against float64 numpy.
+plan table applies on a v5e only) and against float64 numpy.  Below
+N = 32768 the port's router follows the same rule and sends the pair to
+K1-gen, so these tests reach K2 through its direct entry point
+``rfft_pair_mag3`` there.
 
 Tolerances, with their reasons:
 
@@ -125,7 +128,7 @@ def test_twin3_matches_f64_at_large_n(n):
     x = (0.4 * rng.standard_normal((1, 2, n))).astype(np.float32)
     x[0, 1, : n // 3] = 0.0
     w64, hi, lo = _hann(n)
-    mag, nz = exact_cuda.rfft_pair_mag(
+    mag, nz = exact_cuda.rfft_pair_mag3(
         torch.from_numpy(x), (torch.from_numpy(hi), torch.from_numpy(lo)))
     assert _rel(mag.numpy(), _f64_mag(x, w64)) <= TOL
     np.testing.assert_array_equal(nz.numpy(), np.count_nonzero(x, axis=-1))
@@ -141,7 +144,7 @@ def test_corrupt_streams_isolated3():
     x[1] = (1e20 * rng.standard_normal((2, n))).astype(np.float32)
     x[3, 0, 7] = np.nan
     w64, hi, lo = _hann(n)
-    mag, nz = exact_cuda.rfft_pair_mag(
+    mag, nz = exact_cuda.rfft_pair_mag3(
         torch.from_numpy(x), (torch.from_numpy(hi), torch.from_numpy(lo)))
     mag_j, _ = _jax_k2(x, hi, lo)
     got = mag.numpy()
@@ -163,7 +166,7 @@ def test_quiet_channel_keeps_its_own_scale():
     x = rng.standard_normal((2, 2, n)).astype(np.float32)
     x[:, 1] *= np.float32(1e-6)
     w64, hi, lo = _hann(n)
-    mag, _ = exact_cuda.rfft_pair_mag(
+    mag, _ = exact_cuda.rfft_pair_mag3(
         torch.from_numpy(x), (torch.from_numpy(hi), torch.from_numpy(lo)))
     mag_j, _ = _jax_k2(x, hi, lo)
     want = _f64_mag(x, w64)
@@ -189,19 +192,21 @@ def test_twin3_matches_twin2_at_4096(windowed):
 
 
 @pytest.mark.parametrize("n,split", [
-    (1024, 2), (2048, 2), (4096, 2),
-    (8192, 3), (12288, 3), (16384, 3), (32768, 3), (65536, 3),
-    (128, None), (800, None), (1040, None), (6144, None), (10240, None),
-    (131072, None)])
-def test_stage1_split_routes_each_size(n, split):
-    """K1 for N1 in {8, 16, 32}, K2 from 8192 to 65536 with N1 % 32 == 0,
-    NotImplementedError otherwise, on the CPU as on the card."""
+    (1024, 2), (2048, 2), (4096, 2), (6144, 2), (8192, 2), (10240, 2),
+    (12288, 2), (16384, 2), (32768, 3), (65536, 3),
+    (128, None), (800, None), (1040, None), (131072, None)])
+def test_stage1_split_routes_each_size(n, split, monkeypatch):
+    """The JAX package's split rule with no plan: 2 below N = 32768 (K1 at
+    N1 in {8, 16, 32}, K1-gen at the other N1 % 8 == 0), 3 from 32768
+    (K2); sizes outside the pair geometry raise NotImplementedError in the
+    pair kernel, on the CPU as on the card."""
+    monkeypatch.delenv("WAVEFORM_TPU_STAGE1_SPLIT", raising=False)
     if split is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            exact_cuda.stage1_split(n)
+        assert not exact_cuda.supports(n)
         with pytest.raises(NotImplementedError):
             exact_cuda.rfft_pair_mag(torch.zeros((1, 2, n)))
     else:
+        assert exact_cuda.supports(n)
         assert exact_cuda.stage1_split(n) == split
 
 
@@ -239,8 +244,10 @@ def test_lone_channels_pair_streams_at_8192(streams, channels, monkeypatch):
     np.testing.assert_array_equal(nz.numpy(), np.asarray(nz_j))
 
 
-def test_cpu_tensors_take_the_k2_twin_and_count_no_launch():
-    before = (exact_cuda.launches, exact_cuda.launches3)
+def test_cpu_tensors_take_the_k2_twin_and_count_no_launch(monkeypatch):
+    monkeypatch.setenv("WAVEFORM_TPU_STAGE1_SPLIT", "3")
+    before = (exact_cuda.launches, exact_cuda.launches3,
+              exact_cuda.launches_gen)
     x = torch.from_numpy(
         np.random.default_rng(3).standard_normal((2, 2, 8192))
         .astype(np.float32))
@@ -251,4 +258,5 @@ def test_cpu_tensors_take_the_k2_twin_and_count_no_launch():
     mag, nz = exact_cuda.rfft_pair_mag3(y)
     ref, nz_ref = exact_cuda.rfft_pair_mag3_ref(y)
     assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
-    assert (exact_cuda.launches, exact_cuda.launches3) == before
+    assert (exact_cuda.launches, exact_cuda.launches3,
+            exact_cuda.launches_gen) == before

@@ -1,8 +1,13 @@
-"""The PyTorch port imports without JAX.
+"""The PyTorch port imports and serves without JAX and without the JAX
+package.
 
-Checked in a fresh interpreter: this test process has JAX loaded already
-(tests/conftest.py imports it), so only a subprocess can show that the
-port's own import graph leaves it out.
+Checked in a fresh interpreter: this test process has JAX and the JAX
+package loaded already (tests/conftest.py imports jax), so only a
+subprocess can show that the port's own import graph leaves both out.  The
+probe blocks ``jax``, ``jaxlib``, ``flax`` and ``waveform_tpu`` (the JAX
+package: the exact name and its submodules), then resolves a config with
+the port's own ``resolve`` and runs one CPU ``ServingEngine`` tick through
+the port's native assembler.
 """
 
 import subprocess
@@ -15,7 +20,7 @@ ROOT = Path(__file__).resolve().parents[1]
 _PROBE = textwrap.dedent("""
     import sys
 
-    BLOCKED = ("jax", "jaxlib", "flax")
+    BLOCKED = ("jax", "jaxlib", "flax", "waveform_tpu")
 
     def blocked(name):
         return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -37,6 +42,19 @@ _PROBE = textwrap.dedent("""
     import waveform_tpu_torch.kernels.exactfft
     import waveform_tpu_torch.rebin.apply
     import waveform_tpu_torch.runtime.serving
+
+    import numpy as np
+    import waveform_tpu_torch as wt
+    from waveform_tpu_torch.runtime.serving import ServingEngine
+
+    cfg = wt.resolve(wt.Settings(fft_size=1024, width=200),
+                     wt.AudioInfo(48000, 2))
+    eng = ServingEngine(cfg, 2, use_native=True, device="cpu")
+    assert type(eng._native).__module__ == "waveform_tpu_torch.native"
+    x = np.random.default_rng(0).standard_normal((2, 2, 1024))
+    eng.feed_batch(x.astype(np.float32), 10**10, now_ns=10**10)
+    px = eng.tick(now_ns=10**10)
+    assert tuple(px.shape) == (2, 1, 200) and bool(px.isfinite().all())
 
     loaded = sorted(k for k in sys.modules if blocked(k))
     assert not loaded, loaded

@@ -4,8 +4,11 @@ Input dB values span the default display range [-65, 0] dBFS.  The bound
 is 1e-5 dB plus two f32 ulps of the value (rtol 2.5e-7): the two sides sum
 the signed Lanczos taps in different orders, which alone moves a -43 dB
 result by up to 3 ulps (1.1e-5 dB).  Pixel-mapped outputs are held to the
-same bound expressed in pixels.
+same bound expressed in pixels.  Each package resolves the same settings
+with its own ``resolve``.
 """
+
+import enum
 
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ from waveform_tpu import (
     resolve,
 )
 from waveform_tpu.rebin import apply as japply
+import waveform_tpu_torch as wt
 from waveform_tpu_torch.rebin import apply as tapply
 
 CONFIGS = {
@@ -39,17 +43,25 @@ CONFIGS = {
 }
 
 
+def _cfgs(**kw):
+    """The same settings at 48 kHz stereo resolved by the JAX package and
+    by the port (enum members passed by name): ``(jax_cfg, port_cfg)``."""
+    port_kw = {k: (getattr(wt, type(v).__name__)[v.name]
+                   if isinstance(v, enum.Enum) else v) for k, v in kw.items()}
+    return (resolve(Settings(**kw), AudioInfo(48000, 2)),
+            wt.resolve(wt.Settings(**port_kw), wt.AudioInfo(48000, 2)))
+
+
 @pytest.mark.parametrize("pixel_map", [False, True])
 @pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_rebin_matches_jax(name, dense, pixel_map, monkeypatch):
     monkeypatch.setenv("WAVEFORM_TPU_REBIN", "dense" if dense else "gather")
-    cfg = resolve(Settings(fft_size=2048, width=300, **CONFIGS[name]),
-                  AudioInfo(48000, 2))
+    cfg, tcfg = _cfgs(fft_size=2048, width=300, **CONFIGS[name])
     rng = np.random.default_rng(len(name))
     db = rng.uniform(-65.0, 0.0, (3, 2, cfg.num_bins)).astype(np.float32)
     ref = japply.make_rebin_fn(cfg, apply_pixel_map=pixel_map)
-    port = tapply.make_rebin_fn(cfg, apply_pixel_map=pixel_map, dense=dense)
+    port = tapply.make_rebin_fn(tcfg, apply_pixel_map=pixel_map, dense=dense)
     kw = dict(top=4.0, bottom=220.0) if pixel_map else {}
     atol = 1e-5 * ((220.0 - 4.0) / (cfg.ceiling - cfg.floor)
                    if pixel_map else 1.0)
@@ -60,8 +72,7 @@ def test_rebin_matches_jax(name, dense, pixel_map, monkeypatch):
 
 
 def test_interp_matrix_matches_jax():
-    cfg = resolve(Settings(fft_size=1024, width=200,
-                           interp_mode=InterpMode.LANCZOS), AudioInfo(48000, 2))
+    cfg, _ = _cfgs(fft_size=1024, width=200, interp_mode=InterpMode.LANCZOS)
     from waveform_tpu.rebin.interp import build_interp_tables
     t = build_interp_tables(cfg)
     np.testing.assert_array_equal(
@@ -72,7 +83,7 @@ def test_interp_matrix_matches_jax():
 def test_dense_rebin_refuses_reduced_precision_matmul():
     """The dense product must run in full f32; a lowered global matmul
     precision is refused, not silently overridden."""
-    cfg = resolve(Settings(fft_size=1024, width=200), AudioInfo(48000, 2))
+    _, cfg = _cfgs(fft_size=1024, width=200)
     before = torch.get_float32_matmul_precision()
     try:
         torch.set_float32_matmul_precision("high")

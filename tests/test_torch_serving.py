@@ -2,17 +2,23 @@
 
 Both engines take the same packets (made with numpy from a seed) through
 the same entry points, with the pure-Python assembly (``use_native=False``)
-and the JAX exact kernel in interpret mode.  Pixels and ``read_decibels``
+and the JAX exact kernel in interpret mode; each package resolves the
+same settings with its own ``resolve``.  Pixels and ``read_decibels``
 must agree within 1e-4 dB (exactly where the reference reads DB_MIN), the
 silence latch exactly.  Audio is noise-dominated, like the bench gate's
 input (see tests/test_torch_spectrum.py for why).
 """
 
+import dataclasses
+import enum
+
 import numpy as np
 import pytest
 import torch
 
-from waveform_tpu import (
+import waveform_tpu as jwt
+from waveform_tpu.runtime.serving import ServingEngine as JaxEngine
+from waveform_tpu_torch import (
     DB_MIN,
     AudioInfo,
     ChannelMode,
@@ -20,10 +26,9 @@ from waveform_tpu import (
     InterpMode,
     Settings,
     TSmoothingMode,
+    oracle,
     resolve,
 )
-from waveform_tpu.dsp import oracle
-from waveform_tpu.runtime.serving import ServingEngine as JaxEngine
 from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.runtime.serving import ServingEngine
 
@@ -60,9 +65,28 @@ def _assert_same(port, ref):
     np.testing.assert_allclose(px[vis], px_ref[vis], rtol=0, atol=1e-4)
 
 
+def _to_jax(v):
+    """A port enum member or config dataclass -> the JAX package's own, by
+    name; other values as they are."""
+    if isinstance(v, enum.Enum):
+        return getattr(jwt, type(v).__name__)[v.name]
+    if dataclasses.is_dataclass(v):
+        return getattr(jwt, type(v).__name__)(
+            **{f.name: _to_jax(getattr(v, f.name))
+               for f in dataclasses.fields(v)})
+    return v
+
+
+def _jax_cfg(cfg):
+    """The port config's settings, audio and video resolved by the JAX
+    package."""
+    return jwt.resolve(_to_jax(cfg.settings), _to_jax(cfg.audio),
+                       _to_jax(cfg.video))
+
+
 def _engines(cfg, S):
     port = ServingEngine(cfg, S, use_native=False, device="cpu")
-    ref = JaxEngine(cfg, S, use_native=False)
+    ref = JaxEngine(_jax_cfg(cfg), S, use_native=False)
     return port, ref
 
 
@@ -252,7 +276,8 @@ def test_packed_slice_meets_oracle_gate(n, fused, monkeypatch):
 
 
 def test_large_fft_slice_meets_oracle_gate():
-    """N=16384 behind enable_large_fft, through K2's twin; the ring holds a
+    """N=16384 behind enable_large_fft, through K1-gen's twin (the JAX
+    split rule gives 16384 the 2-factor body); the ring holds a
     whole window of noise after 21 hops."""
     settings = Settings(fft_size=16384, enable_large_fft=True, width=800,
                         window=FFTWindow.HANN,

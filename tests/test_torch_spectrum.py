@@ -1,7 +1,8 @@
 """Spectrum step of the PyTorch port against the JAX step.
 
 Both steps take the same windows (made with numpy from a seed) and the
-same per-tick masks for about six ticks, from the same start state.  The
+same per-tick masks for about six ticks, from the same start state; each
+package resolves the same settings with its own ``resolve``.  The
 JAX step runs the exact backend with its Pallas kernel in interpret mode.
 Decibels must agree within 1e-4 dB wherever the reference is above -120,
 and exactly where it is DB_MIN; the silence latch must agree exactly.
@@ -13,6 +14,8 @@ different places (XLA on the CPU also contracts the df32 products into
 FMAs), so a bin 80 dB under a loud tone may differ by a few 1e-4 dB while
 each side stays within the kernel's 2.5e-7 |rFFT| bound.
 """
+
+import enum
 
 import numpy as np
 import pytest
@@ -30,6 +33,7 @@ from waveform_tpu import (
     resolve,
 )
 from waveform_tpu.dsp import spectrum as jspec
+import waveform_tpu_torch as wt
 from waveform_tpu_torch.dsp import spectrum as tspec
 
 N, S, TICKS = 1024, 4, 6
@@ -43,7 +47,13 @@ def kernel_on(monkeypatch):
 
 
 def _cfg(channels=2, **kw):
-    return resolve(Settings(fft_size=N, **kw), AudioInfo(48000, channels))
+    """The same settings resolved by the JAX package and by the port (enum
+    members passed by name): ``(jax_cfg, port_cfg)``."""
+    port_kw = {k: (getattr(wt, type(v).__name__)[v.name]
+                   if isinstance(v, enum.Enum) else v) for k, v in kw.items()}
+    return (resolve(Settings(fft_size=N, **kw), AudioInfo(48000, channels)),
+            wt.resolve(wt.Settings(fft_size=N, **port_kw),
+                       wt.AudioInfo(48000, channels)))
 
 
 def _windows(rng, cfg, tick, silent=()):
@@ -68,16 +78,18 @@ def _assert_db_close(got, want):
     np.testing.assert_array_equal(got[floor], want[floor])
 
 
-def _run(cfg, frames, active=None, rms=None, valid=None, run=None,
+def _run(cfgs, frames, active=None, rms=None, valid=None, run=None,
          start=None, dt=1 / 60):
-    """Drive both steps over ``frames``; per-tick masks are lists of [S]
-    (or [S, C]) numpy arrays or None.  Returns the final (jax, port)
-    states after asserting agreement every tick."""
-    jstep = jspec.make_spectrum_step(cfg, fft_backend="exact")
-    tstep = tspec.make_spectrum_step(cfg)
+    """Drive both steps over ``frames`` (``cfgs`` from :func:`_cfg`);
+    per-tick masks are lists of [S] (or [S, C]) numpy arrays or None.
+    Returns the final (jax, port) states after asserting agreement every
+    tick."""
+    jcfg, tcfg = cfgs
+    jstep = jspec.make_spectrum_step(jcfg, fft_backend="exact")
+    tstep = tspec.make_spectrum_step(tcfg)
     if start is None:
-        jst = jspec.init_state(cfg, S)
-        tst = tspec.init_state(cfg, S)
+        jst = jspec.init_state(jcfg, S)
+        tst = tspec.init_state(tcfg, S)
     else:
         jst = jspec.SpectrumState(*(jnp.asarray(a) for a in start))
         tst = tspec.state_from_numpy(*start)
@@ -117,15 +129,16 @@ def _run(cfg, frames, active=None, rms=None, valid=None, run=None,
         "rolloff_slope"])
 def test_step_matches_jax(kw, kernel_on):
     rng = np.random.default_rng(len(str(kw)))
-    cfg = _cfg(**kw)
-    _run(cfg, [_windows(rng, cfg, k, silent=[(1, 1)]) for k in range(TICKS)])
+    cfgs = _cfg(**kw)
+    _run(cfgs, [_windows(rng, cfgs[0], k, silent=[(1, 1)])
+                for k in range(TICKS)])
 
 
 def test_mono_capture(kernel_on):
     """One capture channel (C=1, duplicated to stereo output)."""
     rng = np.random.default_rng(3)
-    cfg = _cfg(channels=1, channel_mode=ChannelMode.STEREO)
-    _run(cfg, [_windows(rng, cfg, k) for k in range(TICKS)])
+    cfgs = _cfg(channels=1, channel_mode=ChannelMode.STEREO)
+    _run(cfgs, [_windows(rng, cfgs[0], k) for k in range(TICKS)])
 
 
 @pytest.mark.parametrize("stereo", [False, True])
@@ -135,12 +148,13 @@ def test_silence_latch_set_and_released(stereo, kernel_on):
     only, and in mono downmix the later silent channel reads the fresh
     linear magnitudes of channel 0 (the mixed-domain quirk)."""
     rng = np.random.default_rng(4 + stereo)
-    cfg = _cfg(channel_mode=ChannelMode.STEREO if stereo else ChannelMode.MONO)
-    frames = [_windows(rng, cfg, k,
+    cfgs = _cfg(channel_mode=(ChannelMode.STEREO if stereo
+                              else ChannelMode.MONO))
+    frames = [_windows(rng, cfgs[0], k,
                        silent=([(2, None)] if k < 3 else [])
                        + ([(3, 1)] if k >= 2 else []))
               for k in range(TICKS)]
-    jst, tst = _run(cfg, frames)
+    jst, tst = _run(cfgs, frames)
     assert not tst.last_silent.numpy()[2]
 
 
@@ -149,7 +163,7 @@ def test_timeout_and_hidden(kernel_on):
     the start (cleared to DB_MIN, latched); stream 0 never runs on tick 4;
     one channel lacks data on tick 2."""
     rng = np.random.default_rng(6)
-    cfg = _cfg(channel_mode=ChannelMode.STEREO)
+    cfgs = _cfg(channel_mode=ChannelMode.STEREO)
     active, run, valid = [], [], []
     for k in range(TICKS):
         a = np.ones(S, bool)
@@ -164,17 +178,17 @@ def test_timeout_and_hidden(kernel_on):
         if k == 2:
             v[2, 0] = False
         valid.append(v)
-    frames = [_windows(rng, cfg, k) for k in range(TICKS)]
-    _run(cfg, frames, active=active, run=run, valid=valid)
+    frames = [_windows(rng, cfgs[0], k) for k in range(TICKS)]
+    _run(cfgs, frames, active=active, run=run, valid=valid)
 
 
 def test_volume_normalization(kernel_on):
     rng = np.random.default_rng(8)
-    cfg = _cfg(normalize_volume=True, volume_target=-12, max_gain=20)
+    cfgs = _cfg(normalize_volume=True, volume_target=-12, max_gain=20)
     rms = [rng.uniform(0.0, 0.5, S).astype(np.float32) for _ in range(TICKS)]
     for r in rms:
         r[0] = 0.0                   # silent input: the gain caps at max_gain
-    _run(cfg, [_windows(rng, cfg, k) for k in range(TICKS)], rms=rms)
+    _run(cfgs, [_windows(rng, cfgs[0], k) for k in range(TICKS)], rms=rms)
 
 
 def test_start_from_shared_mid_stream_state(kernel_on):
@@ -182,7 +196,7 @@ def test_start_from_shared_mid_stream_state(kernel_on):
     numpy arrays: a latched-silent stream stays frozen while silent, the
     others carry their EMA trails on."""
     rng = np.random.default_rng(9)
-    cfg = _cfg(channel_mode=ChannelMode.STEREO)
+    cfgs = _cfg(channel_mode=ChannelMode.STEREO)
     nb = N // 2
     tsmooth = rng.uniform(0.0, 0.05, (S, 2, nb)).astype(np.float32)
     db = rng.uniform(-110.0, -10.0, (S, 2, nb)).astype(np.float32)
@@ -190,8 +204,9 @@ def test_start_from_shared_mid_stream_state(kernel_on):
     latched[1] = True
     db[1] = rng.uniform(-100.0, -80.0, (2, nb))
     start = (tsmooth, db, latched)
-    frames = [_windows(rng, cfg, k, silent=[(1, None)]) for k in range(TICKS)]
-    jst, tst = _run(cfg, frames, start=start)
+    frames = [_windows(rng, cfgs[0], k, silent=[(1, None)])
+              for k in range(TICKS)]
+    jst, tst = _run(cfgs, frames, start=start)
     got = tspec.state_to_numpy(tst)
     np.testing.assert_array_equal(got[1][1], db[1])     # frozen verbatim
     assert got[2][1]

@@ -2,15 +2,17 @@
 
 A port of ``waveform_tpu`` (the JAX package, which stays the reference):
 the same configuration API, the same host-side assembly, and the same
-exact-accumulation spectrum, with the digit-sliced |rFFT| as a CUDA kernel
-(``kernels/exact_cuda.py``, ``csrc/exact_mag.cu``).  This package imports
-``torch`` and never ``jax``; the JAX-free host modules of ``waveform_tpu``
-(config, enums, sample ring, window tables, rebin tables, the float64
-oracle, the native assembler) are shared rather than copied.
+exact-accumulation spectrum, with the digit-sliced |rFFT| as CUDA kernels
+(``kernels/exact_cuda.py``, ``csrc/``).  This package imports ``torch``
+and nothing of ``jax`` or of the JAX package: it keeps its own copies of
+the host modules it needs (config, enums, sample ring, window tables,
+rebin tables, the float64 oracle, the native assembler), so a config is
+resolved with this package's :func:`resolve`.
 """
 
-from waveform_tpu import __version__  # noqa: F401
-from waveform_tpu.core.config import (  # noqa: F401
+__version__ = "0.1.0"
+
+from .core.config import (  # noqa: F401
     DB_MIN,
     RGBA,
     AudioInfo,
@@ -19,7 +21,7 @@ from waveform_tpu.core.config import (  # noqa: F401
     VideoInfo,
     resolve,
 )
-from waveform_tpu.core.enums import (  # noqa: F401
+from .core.enums import (  # noqa: F401
     ChannelMode,
     DisplayMode,
     FFTWindow,
@@ -29,4 +31,4 @@ from waveform_tpu.core.enums import (  # noqa: F401
     RenderMode,
     TSmoothingMode,
 )
-from waveform_tpu.dsp import oracle  # noqa: F401
+from .dsp import oracle  # noqa: F401

@@ -21,16 +21,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from waveform_tpu.core.config import DB_MIN, ResolvedConfig
-from waveform_tpu.core.enums import FFTWindow, TSmoothingMode
-from waveform_tpu.dsp.oracle import (
-    TV_EMA_DENOM,
-    rolloff_modifiers,
-    slope_modifiers,
-)
-from waveform_tpu.dsp.windows import window_coefficients, window_sum
-
+from ..core.config import DB_MIN, ResolvedConfig, check_config
+from ..core.enums import FFTWindow, TSmoothingMode
 from ..kernels.exactfft import rfft_mag_exact, two_prod, two_sum
+from .oracle import TV_EMA_DENOM, rolloff_modifiers, slope_modifiers
+from .windows import window_coefficients, window_sum
 
 
 @dataclass
@@ -49,6 +44,7 @@ def _channels(cfg: ResolvedConfig) -> tuple[int, int]:
 
 def init_state(cfg: ResolvedConfig, num_streams: int,
                device: torch.device | str = "cpu") -> SpectrumState:
+    check_config(cfg)
     nbins = cfg.fft_size // 2
     C, O = _channels(cfg)
     return SpectrumState(
@@ -168,6 +164,7 @@ def make_spectrum_step(cfg: ResolvedConfig,
     * ``valid``     [S, C] bool — channels whose ring held data (default all)
     * ``run``       [S] bool — streams whose tick ran (default all)
     """
+    check_config(cfg)
     device = torch.device(device)
     nbins = cfg.fft_size // 2
     C, O = _channels(cfg)

@@ -1,19 +1,24 @@
 """Exact FFT kernels: the Hopper kernels, their plain twins, the build.
 
 The PyTorch counterpart of ``waveform_tpu/kernels/exact_pallas.py``: its
-routing predicates (:func:`supports`, :func:`supports_cfft`,
-:func:`kernel_would_run`), the real-split magnitude kernels at the f32
-twiddle tier, K1 (``_kernel_real_mag``, 2-factor stage 1) and K2
-(``_kernel_real_mag3``, 3-factor stage 1: a df32 radix-4 butterfly, then
-two twiddle-folded DFT_a digit GEMMs), and the complex df32 kernel K3
-(``_kernel``).  Entry points: :func:`rfft_pair_mag` (K1/K2, routed by size
-through :func:`stage1_split`) and :func:`cfft_exact_kernel` (K3).
+routing predicates (:func:`stage1_split`, :func:`supports`,
+:func:`supports_cfft`, :func:`kernel_would_run`), the real-split magnitude
+kernels at the f32 twiddle tier, K1 (``_kernel_real_mag``, 2-factor stage
+1) and K2 (``_kernel_real_mag3``, 3-factor stage 1: a df32 radix-4
+butterfly, then two twiddle-folded DFT_a digit GEMMs), and the complex
+df32 kernel K3 (``_kernel``).  K1's body runs as two kernels: K1
+(``csrc/exact_mag.cu``, one block per stream) at N1 in {8, 16, 32}, and
+K1-gen (``csrc/exact_mag_gen.cu``, two launches) at every other
+N1 % 8 == 0 up to 256.  Entry points: :func:`rfft_pair_mag` (K1, K1-gen
+or K2, routed by :func:`stage1_split` as the JAX package routes) and
+:func:`cfft_exact_kernel` (K3).
 
 * a CUDA tensor launches the hand-written kernel, ``csrc/exact_mag.cu``
-  (K1), ``csrc/exact_mag3.cu`` (K2) or ``csrc/exact_cfft.cu`` (K3), built
-  with ``nvcc`` at first use into ``build/waveform_tpu_torch/`` and bound
-  with ``ctypes``; a build or launch failure raises;
-* a CPU tensor runs the twin, :func:`rfft_pair_mag_ref`,
+  (K1), ``csrc/exact_mag_gen.cu`` (K1-gen), ``csrc/exact_mag3.cu`` (K2)
+  or ``csrc/exact_cfft.cu`` (K3), built with ``nvcc`` at first use into
+  ``build/waveform_tpu_torch/`` and bound with ``ctypes``; a build or
+  launch failure raises;
+* a CPU tensor runs the twin, :func:`rfft_pair_mag_ref` (K1 and K1-gen),
   :func:`rfft_pair_mag3_ref` or :func:`cfft_exact_ref`: the same arithmetic
   in torch ops (digit products in float64, exact because every integer
   partial sum stays far below 2^53).
@@ -27,13 +32,13 @@ planes with the first 6 bits deep, digit pairs with i + j <= 3 kept
 (j1 = jq·a + jp, k1 = kq + 4·kp) and produces its rows chunk-major
 (pos = kq·a + kp).
 
-Scale rule: K1 takes one pow2 scale per (stream, j2) column over both
-channels; K2 one per (stream, channel, j2) column, for U02 = [u0; u2] and
-U13 = [u1; u3] separately, as ``_kernel_real_mag3`` does; K3 one per
-(stream, j2) column over [x_r; x_i] in stage 1 and one per (stream, k1)
-row over [b_r | b_i] in stage 2.  K1 and K2 slice with the fast
-fixed-point extract and sum their digit classes in plain f32; K3 slices
-serially and recombines with TwoSum, as the df tier does.
+Scale rule: K1 and K1-gen take one pow2 scale per (stream, j2) column
+over both channels; K2 one per (stream, channel, j2) column, for
+U02 = [u0; u2] and U13 = [u1; u3] separately, as ``_kernel_real_mag3``
+does; K3 one per (stream, j2) column over [x_r; x_i] in stage 1 and one
+per (stream, k1) row over [b_r | b_i] in stage 2.  K1's body and K2 slice
+with the fast fixed-point extract and sum their digit classes in plain
+f32; K3 slices serially and recombines with TwoSum, as the df tier does.
 """
 
 from __future__ import annotations
@@ -56,8 +61,8 @@ from .exactfft import (_CLAMP, DIGIT_BITS, FIRST_SHIFT, N_DIGITS,
 LANES = 128                     # N2: the stage-2 transform length
 SIZES = (1024, 2048, 4096)      # N1 = 8, 16, 32: what K1 is built for
 SIZES3 = (8192, 16384, 32768, 65536)   # the K2 sizes the JAX plan ships
+MAX_N2 = 32768                  # K1-gen and K3 serve N1 % 8 == 0 up to here
 MAX_N3 = 65536                  # K2 serves N1 % 32 == 0 up to here
-MAX_NC = 32768                  # K3 serves N1 % 8 == 0 up to here
 
 # fixed-point geometry of the parallel digit extraction: i = rint(r·2^27)
 # splits into 4 offset-binary base-128 fields
@@ -65,34 +70,54 @@ _SLICE_TOP = FIRST_SHIFT + (N_DIGITS - 1) * DIGIT_BITS            # 27
 _SLICE_BIAS = sum(64 << (_SLICE_TOP - FIRST_SHIFT - DIGIT_BITS * k)
                   for k in range(N_DIGITS))
 
-# counts of kernel launches (not of twin calls), K1, K2 and K3 apart: a run
-# reads them to show that its main path went through the kernel it expects
+# counts of kernel launches (not of twin calls), K1, K2, K3 and K1-gen
+# apart: a run reads them to show that its main path went through the
+# kernel it expects
 launches = 0
 launches3 = 0
 launches_cfft = 0
+launches_gen = 0
 
 
 # ---------------------------------------------------------------------------
 # routing: the JAX package's predicates
 # ---------------------------------------------------------------------------
 
+def stage1_split(n: int) -> int:
+    """``exact_pallas._stage1_split(n)`` without the v5e plan table (which
+    never applies on this card): ``WAVEFORM_TPU_STAGE1_SPLIT`` in
+    {"2", "3"} (read at call time) wins, else 3 from N = 32768 up and 2
+    below.  Split 2 is K1's body (K1 at N1 in {8, 16, 32}, K1-gen at the
+    other N1), split 3 K2's."""
+    mode = os.environ.get("WAVEFORM_TPU_STAGE1_SPLIT", "auto")
+    if mode in ("2", "3"):
+        return int(mode)
+    return 3 if n >= 32768 else 2
+
+
 def supports(n: int) -> bool:
     """``exact_pallas.supports(n)``: the pair-kernel geometry, N1 = n/128 a
-    multiple of 8, with the heuristic stage-1 split: 2-factor below
-    N = 32768, 3-factor from 32768 up to 65536, where it needs
-    N1 % 32 == 0.  The JAX package's v5e plan table never applies on this
-    card."""
+    multiple of 8, and the split's own bound: split 2 up to N = 32768,
+    split 3 with N1 % 32 == 0 up to 65536."""
     n1, rem = divmod(n, LANES)
     if rem or n1 % 8:
         return False
-    return n < 32768 or (n1 % 32 == 0 and n <= MAX_N3)
+    if stage1_split(n) == 2:
+        return n <= MAX_N2
+    return n1 % 32 == 0 and n <= MAX_N3
+
+
+def _two_factor(n: int) -> bool:
+    """The 2-factor geometry of K1-gen and K3: N1 = n/128 a multiple of 8,
+    N <= 32768."""
+    n1, rem = divmod(n, LANES)
+    return rem == 0 and n1 % 8 == 0 and 0 < n <= MAX_N2
 
 
 def supports_cfft(n: int) -> bool:
     """``exact_pallas.supports_cfft(n)``: K3 runs the 2-factor stage 1,
     N1 % 8 == 0 up to N = 32768."""
-    n1, rem = divmod(n, LANES)
-    return rem == 0 and n1 % 8 == 0 and n <= MAX_NC
+    return _two_factor(n)
 
 
 def kernel_would_run(n: int) -> bool:
@@ -101,24 +126,6 @@ def kernel_would_run(n: int) -> bool:
     stream to the packed pair (``exactfft.rfft_pair_mag_exact``)."""
     return (supports(n)
             and os.environ.get("WAVEFORM_TPU_EXACT_FUSED", "auto") != "never")
-
-
-def stage1_split(n: int) -> int:
-    """The pair kernel that serves size ``n``: 2 (K1, ``exact_mag.cu``) for
-    N1 = n/128 in {8, 16, 32}, 3 (K2, ``exact_mag3.cu``) for
-    8192 <= n <= 65536 with N1 % 32 == 0.  Other sizes raise
-    NotImplementedError: of those, the ones :func:`supports` admits (3072,
-    5120, ...) are where the JAX package runs K1."""
-    n1, rem = divmod(n, LANES)
-    if rem == 0 and n1 in (8, 16, 32):
-        return 2
-    if rem == 0 and n1 % 32 == 0 and 8192 <= n <= MAX_N3:
-        return 3
-    raise NotImplementedError(
-        f"the exact |rFFT| pair kernels cover N/128 in {{8, 16, 32}} and "
-        f"8192 <= N <= {MAX_N3} with N/128 % 32 == 0, got N={n}; the other "
-        "sizes the JAX package sends to K1 wait for ROADMAP B1-gen "
-        "(generalise K1 to N/128 % 8 == 0, N <= 32768)")
 
 
 # ---------------------------------------------------------------------------
@@ -218,10 +225,15 @@ def _consts(n: int, device: torch.device):
     matrices (``f1``, ``f2``) for the twin's exact products, and packed
     four int8 digits to an int32 word along each GEMM's contraction axis
     (``f1w`` [4, 2n1, n1/4] over j1, ``f2w`` [4, 2n2/4, n2] over the
-    [br | bi] row), the layout the kernel's ``__dp4a`` reads."""
+    [br | bi] row), the layout the kernel's ``__dp4a`` reads.  K1-gen
+    reads ``f1w_gen`` [4, 2n1, W]: ``f1w`` with each row zero-padded to
+    W = n1/4 rounded up to a multiple of 4 words (16-byte loads)."""
     n1, n2, f1d, f2d, twr, _, twi, _, _, _ = _kernel_plan_real(n)
+    f1w = _words(f1d)
+    pad = -(n1 // 4) % 4
     host = {"twr": twr, "twi": twi, "f1": f1d.astype(np.float64),
-            "f1w": _words(f1d), **_f2_consts(f2d)}
+            "f1w": f1w, "f1w_gen": np.pad(f1w, ((0, 0), (0, 0), (0, pad))),
+            **_f2_consts(f2d)}
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
@@ -548,6 +560,10 @@ def build() -> ctypes.CDLL:
     lib.wf_exact_cfft.argtypes = ([ctypes.c_void_p] * 9
                                   + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p])
+    lib.wf_exact_mag_gen.restype = ctypes.c_int
+    lib.wf_exact_mag_gen.argtypes = ([ctypes.c_void_p] * 11
+                                     + [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p])
     _lib = lib
     return lib
 
@@ -580,15 +596,25 @@ def rfft_pair_mag(x: torch.Tensor, window=None):
 
     Returns ``(mag [S, 2, N/2] f32, nzcount [S, 2] f32)`` in natural bin
     order.  ``window`` is a (w_hi, w_lo) df32 pair of [N] f32 tensors on
-    ``x``'s device, or None for no window.  The size picks the kernel
-    (:func:`stage1_split`): K1 here, K2 through :func:`rfft_pair_mag3`.  A
-    CUDA tensor launches the kernel, a CPU tensor takes its twin.
+    ``x``'s device, or None for no window.  ``N`` must be one that
+    :func:`supports` admits; :func:`stage1_split` picks the body: split 2
+    runs K1 here at N1 in {8, 16, 32} and K1-gen
+    (:func:`rfft_pair_mag_gen`) at the other N1, split 3 runs K2
+    (:func:`rfft_pair_mag3`).  A CUDA tensor launches the kernel, a CPU
+    tensor takes its twin.
     """
     global launches
     _check_pair(x)
     n = x.shape[-1]
+    if not supports(n):
+        raise NotImplementedError(
+            f"the exact |rFFT| pair kernels take N = 128·N1 with N1 % 8 == 0: "
+            f"up to {MAX_N2} under stage-1 split 2, with N1 % 32 == 0 up to "
+            f"{MAX_N3} under split 3; got N={n} at split {stage1_split(n)}")
     if stage1_split(n) == 3:
         return rfft_pair_mag3(x, window)
+    if n not in SIZES:
+        return rfft_pair_mag_gen(x, window)
     w_hi, w_lo = _checked_window(x, window)
     if x.device.type == "cpu":
         return rfft_pair_mag_ref(x, (w_hi, w_lo))
@@ -606,6 +632,46 @@ def rfft_pair_mag(x: torch.Tensor, window=None):
     if err != 0:
         raise RuntimeError(f"exact_mag kernel launch failed: cudaError {err}")
     launches += 1
+    return mag, nz
+
+
+def rfft_pair_mag_gen(x: torch.Tensor, window=None):
+    """K1-gen directly, at any N = 128·N1 with N1 % 8 == 0 up to 32768
+    (K1's sizes included, which :func:`rfft_pair_mag` sends to K1).  The
+    contract of :func:`rfft_pair_mag`; a CPU tensor takes
+    :func:`rfft_pair_mag_ref`.
+    """
+    global launches_gen
+    _check_pair(x)
+    n = x.shape[-1]
+    if not _two_factor(n):
+        raise NotImplementedError(
+            f"K1-gen covers N = 128·N1 with N1 % 8 == 0 up to {MAX_N2}, "
+            f"got N={n}")
+    w_hi, w_lo = _checked_window(x, window)
+    if x.device.type == "cpu":
+        return rfft_pair_mag_ref(x, (w_hi, w_lo))
+    lib = build()
+    S = x.shape[0]
+    dev = x.device
+    mag = torch.empty((S, 2, n // 2), dtype=torch.float32, device=dev)
+    nz = torch.empty((S, 2), dtype=torch.float32, device=dev)
+    # stage-1 output rows [br | bi] and the int32 nonzero sums
+    rows = torch.empty((S, 2, n // LANES, 2 * LANES), dtype=torch.float32,
+                       device=dev)
+    nz_int = torch.empty((S, 2), dtype=torch.int32, device=dev)
+    c = _consts(n, dev)
+    with torch.cuda.device(dev):
+        err = lib.wf_exact_mag_gen(
+            x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+            c["f1w_gen"].data_ptr(), c["f2w"].data_ptr(), c["twr"].data_ptr(),
+            c["twi"].data_ptr(), rows.data_ptr(), nz_int.data_ptr(),
+            mag.data_ptr(), nz.data_ptr(), S, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"exact_mag_gen kernel launch failed: cudaError {err}")
+    launches_gen += 1
     return mag, nz
 
 
@@ -664,7 +730,7 @@ def cfft_exact_kernel(re, im):
                              "pairs of them) of one shape on one device")
     if not supports_cfft(n):
         raise NotImplementedError(
-            f"K3 covers N = 128·N1 with N1 % 8 == 0 up to {MAX_NC}, got N={n}")
+            f"K3 covers N = 128·N1 with N1 % 8 == 0 up to {MAX_N2}, got N={n}")
     dev = parts[0].device
     if dev.type == "cpu":
         return cfft_exact_ref(re, im)

@@ -4,8 +4,8 @@ The PyTorch counterpart of ``waveform_tpu/rebin/apply.py``.  Per frame and
 display channel: interp (Lanczos / Catmull-Rom / point) -> optional bar
 band averaging -> optional Gaussian smoothing -> optional dB->pixel map ->
 optional mirroring (reference src/source.cpp:1380-1424, 1505-1564).
-The tables come from the JAX package's numpy builders
-(``rebin/interp.py``, ``rebin/filter.py``); input bins are in natural order.
+The tables come from the numpy builders in ``rebin/interp.py`` and
+``rebin/filter.py``; input bins are in natural order.
 """
 
 from __future__ import annotations
@@ -13,10 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from waveform_tpu.core.config import ResolvedConfig
-from waveform_tpu.core.enums import DisplayMode, FilterMode
-from waveform_tpu.rebin.filter import build_gauss_tables
-from waveform_tpu.rebin.interp import build_interp_tables, mirror_indices
+from ..core.config import ResolvedConfig, check_config
+from ..core.enums import DisplayMode, FilterMode
+from .filter import build_gauss_tables
+from .interp import build_interp_tables, mirror_indices
 
 DENSE_MAX_BINS = 8192
 
@@ -70,6 +70,7 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
     gather elsewhere.  The dense form raises unless float32 matmuls run
     in full float32 (:func:`check_full_f32_matmul`).
     """
+    check_config(cfg)
     device = torch.device(device)
     tables = build_interp_tables(cfg)
     nbins_in = (cfg.fft_size if cfg.display_mode == DisplayMode.WAVEFORM

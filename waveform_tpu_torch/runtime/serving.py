@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of the single-tick path of
 ``waveform_tpu/runtime/serving.py``.  Audio packets queue on the host (the
-shared C++ assembler, or the pure-Python assembly when no compiler is
+C++ assembler in ``native/``, or the pure-Python assembly when no compiler is
 available); each tick assembles ONE packed row per stream — the newly
 synced samples, the raw RMS squares under volume normalization, then
 (count, active, rms) — uploads it, and runs ring push -> exact |rFFT| ->
@@ -23,13 +23,13 @@ from collections import deque
 import numpy as np
 import torch
 
-from waveform_tpu.core.config import (
+from ..core.config import (
     CAPTURE_TIMEOUT_NS,
     MAX_TS_DELTA_NS,
     ResolvedConfig,
+    check_config,
 )
-from waveform_tpu.core.ring import audio_frames_to_ns, ns_to_audio_frames
-
+from ..core.ring import audio_frames_to_ns, ns_to_audio_frames
 from ..dsp.devring import init_ring, push
 from ..dsp.spectrum import display_decibels, init_state, make_spectrum_step
 from ..rebin.apply import make_rebin_fn
@@ -57,6 +57,7 @@ class ServingEngine:
                  hop_budget: int | None = None,
                  use_native: bool | None = None,
                  device: torch.device | str = "cuda"):
+        check_config(cfg)
         if not cfg.spectrum_mode:
             raise ValueError("ServingEngine handles spectrum mode only")
         self.device = torch.device(device)
@@ -81,7 +82,7 @@ class ServingEngine:
         self._native = None
         if use_native or use_native is None:
             try:
-                from waveform_tpu.native import NativeAssembler
+                from ..native import NativeAssembler
                 self._native = NativeAssembler(
                     num_streams, self.C, cfg.fft_size,
                     cfg.audio.samples_per_sec, cfg.ts_offset_ns,
