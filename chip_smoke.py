@@ -65,7 +65,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
 15. times_gen — K1-gen, its twin and the library call
    ``torch.fft.rfft(x.double() * w).abs()`` at (6144, 256) and (16384,
    256), K2 and its twin at (16384, 256), K1-gen's direct entry point
-   against K1 at (4096, 256), and the full tick at N=6144, S=256.
+   against K1 at (4096, 256), and the full tick at N=6144, S=256;
+16. kernel_df — under WAVEFORM_TPU_KERNEL_TWIDDLE=df, K1-df (K1's body at
+   the df twiddle tier) through the router at N in {1024, 2048, 3072,
+   4096, 6144, 16384, 31744} and K2-df (K2 at the df tier) at 8192
+   through its direct entry point and at 32768 and 65536 through the
+   router, S in {1, 7, 64} (32 at 65536), and (4096, 256), with the
+   windows and bad streams of phase 3: bit for bit against the df twin
+   (NaN lanes by position), within TOL of float64, nz exact; the f32
+   kernel of the same size on the same input bit for bit against its
+   twin, its float64 error printed beside the df kernel's;
+17. slice_df — ``ServingEngine`` under WAVEFORM_TPU_KERNEL_TWIDDLE=df at the
+   headline configuration (S=256, 8 ticks: one K1-df launch per tick) and
+   at the large-FFT configuration (S=32, 84 ticks: one K2-df launch per
+   tick), no f32-tier kernel launch, with the checks of phases 4 and 7;
+18. times_df — K1-df at (4096, 256) and (16384, 256) and K2-df at
+   (65536, 32), each beside the f32 kernel of the same shape, with the df
+   twin and the library call, and the full df tick at both slices.
 
 Every phase's seconds are printed before the kernels' JSON record and the
 result line, which are the last two lines.  Each kernel's record carries
@@ -94,6 +110,9 @@ TOL_SPLITS = 3e-7     # K2 vs K1 (tests/test_exact_pallas.py:217-229)
 SEED = 0
 INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak, ops/s
 HBM = 3.35e12         # H100 SXM device memory, bytes/s
+# exact_cuda's launch counters: K1, K2, K3, K1-gen, K1-df, K2-df
+COUNTERS = ("launches", "launches3", "launches_cfft", "launches_gen",
+            "launches_gen_df", "launches3_df")
 
 
 @contextlib.contextmanager
@@ -216,6 +235,79 @@ def phase_kernel(exact_cuda, dev, kernel, twin, counter: str, sizes,
                 worst["f64"] = max(worst["f64"], e_f64)
                 cases += 1
     return cases, worst
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-for-bit equality of two float tensors, NaN lanes by position
+    (NaN != NaN)."""
+    return torch.equal(torch.nan_to_num(a, nan=-1.0),
+                       torch.nan_to_num(b, nan=-1.0))
+
+
+def phase_df(exact_cuda, dev, cases, seed: int):
+    """The df tier's kernels against their twins, float64 and the f32
+    tier.  ``cases`` are (entry, N, streams): ``entry`` "router" runs
+    ``rfft_pair_mag`` under WAVEFORM_TPU_KERNEL_TWIDDLE=df and then under
+    f32, "k2" K2's direct entry point with ``twiddle`` "df" then "f32".
+    Each df call adds one to the df counter of its split and nothing to
+    any other, matches the df twin bit for bit (NaN lanes by position)
+    and float64 within TOL, and counts nonzeros exactly; each f32 call
+    matches its f32 twin bit for bit.  Returns the number of cases and
+    the worst relative errors of each tier against float64."""
+    rng = np.random.default_rng(seed)
+    worst = {"df": 0.0, "f32": 0.0}
+    n_cases = 0
+    for entry, n, streams in cases:
+        split = 3 if entry == "k2" else exact_cuda.stage1_split(n)
+        counter = "launches3_df" if split == 3 else "launches_gen_df"
+        twins = ((exact_cuda.rfft_pair_mag3_df_ref,
+                  exact_cuda.rfft_pair_mag3_ref) if split == 3 else
+                 (exact_cuda.rfft_pair_mag_df_ref,
+                  exact_cuda.rfft_pair_mag_ref))
+        for S in streams:
+            for windowed in (True, False):
+                x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
+                x[0, 0] += np.sin(2 * np.pi * 440.0 * np.arange(n) / SR)
+                bad = bad_streams(x, rng)
+                good = [s for s in range(S) if s not in bad]
+                w64, win = hann_pair(n, dev) if windowed else (np.ones(n),
+                                                                None)
+                xd = torch.from_numpy(x).to(dev)
+                want = np.abs(np.fft.rfft(x[good].astype(np.float64) * w64))
+                want = want[..., :n // 2]
+                scale = np.abs(want).max()
+                for tier, twin in zip(("df", "f32"), twins):
+                    before = [getattr(exact_cuda, c) for c in COUNTERS]
+                    with env("WAVEFORM_TPU_KERNEL_TWIDDLE", tier):
+                        mag, nz = (exact_cuda.rfft_pair_mag3(xd, win, tier)
+                                   if entry == "k2" else
+                                   exact_cuda.rfft_pair_mag(xd, win))
+                    torch.cuda.synchronize()
+                    after = [getattr(exact_cuda, c) for c in COUNTERS]
+                    moved = [c for c, b, a in zip(COUNTERS, before, after)
+                             if a != b]
+                    if tier == "df":
+                        check(moved == [counter]
+                              and after[COUNTERS.index(counter)]
+                              == before[COUNTERS.index(counter)] + 1,
+                              f"df N={n} S={S}: counters moved {moved}")
+                    else:
+                        check(len(moved) == 1 and "df" not in moved[0],
+                              f"f32 N={n} S={S}: counters moved {moved}")
+                    ref, nz_ref = twin(xd, win)
+                    torch.cuda.synchronize()
+                    check(same_bits(mag, ref) and torch.equal(nz, nz_ref),
+                          f"{tier} kernel vs twin at N={n} S={S} "
+                          f"windowed={windowed}: not bit-identical")
+                    e_f64 = np.abs(mag.cpu().numpy()[good].astype(np.float64)
+                                   - want).max() / scale
+                    check(e_f64 <= TOL, f"{tier} N={n} S={S} vs f64 {e_f64}")
+                    check(np.array_equal(nz.cpu().numpy(),
+                                         np.count_nonzero(x, axis=-1)),
+                          f"{tier} N={n} S={S} nz counts")
+                    worst[tier] = max(worst[tier], e_f64)
+                n_cases += 1
+    return n_cases, worst
 
 
 def bound(name: str, n: int, S: int) -> tuple[float, str]:
@@ -361,17 +453,16 @@ def drive_slice(wt, exact_cuda, eng, cpu, packets, now0):
     """Feed ``packets`` through the card engine (counts set to 0 just
     before, read just after) and, for its first streams and the silent
     last one, through the CPU port; check pixels, silence, the tone's peak
-    and card vs CPU.  Returns ((K1, K2, K3, K1-gen launches), pixel shape,
-    peak Hz, card-vs-CPU dB)."""
-    exact_cuda.launches = exact_cuda.launches3 = 0
-    exact_cuda.launches_cfft = exact_cuda.launches_gen = 0
+    and card vs CPU.  Returns ((K1, K2, K3, K1-gen, K1-df, K2-df
+    launches), pixel shape, peak Hz, card-vs-CPU dB)."""
+    for name in COUNTERS:
+        setattr(exact_cuda, name, 0)
     for k, x in enumerate(packets):
         now = now0 + k * 16_666_667
         eng.feed_batch(x, now, now_ns=now)
         eng.tick(now_ns=now)
     torch.cuda.synchronize()
-    counts = (exact_cuda.launches, exact_cuda.launches3,
-              exact_cuda.launches_cfft, exact_cuda.launches_gen)
+    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
     n_cpu = cpu.S - 1
     for k, x in enumerate(packets):
         now = now0 + k * 16_666_667
@@ -493,12 +584,12 @@ def main() -> None:
     rng = np.random.default_rng(SEED + 1)
     packets = [feed_signal(rng, S, k) for k in range(ticks)]
     now0 = time.monotonic_ns()
-    (launches, launches3, n_cfft, n_gen), px_shape, peak_hz, e_cpu = \
+    (launches, launches3, n_cfft, n_gen, *n_df), px_shape, peak_hz, e_cpu = \
         drive_slice(wt, exact_cuda, eng, cpu, packets, now0)
     check(launches == ticks, f"{launches} kernel launches in {ticks} ticks")
-    check(launches3 == 0 and n_cfft == 0 and n_gen == 0,
-          f"{launches3} K2, {n_cfft} K3 and {n_gen} K1-gen launches at "
-          "N=4096")
+    check(launches3 == 0 and n_cfft == 0 and n_gen == 0 and not any(n_df),
+          f"{launches3} K2, {n_cfft} K3, {n_gen} K1-gen and {n_df} df "
+          "launches at N=4096")
     gate = oracle_gate(wt, ServingEngine, 4096, 8, rng, now0)
     torch.cuda.synchronize()
     secs["slice"] = time.perf_counter() - t0
@@ -547,12 +638,13 @@ def main() -> None:
     cpu3 = ServingEngine(cfg3, 2, device="cpu")
     packets3 = [feed_signal(rng, S3, k) for k in range(ticks3)]
     now3 = time.monotonic_ns()
-    (k1_in_3, launches3, k3_in_3, gen_in_3), px3, peak3, e_cpu3 = \
+    (k1_in_3, launches3, k3_in_3, gen_in_3, *df_in_3), px3, peak3, e_cpu3 = \
         drive_slice(wt, exact_cuda, eng3, cpu3, packets3, now3)
     check(launches3 == ticks3, f"{launches3} K2 launches in {ticks3} ticks")
-    check(k1_in_3 == 0 and k3_in_3 == 0 and gen_in_3 == 0,
-          f"{k1_in_3} K1, {k3_in_3} K3 and {gen_in_3} K1-gen launches at "
-          "N=65536")
+    check(k1_in_3 == 0 and k3_in_3 == 0 and gen_in_3 == 0
+          and not any(df_in_3),
+          f"{k1_in_3} K1, {k3_in_3} K3, {gen_in_3} K1-gen and {df_in_3} df "
+          "launches at N=65536")
     gate3 = oracle_gate(wt, ServingEngine, 65536, ticks3, rng, now3)
     torch.cuda.synchronize()
     secs["slice3"] = time.perf_counter() - t0
@@ -604,9 +696,10 @@ def main() -> None:
             cpu_p = ServingEngine(cfg_p, 4, device="cpu")
             pk = [feed_signal(rng, S, k, channels) for k in range(ticks)]
             now_p = time.monotonic_ns()
-            (k1_p, k2_p, k3_p, gen_p), px_p, peak_p, e_cpu_p = drive_slice(
-                wt, exact_cuda, eng_p, cpu_p, pk, now_p)
-            check(k3_p == ticks and k1_p == 0 and k2_p == 0 and gen_p == 0,
+            (k1_p, k2_p, k3_p, gen_p, *df_p), px_p, peak_p, e_cpu_p = \
+                drive_slice(wt, exact_cuda, eng_p, cpu_p, pk, now_p)
+            check(k3_p == ticks and k1_p == 0 and k2_p == 0 and gen_p == 0
+                  and not any(df_p),
                   f"path {path}: {k3_p} K3, {k1_p} K1, {k2_p} K2, {gen_p} "
                   f"K1-gen launches in {ticks} ticks")
             gate_p = oracle_gate(wt, ServingEngine, 4096, 8, rng, now_p,
@@ -635,13 +728,14 @@ def main() -> None:
         pk_c = [feed_signal(rng, S, k) for k in range(ticks)]
         now_c = time.monotonic_ns()
         counts_c = drive_slice(wt, exact_cuda, eng_c, cpu_c, pk_c, now_c)
-        check(counts_c[0] == (0, 0, 0, 0), f"path c kernel launches "
-              f"{counts_c[0]}")
+        check(counts_c[0] == (0,) * len(COUNTERS), f"path c kernel "
+              f"launches {counts_c[0]}")
         gate_c = oracle_gate(wt, ServingEngine, 800, 2, rng, now_c)
     torch.cuda.synchronize()
     secs["slice_small"] = time.perf_counter() - t0
     print(f"slice_small: path c (auto FFT size) S={S} N=800 800px Lanczos, "
-          f"{ticks} ticks, K1/K2/K3/K1-gen launches {counts_c[0]}, pixels "
+          f"{ticks} ticks, K1/K2/K3/K1-gen/K1-df/K2-df launches "
+          f"{counts_c[0]}, pixels "
           f"{counts_c[1]} finite, silent stream at DB_MIN, peak "
           f"{counts_c[2]:.1f} Hz, card vs CPU port {counts_c[3]:.2e} dB, "
           f"oracle gate {gate_c:.2e} dB (< 1e-4)", flush=True)
@@ -730,9 +824,10 @@ def main() -> None:
         cpu_g = ServingEngine(cfg_g, n_cpu, device="cpu")
         pk_g = [feed_signal(rng, s_g, k) for k in range(ticks_g)]
         now_g = time.monotonic_ns()
-        (k1_g, k2_g, k3_g, gen_g), px_g, peak_g, e_cpu_g = drive_slice(
-            wt, exact_cuda, eng_g, cpu_g, pk_g, now_g)
-        check(gen_g == ticks_g and k1_g == 0 and k2_g == 0 and k3_g == 0,
+        (k1_g, k2_g, k3_g, gen_g, *df_g), px_g, peak_g, e_cpu_g = \
+            drive_slice(wt, exact_cuda, eng_g, cpu_g, pk_g, now_g)
+        check(gen_g == ticks_g and k1_g == 0 and k2_g == 0 and k3_g == 0
+              and not any(df_g),
               f"N={n_g}: {gen_g} K1-gen, {k1_g} K1, {k2_g} K2, {k3_g} K3 "
               f"launches in {ticks_g} ticks")
         gate_g = oracle_gate(wt, ServingEngine, n_g, ticks_g, rng, now_g)
@@ -784,22 +879,123 @@ def main() -> None:
             "exact_cfft": library_ms(4096, S, dev, pair=False)}
     secs["times_gen"] = time.perf_counter() - t0
 
-    jax_mods = [m for m in sys.modules
+    # 16. kernel_df: K1-df and K2-df vs their twins, float64, the f32 tier
+    t0 = time.perf_counter()
+    sizes_df = (1024, 2048, 3072, 4096, 6144, 16384, 31744)
+    check(all(exact_cuda.stage1_split(n) == 2 for n in sizes_df),
+          "K1-df sizes route to split 2")
+    cases_df, worst_df = phase_df(
+        exact_cuda, dev,
+        [("router", n, (1, 7, 64)) for n in sizes_df]
+        + [("router", 4096, (S,)), ("k2", 8192, (1, 7, 64)),
+           ("router", 32768, (1, 7, 64)), ("router", 65536, (1, 7, 32))],
+        SEED + 11)
+    secs["kernel_df"] = time.perf_counter() - t0
+    print(f"kernel_df: {cases_df} cases, K1-df at N in {sizes_df} and "
+          f"(4096, {S}), K2-df at 8192 (direct), 32768 and 65536: bit for "
+          f"bit vs the df twins; max|d|/max|ref| vs float64 df "
+          f"{worst_df['df']:.3e}, the f32 kernels on the same inputs "
+          f"{worst_df['f32']:.3e} (bound {TOL}), bit for bit vs their "
+          "twins; nz exact", flush=True)
+
+    # 17. slice_df: both slices under WAVEFORM_TPU_KERNEL_TWIDDLE=df ------
+    t0 = time.perf_counter()
+    df_slices = {}
+    with env("WAVEFORM_TPU_KERNEL_TWIDDLE", "df"):
+        for cfg_d, s_d, ticks_d, n_cpu, counter in (
+                (cfg, S, ticks, 4, "launches_gen_df"),
+                (cfg3, S3, ticks3, 2, "launches3_df")):
+            n_d = cfg_d.fft_size
+            eng_d = ServingEngine(cfg_d, s_d, device="cuda")
+            cpu_d = ServingEngine(cfg_d, n_cpu, device="cpu")
+            pk_d = [feed_signal(rng, s_d, k) for k in range(ticks_d)]
+            now_d = time.monotonic_ns()
+            counts_d, px_d, peak_d, e_cpu_d = drive_slice(
+                wt, exact_cuda, eng_d, cpu_d, pk_d, now_d)
+            want = tuple(ticks_d if c == counter else 0 for c in COUNTERS)
+            check(counts_d == want, f"df N={n_d}: launches {counts_d} "
+                  f"({'/'.join(COUNTERS)}), want {want}")
+            gate_d = oracle_gate(wt, ServingEngine, n_d, ticks_d, rng, now_d)
+            df_slices[n_d] = (eng_d, pk_d, now_d, counts_d)
+            print(f"slice_df: S={s_d} N={n_d} 800px Lanczos, "
+                  f"KERNEL_TWIDDLE=df, {ticks_d} ticks, "
+                  f"{'K2' if counter == 'launches3_df' else 'K1'}-df "
+                  f"launches {ticks_d}, the other kernels 0, pixels {px_d} "
+                  f"finite, silent stream at DB_MIN, peak {peak_d:.2f} Hz, "
+                  f"card vs CPU port ({n_cpu} streams) {e_cpu_d:.2e} dB, "
+                  f"oracle gate {gate_d:.2e} dB (< 1e-4)", flush=True)
+            del cpu_d
+    torch.cuda.synchronize()
+    secs["slice_df"] = time.perf_counter() - t0
+
+    # 18. times_df: each df kernel beside the f32 kernel of its shape -----
+    t0 = time.perf_counter()
+    df_rows = {}
+    for n, s_n, lib_ms in ((4096, S, libs["exact_mag"]),
+                           (16384, S, gen[16384][3]),
+                           (65536, 32, libs["exact_mag3"])):
+        x = torch.from_numpy((0.5 * np.random.default_rng(SEED + 12)
+                              .standard_normal((s_n, 2, n)))
+                             .astype(np.float32)).to(dev)
+        _, win = hann_pair(n, dev)
+        twin = (exact_cuda.rfft_pair_mag3_df_ref
+                if exact_cuda.stage1_split(n) == 3
+                else exact_cuda.rfft_pair_mag_df_ref)
+        turns = []
+        for tier in ("df", "f32", "f32", "df"):        # in turns
+            with env("WAVEFORM_TPU_KERNEL_TWIDDLE", tier):
+                turns.append(cuda_median_ms(
+                    lambda: exact_cuda.rfft_pair_mag(x, win)))
+        with env("WAVEFORM_TPU_KERNEL_TWIDDLE", "df"):
+            mag, _ = exact_cuda.rfft_pair_mag(x, win)
+        max_abs = float((mag - twin(x, win)[0]).abs().max())
+        twin_ms = cuda_median_ms(lambda: twin(x, win))
+        body = "K2" if exact_cuda.stage1_split(n) == 3 else "K1"
+        b_ms, b_by = bound("exact_mag3" if body == "K2" else "exact_mag_gen",
+                           n, s_n)
+        df_rows[n] = (turns[0], twin_ms, max_abs, lib_ms)
+        print(f"times_df [{card}]: {body}-df {turns[0] * 1e3:.1f} / "
+              f"{turns[3] * 1e3:.1f} us, f32 kernel {turns[1] * 1e3:.1f} / "
+              f"{turns[2] * 1e3:.1f} us (in turns), df twin "
+              f"{twin_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}) at S={s_n} N={n}, "
+              f"max|{body}-df - twin| {max_abs:.1e}", flush=True)
+    with env("WAVEFORM_TPU_KERNEL_TWIDDLE", "df"):
+        for n_d, (eng_d, pk_d, now_d, _) in df_slices.items():
+            td_ms = tick_ms(eng_d, pk_d, now_d)
+            print(f"times_df [{card}]: full tick (feed_batch + tick) under "
+                  f"df {td_ms * 1e3:.1f} us at S={eng_d.S} N={n_d} = "
+                  f"{eng_d.S / (td_ms * 1e-3):,.0f} frames/s", flush=True)
+    secs["times_df"] = time.perf_counter() - t0
+
+    jax_mods =[m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]
     check(not jax_mods, f"the JAX package or jax was imported: {jax_mods}")
     print("seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
           flush=True)
     records = []
-    for name, line, n, s_n, count, row in (
-            ("exact_mag", 525, 4096, S, launches, (k_ms, p_ms, max_abs)),
-            ("exact_mag3", 825, 65536, 32, launches3, mag3_row),
-            ("exact_cfft", 479, 4096, S, launches_c, cfft_row),
-            ("exact_mag_gen", 525, 6144, S, launches_gen, gen[6144][:3])):
-        b_ms, b_by = bound(name, n, s_n)
-        lib = gen[6144][3] if name == "exact_mag_gen" else libs[name]
+    # the df kernels are the df instances of exact_mag_gen.cu and
+    # exact_mag3.cu: the f32 sources' MACs and bytes bound them
+    for name, source, line, n, s_n, count, row in (
+            ("exact_mag", "exact_mag", 525, 4096, S, launches,
+             (k_ms, p_ms, max_abs, libs["exact_mag"])),
+            ("exact_mag3", "exact_mag3", 825, 65536, 32, launches3,
+             (*mag3_row, libs["exact_mag3"])),
+            ("exact_cfft", "exact_cfft", 479, 4096, S, launches_c,
+             (*cfft_row, libs["exact_cfft"])),
+            ("exact_mag_gen", "exact_mag_gen", 525, 6144, S, launches_gen,
+             gen[6144][:4]),
+            ("exact_mag_df", "exact_mag_gen", 525, 4096, S,
+             df_slices[4096][3][COUNTERS.index("launches_gen_df")],
+             df_rows[4096]),
+            ("exact_mag3_df", "exact_mag3", 825, 65536, 32,
+             df_slices[65536][3][COUNTERS.index("launches3_df")],
+             df_rows[65536])):
+        b_ms, b_by = bound(source, n, s_n)
+        lib = row[3]
         records.append({
             "name": name, "route": "cuda",
-            "source": f"waveform_tpu_torch/csrc/{name}.cu",
+            "source": f"waveform_tpu_torch/csrc/{source}.cu",
             "replaces": f"waveform_tpu/kernels/exact_pallas.py:{line}",
             "launches": count, "max_abs_err": row[2], "ms": row[0],
             "plain_ms": row[1], "bound_ms": b_ms, "bound_by": b_by,

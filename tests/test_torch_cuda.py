@@ -320,3 +320,82 @@ def test_k1_gen_engine_on_card_matches_cpu_port(dev):
     np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
     assert card.last_silent[-1]
     assert np.isfinite(card.read_pixels()).all()
+
+
+def _df_counts():
+    """(K1-df, K2-df) launch counts."""
+    return exact_cuda.launches_gen_df, exact_cuda.launches3_df
+
+
+@pytest.mark.parametrize("S", [1, 7])
+@pytest.mark.parametrize("n,split", [(1024, 2), (4096, 2), (6144, 2),
+                                     (31744, 2), (8192, 3), (65536, 3)])
+def test_df_kernels_match_twins_bitwise(n, split, S, dev, monkeypatch):
+    """Under ``WAVEFORM_TPU_KERNEL_TWIDDLE=df``: K1-df through the router,
+    K2-df through the router at 65536 and its direct entry point at 8192
+    (which the router sends to split 2); one launch of the df kernel and
+    of no other, bit for bit against the df twin with a 1e20 and a NaN
+    stream (NaN lanes by position), within 2.5e-7 of float64 on the
+    other streams."""
+    monkeypatch.setenv("WAVEFORM_TPU_KERNEL_TWIDDLE", "df")
+    rng = np.random.default_rng(n + S + 19)
+    x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
+    x[-1, -1] = 0.0
+    good = list(range(S))
+    if S >= 7:
+        x[3] = 1e20 * rng.standard_normal((2, n))
+        x[4, 0, 11] = np.nan
+        good = [0, 1, 2, 5, 6]
+    w64, win = _hann(n, dev)
+    xd = torch.from_numpy(x).to(dev)
+    direct = split == 3 and exact_cuda.stage1_split(n) == 2
+    before, before_df = _counts(), _df_counts()
+    mag, nz = (exact_cuda.rfft_pair_mag3(xd, win) if direct
+               else exact_cuda.rfft_pair_mag(xd, win))
+    torch.cuda.synchronize()
+    assert _counts() == before
+    assert _df_counts() == (before_df[0] + (split == 2),
+                            before_df[1] + (split == 3))
+    twin = (exact_cuda.rfft_pair_mag3_df_ref if split == 3
+            else exact_cuda.rfft_pair_mag_df_ref)
+    ref, nz_ref = twin(xd, win)
+    assert torch.equal(torch.nan_to_num(mag, nan=-1.0),
+                       torch.nan_to_num(ref, nan=-1.0))
+    assert torch.equal(nz, nz_ref)
+    want = np.abs(np.fft.rfft(x[good].astype(np.float64) * w64))[..., :n // 2]
+    got = mag.cpu().numpy()[good].astype(np.float64)
+    assert np.abs(got - want).max() / want.max() <= TOL
+    np.testing.assert_array_equal(nz.cpu().numpy(),
+                                  np.count_nonzero(x, axis=-1))
+
+
+def test_df_engine_on_card_matches_cpu_port(dev, monkeypatch):
+    """The headline configuration under ``KERNEL_TWIDDLE=df``: one K1-df
+    launch per tick and no other kernel, against the CPU port (the df
+    twin)."""
+    monkeypatch.setenv("WAVEFORM_TPU_KERNEL_TWIDDLE", "df")
+    cfg = resolve(Settings(fft_size=4096, width=800, window=FFTWindow.HANN,
+                           interp_mode=InterpMode.LANCZOS),
+                  AudioInfo(48000, 2))
+    S, ticks = 4, 8
+    card = ServingEngine(cfg, S, device=dev)
+    cpu = ServingEngine(cfg, S, device="cpu")
+    rng = np.random.default_rng(6)
+    before, before_df = _counts(), _df_counts()
+    for k in range(ticks):
+        x = (0.3 * rng.standard_normal((S, 2, 800))).astype(np.float32)
+        x[-1] = 0.0
+        now = 10_000_000_000 + k * 16_666_667
+        for eng in (card, cpu):
+            eng.feed_batch(x, now, now_ns=now)
+            eng.tick(now_ns=now)
+    assert _counts() == before
+    assert _df_counts() == (before_df[0] + ticks, before_df[1])
+    db, want = card.read_decibels(), cpu.read_decibels()
+    vis = want > -120.0
+    np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)
+    floor = want == np.float32(DB_MIN)
+    np.testing.assert_array_equal(db[floor], want[floor])
+    np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
+    assert card.last_silent[-1]
+    assert np.isfinite(card.read_pixels()).all()

@@ -201,47 +201,9 @@ exact_cfft_stage2(const float* __restrict__ rows, const int* __restrict__ f2w,
   const int total = streams * n1;
   const size_t plane = static_cast<size_t>(total) * kRow2;
   const int row0 = blockIdx.x * kRows2;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
 
   // ---- slice: one warp per row, 8 of its 256 values [br | bi] a lane -----
-  for (int r = warp; r < kRows2; r += kWarps) {
-    const size_t R = static_cast<size_t>(row0) + r;
-    uint32_t packed[kDigits][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}, {0u, 0u}};
-    float s2 = 0.0f;
-    if (R < static_cast<size_t>(total)) {
-      const float4* h4 = reinterpret_cast<const float4*>(rows + R * kRow2);
-      const float4* l4 =
-          reinterpret_cast<const float4*>(rows + plane + R * kRow2);
-      const float4 h0 = h4[2 * lane], h1 = h4[2 * lane + 1];
-      const float4 l0 = l4[2 * lane], l1 = l4[2 * lane + 1];
-      const float h[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-      const float l[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-      float rm = 0.0f;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) rm = nanmax(rm, fabsf(h[q]));
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        rm = nanmax(rm, __shfl_xor_sync(0xffffffffu, rm, off));
-      float s2_inv;
-      pow2_scale(rm, &s2, &s2_inv);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        int d[kDigits];
-        slice_serial(h[q], l[q], s2_inv, d);
-#pragma unroll
-        for (int k = 0; k < kDigits; ++k)
-          packed[k][q >> 2] |= (static_cast<uint32_t>(d[k]) & 0xffu)
-                               << (8 * (q & 3));
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kDigits; ++k) {
-      words[r][k * kWords2 + 2 * lane] = static_cast<int>(packed[k][0]);
-      words[r][k * kWords2 + 2 * lane + 1] = static_cast<int>(packed[k][1]);
-    }
-    if (lane == 0) row_scale[r] = s2;
-  }
+  stage2_slice_df<kRows2>(rows, plane, row0, total, words, row_scale);
   __syncthreads();
 
   // ---- GEMM: thread (k2, group) runs columns k2 (C_r) and 128 + k2 (C_i) --

@@ -1,20 +1,25 @@
-// Shared device code of the exact FFT kernels (exact_mag.cu, exact_mag3.cu,
-// exact_cfft.cu).
+// Shared device code of the exact FFT kernels (exact_mag.cu, exact_mag_gen.cu,
+// exact_mag3.cu, exact_cfft.cu).
 //
 // Every rounding is spelled out with __fmul_rn/__fadd_rn/__fsub_rn, and the
 // build passes -fmad=false, so the error-free transforms (TwoSum, Veltkamp/
 // Dekker TwoProd) stay error-free and the plain PyTorch twins in
 // kernels/exact_cuda.py give the same bits.
 //
-// The df tier's pieces (slice_serial, recombine_df, df_mul) serve the
-// complex kernel exact_cfft.cu; they are the arithmetic of
-// kernels/exactfft.py's _slice_df, _digit_gemm and df_mul.
+// The df tier's pieces (slice_serial, recombine_df, df_mul, twiddle_df,
+// stage2_slice_df, mag_df) serve the complex kernel exact_cfft.cu and the df
+// instances of exact_mag_gen.cu and exact_mag3.cu; they are the arithmetic of
+// kernels/exactfft.py's _slice_df, _digit_gemm and df_mul, and of the df
+// branches of exact_pallas.py's _real_mag_tail and _tail_stage2.
 //
-// Stage 2 (stage2_slice + stage2_mag) is the kept-half DFT over j2 that both
-// kernels end with: per (stream, channel, k1) row of 256 f32 values [br | bi],
-// one pow2 scale, the fast fixed-point digit slice, 10 exact int8 digit-pair
-// products against the 128 KB of f2 digits, ((w0 + w1) + w2) + w3, a clamp to
-// +-2^63 and sqrt(cr^2 + ci^2).
+// Stage 2 (stage2_slice or stage2_slice_df, then stage2_mag) is the kept-half
+// DFT over j2 that the real-split kernels end with: per (stream, channel, k1)
+// row of 256 values [br | bi], one pow2 scale from the hi words, the digit
+// slice (f32 tier: the fast fixed-point extract of f32 values; df tier: the
+// serial slice of (hi, lo)), 10 exact int8 digit-pair products against the
+// 128 KB of f2 digits, then the f32 tier's ((w0 + w1) + w2) + w3, a clamp to
+// +-2^63 and sqrt(cr^2 + ci^2), or the df tier's TwoSum recombination, the
+// clamp of the hi words and mag_df.
 
 #pragma once
 
@@ -162,6 +167,55 @@ __device__ __forceinline__ void recombine_df(const int acc[kDigits], float s,
   two_sum(w0, fadd(fadd(w3, w2), w1), h, l);
 }
 
+// a * b as a double-float with both operands' Veltkamp splits in hand
+// (exact_pallas.py's mul_ps): equal to df_mul when (bh, bl) is b0's split
+__device__ __forceinline__ void mul_ps(float a0, float a1, float ah, float al,
+                                      float b0, float b1, float bh, float bl,
+                                      float* h, float* l) {
+  const float p = fmul(a0, b0);
+  const float e = fadd(fadd(fadd(fsub(fmul(ah, bh), p), fmul(ah, bl)),
+                            fmul(al, bh)),
+                       fmul(al, bl));
+  two_sum(p, fadd(e, fadd(fmul(a0, b1), fmul(a1, b0))), h, l);
+}
+
+// The df tier's outer twiddle (_real_mag_tail): (br + i*bi) =
+// (ar + i*ai) * (tr + i*ti) in double-floats.  tr and ti point at the
+// element's planes [hi, lo, Veltkamp-high half of hi], `plane` floats apart:
+// the twiddle's halves come from the host, only the data is split here.
+__device__ __forceinline__ void twiddle_df(float arh, float arl, float aih,
+                                           float ail, const float* tr,
+                                           const float* ti, size_t plane,
+                                           float* brh, float* brl, float* bih,
+                                           float* bil) {
+  const float trh = tr[0], trl = tr[plane], trH = tr[2 * plane];
+  const float tih = ti[0], til = ti[plane], tiH = ti[2 * plane];
+  const float trL = fsub(trh, trH), tiL = fsub(tih, tiH);
+  float arH, arL, aiH, aiL;
+  vsplit(arh, &arH, &arL);
+  vsplit(aih, &aiH, &aiL);
+  float prh, prl, pih, pil, qrh, qrl, qih, qil;
+  mul_ps(arh, arl, arH, arL, trh, trl, trH, trL, &prh, &prl);
+  mul_ps(aih, ail, aiH, aiL, tih, til, tiH, tiL, &pih, &pil);
+  mul_ps(arh, arl, arH, arL, tih, til, tiH, tiL, &qrh, &qrl);
+  mul_ps(aih, ail, aiH, aiL, trh, trl, trH, trL, &qih, &qil);
+  df_add(prh, prl, -pih, -pil, brh, brl);
+  df_add(qrh, qrl, qih, qil, bih, bil);
+}
+
+// _tail_stage2's df magnitude of the clamped (cr, ci): rr = cr^2, ii = ci^2
+// as double-floats, (s0, e0) = TwoSum(rr.hi, ii.hi),
+// sqrt(max(s0 + ((e0 + rr.lo) + ii.lo), 0)); a NaN passes through
+__device__ __forceinline__ float mag_df(float crh, float crl, float cih,
+                                       float cil) {
+  float rrh, rrl, iih, iil, s0, e0;
+  df_mul(crh, crl, crh, crl, &rrh, &rrl);
+  df_mul(cih, cil, cih, cil, &iih, &iil);
+  two_sum(rrh, iih, &s0, &e0);
+  const float v = fadd(s0, fadd(fadd(e0, rrl), iil));
+  return sqrtf(v < 0.0f ? 0.0f : v);
+}
+
 // Stage-2 slice, one warp per row: each row's 256 f32 values [br | bi] get
 // one pow2 scale (row_scale[r] = s) and are overwritten in place by their
 // packed digit words [plane][kWords2].  The block's kThreads threads call it.
@@ -201,11 +255,65 @@ __device__ __forceinline__ void stage2_slice(float (*rows)[kRow2],
   }
 }
 
+// The df tier's stage-2 slice, one warp per row: flat rows row0 .. row0 +
+// kRows - 1 of the (hi, lo) planes `rows` (hi at rows + R*kRow2, lo `plane`
+// floats further) each get one pow2 scale from their 256 hi words
+// (row_scale[r] = s) and the serial slice into packed digit words
+// words[r][plane][kWords2]; rows from `total` on get zero words.  The
+// block's kThreads threads call it.
+template <int kRows>
+__device__ __forceinline__ void stage2_slice_df(const float* __restrict__ rows,
+                                                size_t plane, int row0,
+                                                int total,
+                                                int (*words)[kRow2],
+                                                float* row_scale) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    const size_t R = static_cast<size_t>(row0) + r;
+    uint32_t packed[kDigits][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}, {0u, 0u}};
+    float s2 = 0.0f;
+    if (R < static_cast<size_t>(total)) {
+      const float4* h4 = reinterpret_cast<const float4*>(rows + R * kRow2);
+      const float4* l4 =
+          reinterpret_cast<const float4*>(rows + plane + R * kRow2);
+      const float4 h0 = h4[2 * lane], h1 = h4[2 * lane + 1];
+      const float4 l0 = l4[2 * lane], l1 = l4[2 * lane + 1];
+      const float h[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+      const float l[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+      float rm = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) rm = nanmax(rm, fabsf(h[q]));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        rm = nanmax(rm, __shfl_xor_sync(0xffffffffu, rm, off));
+      float s2_inv;
+      pow2_scale(rm, &s2, &s2_inv);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        int d[kDigits];
+        slice_serial(h[q], l[q], s2_inv, d);
+#pragma unroll
+        for (int k = 0; k < kDigits; ++k)
+          packed[k][q >> 2] |= (static_cast<uint32_t>(d[k]) & 0xffu)
+                               << (8 * (q & 3));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kDigits; ++k) {
+      words[r][k * kWords2 + 2 * lane] = static_cast<int>(packed[k][0]);
+      words[r][k * kWords2 + 2 * lane + 1] = static_cast<int>(packed[k][1]);
+    }
+    if (lane == 0) row_scale[r] = s2;
+  }
+}
+
 // Stage 2 proper over kRows sliced rows: thread (k2, row group) runs the re
 // and im columns of its k2 together, the f2 digit words (f2w [4][64][128]
 // packed int8x4 along the [br | bi] row) streaming from L2.  emit(r, k2, m)
-// receives the magnitude of row r at kept bin k2.
-template <int kRows, class Emit>
+// receives the magnitude of row r at kept bin k2, at the f32 tier or, with
+// kDf, the df tier.
+template <int kRows, bool kDf = false, class Emit>
 __device__ __forceinline__ void stage2_mag(const float (*rows)[kRow2],
                                            const float* row_scale,
                                            const int* __restrict__ f2w,
@@ -247,9 +355,16 @@ __device__ __forceinline__ void stage2_mag(const float (*rows)[kRow2],
 #pragma unroll
     for (int r = 0; r < kTile; ++r) {
       const float s2 = row_scale[r0 + r];
-      const float cr = clamp63(recombine(acc[r][0], s2));
-      const float ci = clamp63(recombine(acc[r][1], s2));
-      emit(r0 + r, k2, sqrtf(fadd(fmul(cr, cr), fmul(ci, ci))));
+      if constexpr (kDf) {
+        float crh, crl, cih, cil;
+        recombine_df(acc[r][0], s2, &crh, &crl);
+        recombine_df(acc[r][1], s2, &cih, &cil);
+        emit(r0 + r, k2, mag_df(clamp63(crh), crl, clamp63(cih), cil));
+      } else {
+        const float cr = clamp63(recombine(acc[r][0], s2));
+        const float ci = clamp63(recombine(acc[r][1], s2));
+        emit(r0 + r, k2, sqrtf(fadd(fmul(cr, cr), fmul(ci, ci))));
+      }
     }
   }
 }

@@ -2,26 +2,30 @@
 
 The PyTorch counterpart of ``waveform_tpu/kernels/exact_pallas.py``: its
 routing predicates (:func:`stage1_split`, :func:`supports`,
-:func:`supports_cfft`, :func:`kernel_would_run`), the real-split magnitude
-kernels at the f32 twiddle tier, K1 (``_kernel_real_mag``, 2-factor stage
-1) and K2 (``_kernel_real_mag3``, 3-factor stage 1: a df32 radix-4
-butterfly, then two twiddle-folded DFT_a digit GEMMs), and the complex
-df32 kernel K3 (``_kernel``).  K1's body runs as two kernels: K1
+:func:`supports_cfft`, :func:`enabled`, :func:`kernel_would_run`,
+:func:`twiddle_tier`), the real-split magnitude kernels K1
+(``_kernel_real_mag``, 2-factor stage 1) and K2 (``_kernel_real_mag3``,
+3-factor stage 1: a df32 radix-4 butterfly, then two twiddle-folded DFT_a
+digit GEMMs) at both twiddle tiers, and the complex df32 kernel K3
+(``_kernel``).  K1's body runs as two kernels at the f32 tier: K1
 (``csrc/exact_mag.cu``, one block per stream) at N1 in {8, 16, 32}, and
 K1-gen (``csrc/exact_mag_gen.cu``, two launches) at every other
-N1 % 8 == 0 up to 256.  Entry points: :func:`rfft_pair_mag` (K1, K1-gen
-or K2, routed by :func:`stage1_split` as the JAX package routes) and
+N1 % 8 == 0 up to 256; at the df tier K1-df (the df instance of K1-gen)
+serves every N1.  K2 and K2-df share ``csrc/exact_mag3.cu``.  Entry points:
+:func:`rfft_pair_mag` (routed by :func:`stage1_split` and
+:func:`twiddle_tier` as the JAX package routes) and
 :func:`cfft_exact_kernel` (K3).
 
 * a CUDA tensor launches the hand-written kernel, ``csrc/exact_mag.cu``
-  (K1), ``csrc/exact_mag_gen.cu`` (K1-gen), ``csrc/exact_mag3.cu`` (K2)
-  or ``csrc/exact_cfft.cu`` (K3), built with ``nvcc`` at first use into
-  ``build/waveform_tpu_torch/`` and bound with ``ctypes``; a build or
-  launch failure raises;
+  (K1), ``csrc/exact_mag_gen.cu`` (K1-gen, K1-df), ``csrc/exact_mag3.cu``
+  (K2, K2-df) or ``csrc/exact_cfft.cu`` (K3), built with ``nvcc`` at first
+  use into ``build/waveform_tpu_torch/`` and bound with ``ctypes``; a build
+  or launch failure raises;
 * a CPU tensor runs the twin, :func:`rfft_pair_mag_ref` (K1 and K1-gen),
-  :func:`rfft_pair_mag3_ref` or :func:`cfft_exact_ref`: the same arithmetic
-  in torch ops (digit products in float64, exact because every integer
-  partial sum stays far below 2^53).
+  :func:`rfft_pair_mag_df_ref` (K1-df), :func:`rfft_pair_mag3_ref`,
+  :func:`rfft_pair_mag3_df_ref` or :func:`cfft_exact_ref`: the same
+  arithmetic in torch ops (digit products in float64, exact because every
+  integer partial sum stays far below 2^53).
 
 Each kernel and its twin take the same rounding steps in the same order,
 so they agree bit for bit.  Bins come out in natural order.
@@ -36,9 +40,13 @@ Scale rule: K1 and K1-gen take one pow2 scale per (stream, j2) column
 over both channels; K2 one per (stream, channel, j2) column, for
 U02 = [u0; u2] and U13 = [u1; u3] separately, as ``_kernel_real_mag3``
 does; K3 one per (stream, j2) column over [x_r; x_i] in stage 1 and one
-per (stream, k1) row over [b_r | b_i] in stage 2.  K1's body and K2 slice
-with the fast fixed-point extract and sum their digit classes in plain
-f32; K3 slices serially and recombines with TwoSum, as the df tier does.
+per (stream, k1) row over [b_r | b_i] in stage 2.  The df tier keeps each
+body's rule.  Twiddle tiers (``_twiddle_choice``): at the f32 tier K1's
+body and K2 slice with the fast fixed-point extract, sum their digit
+classes in plain f32, multiply the twiddle with single roundings and
+square in f32; at the df tier they slice serially, recombine with TwoSum,
+multiply the twiddle as Dekker df32 products and take ``_tail_stage2``'s
+df magnitude.  K3 always runs the df arithmetic.
 """
 
 from __future__ import annotations
@@ -56,7 +64,8 @@ import torch
 
 from .exactfft import (_CLAMP, DIGIT_BITS, FIRST_SHIFT, N_DIGITS,
                        _df_cmul, _df_pair, _digit_gemm, _digit_planes, _left,
-                       _right, _slice_df, _windowed_df, df_add, df_neg)
+                       _right, _slice_df, _windowed_df, df_add, df_mul, df_neg,
+                       two_sum)
 
 LANES = 128                     # N2: the stage-2 transform length
 SIZES = (1024, 2048, 4096)      # N1 = 8, 16, 32: what K1 is built for
@@ -70,13 +79,17 @@ _SLICE_TOP = FIRST_SHIFT + (N_DIGITS - 1) * DIGIT_BITS            # 27
 _SLICE_BIAS = sum(64 << (_SLICE_TOP - FIRST_SHIFT - DIGIT_BITS * k)
                   for k in range(N_DIGITS))
 
-# counts of kernel launches (not of twin calls), K1, K2, K3 and K1-gen
-# apart: a run reads them to show that its main path went through the
-# kernel it expects
+# counts of kernel launches (not of twin calls), K1, K2, K3, K1-gen,
+# K1-df and K2-df apart: a run reads them to show that its main path went
+# through the kernel it expects
 launches = 0
 launches3 = 0
 launches_cfft = 0
 launches_gen = 0
+launches_gen_df = 0
+launches3_df = 0
+
+TIERS = ("f32", "df")
 
 
 # ---------------------------------------------------------------------------
@@ -120,12 +133,41 @@ def supports_cfft(n: int) -> bool:
     return _two_factor(n)
 
 
+def enabled() -> bool:
+    """``exact_pallas.enabled()`` on this card: the kernels run unless
+    ``WAVEFORM_TPU_EXACT_KERNEL=never`` (read at call time) sends every
+    size to the digit lowering (``exactfft``); ``auto`` and ``always``
+    keep them on."""
+    return os.environ.get("WAVEFORM_TPU_EXACT_KERNEL", "auto") != "never"
+
+
 def kernel_would_run(n: int) -> bool:
     """``exact_pallas.kernel_would_run(n)``: the pair kernel serves ``n``
-    unless ``WAVEFORM_TPU_EXACT_FUSED=never`` (read at call time) routes the
-    stream to the packed pair (``exactfft.rfft_pair_mag_exact``)."""
-    return (supports(n)
+    unless :func:`enabled` is False or ``WAVEFORM_TPU_EXACT_FUSED=never``
+    (read at call time) routes the stream to the packed pair
+    (``exactfft.rfft_pair_mag_exact``)."""
+    return (supports(n) and enabled()
             and os.environ.get("WAVEFORM_TPU_EXACT_FUSED", "auto") != "never")
+
+
+def twiddle_tier() -> str:
+    """``exact_pallas._twiddle_choice()``: the accuracy tier of K1's body
+    and K2, ``WAVEFORM_TPU_KERNEL_TWIDDLE`` read at call time: "df" (the
+    compensated serial slice, TwoSum recombination, Dekker twiddle and df
+    magnitude) or "f32" (the default; any other value gives it too)."""
+    env = os.environ.get("WAVEFORM_TPU_KERNEL_TWIDDLE")
+    return env if env in TIERS else "f32"
+
+
+def _tier(twiddle: str | None) -> str:
+    """An entry point's ``twiddle`` argument: None reads the environment
+    (:func:`twiddle_tier`), else it must name a tier."""
+    if twiddle is None:
+        return twiddle_tier()
+    if twiddle not in TIERS:
+        raise ValueError(f"twiddle must be one of {TIERS} or None, got "
+                         f"{twiddle!r}")
+    return twiddle
 
 
 # ---------------------------------------------------------------------------
@@ -149,8 +191,8 @@ def _kernel_plan_real(n: int):
     planes of the kept-half stage-2 block [[Re f2, Im f2], [-Im f2, Re f2]]
     restricted to k2 < n2/2, the outer twiddle exp(-2πi·k1·j2/n) [n1, n2]
     as a df32 pair, and the Veltkamp-high halves of its hi words.  The f32
-    twiddle tier reads ``twr_hi``/``twi_hi`` only; the rest serve the df
-    tier (see ROADMAP).
+    twiddle tier reads ``twr_hi``/``twi_hi`` only; the df tier reads all
+    six.
     """
     n1, n2 = n // LANES, LANES
     f1 = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
@@ -227,13 +269,14 @@ def _consts(n: int, device: torch.device):
     (``f1w`` [4, 2n1, n1/4] over j1, ``f2w`` [4, 2n2/4, n2] over the
     [br | bi] row), the layout the kernel's ``__dp4a`` reads.  K1-gen
     reads ``f1w_gen`` [4, 2n1, W]: ``f1w`` with each row zero-padded to
-    W = n1/4 rounded up to a multiple of 4 words (16-byte loads)."""
-    n1, n2, f1d, f2d, twr, _, twi, _, _, _ = _kernel_plan_real(n)
+    W = n1/4 rounded up to a multiple of 4 words (16-byte loads).  The
+    twiddle as in :func:`_twiddle_consts`."""
+    n1, n2, f1d, f2d, *tw = _kernel_plan_real(n)
     f1w = _words(f1d)
     pad = -(n1 // 4) % 4
-    host = {"twr": twr, "twi": twi, "f1": f1d.astype(np.float64),
-            "f1w": f1w, "f1w_gen": np.pad(f1w, ((0, 0), (0, 0), (0, pad))),
-            **_f2_consts(f2d)}
+    host = {"f1": f1d.astype(np.float64), "f1w": f1w,
+            "f1w_gen": np.pad(f1w, ((0, 0), (0, 0), (0, pad))),
+            **_twiddle_consts(*tw), **_f2_consts(f2d)}
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
@@ -241,13 +284,23 @@ def _consts(n: int, device: torch.device):
 def _consts3(n: int, device: torch.device):
     """K2's plan as tensors on ``device``: ``c02``/``c13`` as float64
     [4, 4a, 2a] for the twin, ``c02w``/``c13w`` [4, 4a, a/2] packed along
-    the 2a contraction for the kernel, the chunk-major twiddle, and the
-    stage-2 digits as in :func:`_consts`."""
-    _, _, _, c02d, c13d, f2d, twr, _, twi, _, _, _ = _kernel_plan_real3(n)
-    host = {"twr": twr, "twi": twi,
-            "c02": c02d.astype(np.float64), "c13": c13d.astype(np.float64),
-            "c02w": _words(c02d), "c13w": _words(c13d), **_f2_consts(f2d)}
+    the 2a contraction for the kernel, the chunk-major twiddle as in
+    :func:`_twiddle_consts`, and the stage-2 digits as in :func:`_consts`."""
+    _, _, _, c02d, c13d, f2d, *tw = _kernel_plan_real3(n)
+    host = {"c02": c02d.astype(np.float64), "c13": c13d.astype(np.float64),
+            "c02w": _words(c02d), "c13w": _words(c13d),
+            **_twiddle_consts(*tw), **_f2_consts(f2d)}
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def _twiddle_consts(twr_hi, twr_lo, twi_hi, twi_lo, twr_h, twi_h) -> dict:
+    """The outer twiddle [n1, 128] for both tiers: ``twr``/``twi`` (the hi
+    words, all the f32 tier reads), ``twr_lo``/``twi_lo`` (the df twin's lo
+    words), and ``twr_df``/``twi_df`` [3, n1, 128] = (hi, lo, Veltkamp-high
+    half of hi), the planes a df kernel reads."""
+    return {"twr": twr_hi, "twi": twi_hi, "twr_lo": twr_lo, "twi_lo": twi_lo,
+            "twr_df": np.stack([twr_hi, twr_lo, twr_h]),
+            "twi_df": np.stack([twi_hi, twi_lo, twi_h])}
 
 
 def _words(planes: np.ndarray) -> np.ndarray:
@@ -367,15 +420,47 @@ def _digit_gemm_fast(planes: torch.Tensor, hi: torch.Tensor,
                        for t in range(N_DIGITS)], s)
 
 
-def _twiddle_stage2(ar: torch.Tensor, ai: torch.Tensor, c: dict):
-    """The tail both kernels share: f32 twiddle of the stage-1 rows
-    ``ar``/``ai`` [S, 2, n1, n2] (rows in the order of ``c``'s twiddle),
-    kept-half stage 2 with one pow2 scale per (s, c, row) over [br | bi],
-    clamp, magnitude -> [S, 2, n1, n2/2]."""
+def _stage1(planes: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+            s: torch.Tensor, s_inv: torch.Tensor, df: bool):
+    """Digit-exact ``planes`` [4, R, K] @ the df32 columns (hi, lo)
+    [..., K, M] scaled by ``s_inv`` -> a (hi, lo) pair [..., R, M]: the
+    df tier's serial slice and TwoSum recombination, or the f32 tier's
+    (:func:`_digit_gemm_fast`), whose lo is None."""
+    if df:
+        return _digit_gemm(_left, planes, _slice_df(hi, lo, s_inv), s)
+    return _digit_gemm_fast(planes, hi, lo, s, s_inv), None
+
+
+def _rows(a, r0: int, r1: int):
+    """Rows r0:r1 (axis 2) of both words of a stage-1 (hi, lo) pair."""
+    return tuple(None if w is None else w[:, :, r0:r1] for w in a)
+
+
+def _twiddle_stage2(ar, ai, c: dict):
+    """The tail both bodies share, at the tier of the stage-1 rows ``ar``/
+    ``ai``, (hi, lo) pairs [S, 2, n1, n2] in the order of ``c``'s twiddle
+    rows (lo None at the f32 tier): the outer twiddle, kept-half stage 2
+    with one pow2 scale per (s, c, row) over the hi words of [br | bi],
+    clamp of the hi words to ±2^63, magnitude -> [S, 2, n1, n2/2]."""
     keep = LANES // 2
-    # f32 twiddle: every product rounded on its own
-    br = ar * c["twr"] - ai * c["twi"]
-    bi = ar * c["twi"] + ai * c["twr"]
+    if ar[1] is not None:
+        # df tier: Dekker df32 twiddle, serial slice, TwoSum recombination,
+        # then _tail_stage2's own magnitude (not exactfft._df_mag's order)
+        br, bi = _df_cmul(ar, ai, (c["twr"], c["twr_lo"]),
+                          (c["twi"], c["twi_lo"]))
+        b_hi = torch.cat([br[0], bi[0]], dim=-1)           # [S, 2, n1, 2n2]
+        b_lo = torch.cat([br[1], bi[1]], dim=-1)
+        s2, s2_inv = _pow2_scale_lane(b_hi.abs().amax(dim=-1, keepdim=True))
+        c_hi, c_lo = _digit_gemm(_right, c["f2"],
+                                 _slice_df(b_hi, b_lo, s2_inv), s2)
+        cr = (torch.clamp(c_hi[..., :keep], -_CLAMP, _CLAMP), c_lo[..., :keep])
+        ci = (torch.clamp(c_hi[..., keep:], -_CLAMP, _CLAMP), c_lo[..., keep:])
+        rr, ii = df_mul(cr, cr), df_mul(ci, ci)
+        s0, e0 = two_sum(rr[0], ii[0])
+        return torch.sqrt(torch.clamp_min(s0 + ((e0 + rr[1]) + ii[1]), 0.0))
+    # f32 tier: every twiddle product rounded on its own
+    br = ar[0] * c["twr"] - ai[0] * c["twi"]
+    bi = ar[0] * c["twi"] + ai[0] * c["twr"]
     b = torch.cat([br, bi], dim=-1)                        # [S, 2, n1, 2n2]
     s2, s2_inv = _pow2_scale_lane(b.abs().amax(dim=-1, keepdim=True))
     d2 = _digits(_fixed27(b, s2_inv))
@@ -386,12 +471,8 @@ def _twiddle_stage2(ar: torch.Tensor, ai: torch.Tensor, c: dict):
     return torch.sqrt(cr * cr + ci * ci)
 
 
-def rfft_pair_mag_ref(x: torch.Tensor, window=None):
-    """Plain PyTorch twin of K1: ``x`` [S, 2, N] f32 ->
-    ``(mag [S, 2, N/2] f32, nzcount [S, 2] f32)``, bins in natural order.
-
-    ``window`` is a (w_hi, w_lo) df32 pair of [N] tensors or None.
-    """
+def _pair_mag(x: torch.Tensor, window, df: bool):
+    """K1's body (2-factor stage 1) at either tier."""
     S, _, n = x.shape
     n1 = n // LANES
     c = _consts(n, x.device)
@@ -400,15 +481,13 @@ def rfft_pair_mag_ref(x: torch.Tensor, window=None):
     # stage 1: per-channel real DFT over j1, one pow2 scale per (s, j2)
     # column taken over both channels
     s, s_inv = _pow2_scale_lane(hi.abs().amax(dim=(1, 2), keepdim=True))
-    a = _digit_gemm_fast(c["f1"], hi, lo, s, s_inv)       # [S, 2, 2n1, n2]
-    mag = _twiddle_stage2(a[..., :n1, :], a[..., n1:, :], c)
+    a = _stage1(c["f1"], hi, lo, s, s_inv, df)            # [S, 2, 2n1, n2]
+    mag = _twiddle_stage2(_rows(a, 0, n1), _rows(a, n1, 2 * n1), c)
     return mag.transpose(-1, -2).reshape(S, 2, n // 2), nz
 
 
-def rfft_pair_mag3_ref(x: torch.Tensor, window=None):
-    """Plain PyTorch twin of K2, the same contract as
-    :func:`rfft_pair_mag_ref`: ``x`` [S, 2, N] f32 with N = 512·a,
-    a % 8 == 0."""
+def _pair_mag3(x: torch.Tensor, window, df: bool):
+    """K2's body (3-factor stage 1) at either tier."""
     S, _, n = x.shape
     a = n // LANES // 4
     c = _consts3(n, x.device)
@@ -428,18 +507,51 @@ def rfft_pair_mag3_ref(x: torch.Tensor, window=None):
         h = torch.cat([top[0], bottom[0]], dim=2)          # [S, 2, 2a, 128]
         l = torch.cat([top[1], bottom[1]], dim=2)
         s, s_inv = _pow2_scale_lane(h.abs().amax(dim=2, keepdim=True))
-        return _digit_gemm_fast(planes, h, l, s, s_inv)    # [S, 2, 4a, 128]
+        return _stage1(planes, h, l, s, s_inv, df)         # [S, 2, 4a, 128]
 
     a02 = stage1(c["c02"], u0, u2)      # rows [A0r; A0i; A2r; A2i]
     a13 = stage1(c["c13"], u1, u3)      # rows [A1r; A1i; A3r; A3i]
-    # chunk-major rows: pos = kq·a + kp
-    ar = torch.cat([a02[:, :, :a], a13[:, :, :a],
-                    a02[:, :, 2 * a:3 * a], a13[:, :, 2 * a:3 * a]], dim=2)
-    ai = torch.cat([a02[:, :, a:2 * a], a13[:, :, a:2 * a],
-                    a02[:, :, 3 * a:], a13[:, :, 3 * a:]], dim=2)
+
+    # chunk-major rows pos = kq·a + kp, both words of each pair
+    def chunk_major(r_even, r_odd):
+        return tuple(None if a02[w] is None else torch.cat(
+            [a02[w][:, :, r_even:r_even + a], a13[w][:, :, r_even:r_even + a],
+             a02[w][:, :, r_odd:r_odd + a], a13[w][:, :, r_odd:r_odd + a]],
+            dim=2) for w in (0, 1))
+
+    ar, ai = chunk_major(0, 2 * a), chunk_major(a, 3 * a)
     unscramble = torch.from_numpy(_row_unscramble(n)).to(x.device)
     mag = _twiddle_stage2(ar, ai, c)[:, :, unscramble]
     return mag.transpose(-1, -2).reshape(S, 2, n // 2), nz
+
+
+def rfft_pair_mag_ref(x: torch.Tensor, window=None):
+    """Plain PyTorch twin of K1 and K1-gen (the f32 tier): ``x`` [S, 2, N]
+    f32 -> ``(mag [S, 2, N/2] f32, nzcount [S, 2] f32)``, bins in natural
+    order.
+
+    ``window`` is a (w_hi, w_lo) df32 pair of [N] tensors or None.
+    """
+    return _pair_mag(x, window, df=False)
+
+
+def rfft_pair_mag_df_ref(x: torch.Tensor, window=None):
+    """Plain PyTorch twin of K1-df, K1's body at the df tier: the contract
+    of :func:`rfft_pair_mag_ref`."""
+    return _pair_mag(x, window, df=True)
+
+
+def rfft_pair_mag3_ref(x: torch.Tensor, window=None):
+    """Plain PyTorch twin of K2 (the f32 tier), the same contract as
+    :func:`rfft_pair_mag_ref`: ``x`` [S, 2, N] f32 with N = 512·a,
+    a % 8 == 0."""
+    return _pair_mag3(x, window, df=False)
+
+
+def rfft_pair_mag3_df_ref(x: torch.Tensor, window=None):
+    """Plain PyTorch twin of K2-df, K2 at the df tier: the contract of
+    :func:`rfft_pair_mag3_ref`."""
+    return _pair_mag3(x, window, df=True)
 
 
 def cfft_exact_ref(re, im):
@@ -560,10 +672,13 @@ def build() -> ctypes.CDLL:
     lib.wf_exact_cfft.argtypes = ([ctypes.c_void_p] * 9
                                   + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p])
-    lib.wf_exact_mag_gen.restype = ctypes.c_int
-    lib.wf_exact_mag_gen.argtypes = ([ctypes.c_void_p] * 11
-                                     + [ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_void_p])
+    # K1-gen and K1-df, K2 and K2-df: one signature a pair
+    for fn in (lib.wf_exact_mag_gen, lib.wf_exact_mag_gen_df):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 11
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.wf_exact_mag3_df.restype = ctypes.c_int
+    lib.wf_exact_mag3_df.argtypes = lib.wf_exact_mag3.argtypes
     _lib = lib
     return lib
 
@@ -597,10 +712,11 @@ def rfft_pair_mag(x: torch.Tensor, window=None):
     Returns ``(mag [S, 2, N/2] f32, nzcount [S, 2] f32)`` in natural bin
     order.  ``window`` is a (w_hi, w_lo) df32 pair of [N] f32 tensors on
     ``x``'s device, or None for no window.  ``N`` must be one that
-    :func:`supports` admits; :func:`stage1_split` picks the body: split 2
-    runs K1 here at N1 in {8, 16, 32} and K1-gen
-    (:func:`rfft_pair_mag_gen`) at the other N1, split 3 runs K2
-    (:func:`rfft_pair_mag3`).  A CUDA tensor launches the kernel, a CPU
+    :func:`supports` admits; :func:`stage1_split` picks the body and
+    :func:`twiddle_tier` its tier: split 2 runs K1 here at N1 in
+    {8, 16, 32} under f32, and :func:`rfft_pair_mag_gen` (K1-gen, or K1-df
+    at every N1 under df) otherwise; split 3 runs :func:`rfft_pair_mag3`
+    (K2, or K2-df under df).  A CUDA tensor launches the kernel, a CPU
     tensor takes its twin.
     """
     global launches
@@ -611,10 +727,11 @@ def rfft_pair_mag(x: torch.Tensor, window=None):
             f"the exact |rFFT| pair kernels take N = 128·N1 with N1 % 8 == 0: "
             f"up to {MAX_N2} under stage-1 split 2, with N1 % 32 == 0 up to "
             f"{MAX_N3} under split 3; got N={n} at split {stage1_split(n)}")
+    tier = twiddle_tier()
     if stage1_split(n) == 3:
-        return rfft_pair_mag3(x, window)
-    if n not in SIZES:
-        return rfft_pair_mag_gen(x, window)
+        return rfft_pair_mag3(x, window, twiddle=tier)
+    if tier == "df" or n not in SIZES:
+        return rfft_pair_mag_gen(x, window, twiddle=tier)
     w_hi, w_lo = _checked_window(x, window)
     if x.device.type == "cpu":
         return rfft_pair_mag_ref(x, (w_hi, w_lo))
@@ -635,14 +752,43 @@ def rfft_pair_mag(x: torch.Tensor, window=None):
     return mag, nz
 
 
-def rfft_pair_mag_gen(x: torch.Tensor, window=None):
-    """K1-gen directly, at any N = 128·N1 with N1 % 8 == 0 up to 32768
-    (K1's sizes included, which :func:`rfft_pair_mag` sends to K1).  The
-    contract of :func:`rfft_pair_mag`; a CPU tensor takes
-    :func:`rfft_pair_mag_ref`.
+def _launch_two_stage(fn, x, w_hi, w_lo, consts, c, df: bool):
+    """Launch a two-launch pair kernel ``fn`` (K1-gen, K1-df, K2, K2-df)
+    on ``x`` [S, 2, N]: allocate its outputs, its stage-1 scratch rows
+    [S, 2, N1, 256] f32 (a (hi, lo) plane pair under df) and its int32
+    nonzero sums, pass ``consts`` (keys of ``c``, in the C signature's
+    order) and the tier's twiddle planes, raise on a failed launch."""
+    S, _, n = x.shape
+    dev = x.device
+    mag = torch.empty((S, 2, n // 2), dtype=torch.float32, device=dev)
+    nz = torch.empty((S, 2), dtype=torch.float32, device=dev)
+    rows = torch.empty((2 if df else 1, S, 2, n // LANES, 2 * LANES),
+                       dtype=torch.float32, device=dev)
+    nz_int = torch.empty((S, 2), dtype=torch.int32, device=dev)
+    tw = ("twr_df", "twi_df") if df else ("twr", "twi")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+                 *(c[k].data_ptr() for k in (*consts, *tw)), rows.data_ptr(),
+                 nz_int.data_ptr(), mag.data_ptr(), nz.data_ptr(), S, n,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError "
+                           f"{err}")
+    return mag, nz
+
+
+def rfft_pair_mag_gen(x: torch.Tensor, window=None,
+                      twiddle: str | None = None):
+    """K1's body directly, at any N = 128·N1 with N1 % 8 == 0 up to 32768:
+    K1-gen under the f32 tier (K1's sizes included, which
+    :func:`rfft_pair_mag` sends to K1), K1-df under df.  ``twiddle`` names
+    the tier; None reads :func:`twiddle_tier`.  The contract of
+    :func:`rfft_pair_mag`; a CPU tensor takes :func:`rfft_pair_mag_ref` or
+    :func:`rfft_pair_mag_df_ref`.
     """
-    global launches_gen
+    global launches_gen, launches_gen_df
     _check_pair(x)
+    df = _tier(twiddle) == "df"
     n = x.shape[-1]
     if not _two_factor(n):
         raise NotImplementedError(
@@ -650,38 +796,29 @@ def rfft_pair_mag_gen(x: torch.Tensor, window=None):
             f"got N={n}")
     w_hi, w_lo = _checked_window(x, window)
     if x.device.type == "cpu":
-        return rfft_pair_mag_ref(x, (w_hi, w_lo))
+        return _pair_mag(x, (w_hi, w_lo), df)
     lib = build()
-    S = x.shape[0]
-    dev = x.device
-    mag = torch.empty((S, 2, n // 2), dtype=torch.float32, device=dev)
-    nz = torch.empty((S, 2), dtype=torch.float32, device=dev)
-    # stage-1 output rows [br | bi] and the int32 nonzero sums
-    rows = torch.empty((S, 2, n // LANES, 2 * LANES), dtype=torch.float32,
-                       device=dev)
-    nz_int = torch.empty((S, 2), dtype=torch.int32, device=dev)
-    c = _consts(n, dev)
-    with torch.cuda.device(dev):
-        err = lib.wf_exact_mag_gen(
-            x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
-            c["f1w_gen"].data_ptr(), c["f2w"].data_ptr(), c["twr"].data_ptr(),
-            c["twi"].data_ptr(), rows.data_ptr(), nz_int.data_ptr(),
-            mag.data_ptr(), nz.data_ptr(), S, n,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"exact_mag_gen kernel launch failed: cudaError {err}")
-    launches_gen += 1
-    return mag, nz
+    out = _launch_two_stage(
+        lib.wf_exact_mag_gen_df if df else lib.wf_exact_mag_gen, x, w_hi,
+        w_lo, ("f1w_gen", "f2w"), _consts(n, x.device), df)
+    if df:
+        launches_gen_df += 1
+    else:
+        launches_gen += 1
+    return out
 
 
-def rfft_pair_mag3(x: torch.Tensor, window=None):
-    """K2 directly, at any N = 512·a with a % 8 == 0 up to 65536 (N=4096
-    included, which :func:`rfft_pair_mag` sends to K1).  The contract of
-    :func:`rfft_pair_mag`; a CPU tensor takes :func:`rfft_pair_mag3_ref`.
+def rfft_pair_mag3(x: torch.Tensor, window=None, twiddle: str | None = None):
+    """K2's body directly, at any N = 512·a with a % 8 == 0 up to 65536
+    (N=4096 included, which :func:`rfft_pair_mag` sends to K1's body): K2
+    under the f32 tier, K2-df under df.  ``twiddle`` names the tier; None
+    reads :func:`twiddle_tier`.  The contract of :func:`rfft_pair_mag`; a
+    CPU tensor takes :func:`rfft_pair_mag3_ref` or
+    :func:`rfft_pair_mag3_df_ref`.
     """
-    global launches3
+    global launches3, launches3_df
     _check_pair(x)
+    df = _tier(twiddle) == "df"
     n = x.shape[-1]
     n1, rem = divmod(n, LANES)
     if rem or n1 % 32 or not 4096 <= n <= MAX_N3:
@@ -689,27 +826,16 @@ def rfft_pair_mag3(x: torch.Tensor, window=None):
             f"the 3-factor kernel covers N = 4096·k up to {MAX_N3}, got N={n}")
     w_hi, w_lo = _checked_window(x, window)
     if x.device.type == "cpu":
-        return rfft_pair_mag3_ref(x, (w_hi, w_lo))
+        return _pair_mag3(x, (w_hi, w_lo), df)
     lib = build()
-    S = x.shape[0]
-    dev = x.device
-    mag = torch.empty((S, 2, n // 2), dtype=torch.float32, device=dev)
-    nz = torch.empty((S, 2), dtype=torch.float32, device=dev)
-    # stage-1 output rows [br | bi] and the int32 nonzero sums
-    rows = torch.empty((S, 2, n1, 2 * LANES), dtype=torch.float32, device=dev)
-    nz_int = torch.empty((S, 2), dtype=torch.int32, device=dev)
-    c = _consts3(n, dev)
-    with torch.cuda.device(dev):
-        err = lib.wf_exact_mag3(
-            x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
-            c["c02w"].data_ptr(), c["c13w"].data_ptr(), c["f2w"].data_ptr(),
-            c["twr"].data_ptr(), c["twi"].data_ptr(), rows.data_ptr(),
-            nz_int.data_ptr(), mag.data_ptr(), nz.data_ptr(), S, n,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"exact_mag3 kernel launch failed: cudaError {err}")
-    launches3 += 1
-    return mag, nz
+    out = _launch_two_stage(
+        lib.wf_exact_mag3_df if df else lib.wf_exact_mag3, x, w_hi, w_lo,
+        ("c02w", "c13w", "f2w"), _consts3(n, x.device), df)
+    if df:
+        launches3_df += 1
+    else:
+        launches3 += 1
+    return out
 
 
 def cfft_exact_kernel(re, im):

@@ -12,19 +12,23 @@ deep, and digit pairs with i + j <= 3 kept (``DIGIT_BITS``, ``FIRST_SHIFT``,
 is exact (the reference's int32-accumulation branch: unlimited class
 stacking, no chunk cascade).
 
-Routing (:func:`rfft_mag_exact`), by size and the ``EXACT_FUSED`` gate as
-the JAX package routes: the pair kernels K1/K2 when
-``exact_cuda.kernel_would_run(n)``; otherwise the conjugate-symmetry
-packed pair through :func:`cfft_exact`, which runs K3
+Routing (:func:`rfft_mag_exact`), by size and the ``EXACT_KERNEL``,
+``EXACT_FUSED`` and ``EXACT_PACKED`` gates as the JAX package routes: the
+pair kernels K1/K2 when ``exact_cuda.kernel_would_run(n)``; otherwise,
+under ``WAVEFORM_TPU_EXACT_PACKED=never`` and an even N2 factor, the
+real-split lowering :func:`rfft_mag_real_lowering`; otherwise the
+conjugate-symmetry packed pair through :func:`cfft_exact`, which runs K3
 (``exact_cuda.cfft_exact_kernel``) when ``exact_cuda.supports_cfft(n)``
-and the digit lowering here (plain torch ops on any device) at every
-other size.
+and the kernels are enabled (``WAVEFORM_TPU_EXACT_KERNEL`` is not
+``never``), and the digit lowering here (plain torch ops on any device)
+otherwise.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import os
 
 import numpy as np
 import torch
@@ -243,11 +247,11 @@ def _exact_plan(n: int):
              split_f64_df32(tw.imag)))
 
 
-@functools.lru_cache(maxsize=16)
-def _exact_consts(n: int, device: torch.device):
-    """:func:`_exact_plan` as tensors on ``device``: digit planes in
+def _plan_tensors(plan, device: torch.device):
+    """A digit plan ``(n1, n2, f1_digits, stage2)`` (:func:`_exact_plan`,
+    :func:`_real_split_plan`) as tensors on ``device``: digit planes in
     float64, twiddles as df32 pairs."""
-    n1, n2, f1d, stage2 = _exact_plan(n)
+    n1, n2, f1d, stage2 = plan
 
     def t(a, dtype=torch.float64):
         return torch.from_numpy(a).to(device=device, dtype=dtype)
@@ -258,6 +262,39 @@ def _exact_consts(n: int, device: torch.device):
     return (n1, n2, t(f1d),
             ("twiddle", t(f2d), tuple(t(a, torch.float32) for a in twr),
              tuple(t(a, torch.float32) for a in twi)))
+
+
+@functools.lru_cache(maxsize=16)
+def _exact_consts(n: int, device: torch.device):
+    return _plan_tensors(_exact_plan(n), device)
+
+
+def _digit_fft(x_hi, x_lo, n1: int, f1d, stage2):
+    """The two digit stages both lowerings share, on df32 blocks (x_hi,
+    x_lo) [..., R, N2]: one pow2 scale per block and stage
+    (:func:`_pow2_scale_block`), serial slices, exact float64 digit
+    products against ``f1d`` (rows [A_r; A_i], n1 each), TwoSum
+    recombination, then the folded stage 2 or a df32 twiddle and the
+    plain one.  Returns the df32 (c_hi, c_lo) [..., n1, columns of the
+    stage-2 constants]."""
+    s = _pow2_scale_block(x_hi)
+    a_hi, a_lo = _digit_gemm(_left, f1d, _slice_df(x_hi, x_lo, 1.0 / s), s)
+    ar = (a_hi[..., :n1, :], a_lo[..., :n1, :])
+    ai = (a_hi[..., n1:, :], a_lo[..., n1:, :])
+
+    if stage2[0] == "folded":
+        f2d, product = stage2[1], _folded
+        br, bi = ar, ai
+    else:
+        _, f2d, twr, twi = stage2
+        product = _right
+        br, bi = _df_cmul(ar, ai, twr, twi)
+
+    # [C_r | C_i] = [B_r | B_i] @ F2 (per k1 row)
+    b2_hi = torch.cat([br[0], bi[0]], dim=-1)
+    b2_lo = torch.cat([br[1], bi[1]], dim=-1)
+    s2 = _pow2_scale_block(b2_hi)
+    return _digit_gemm(product, f2d, _slice_df(b2_hi, b2_lo, 1.0 / s2), s2)
 
 
 def cfft_lowering(re, im):
@@ -276,29 +313,12 @@ def cfft_lowering(re, im):
     n1, n2, f1d, stage2 = _exact_consts(n, re[0].device)
     shp = re[0].shape[:-1]
 
-    # step 1: [A_r; A_i] = F1b @ [x_r; x_i]
+    # [A_r; A_i] = F1b @ [x_r; x_i], then stage 2 over [B_r | B_i]
     x2_hi = torch.cat([re[0].reshape(*shp, n1, n2),
                        im[0].reshape(*shp, n1, n2)], dim=-2)
     x2_lo = torch.cat([re[1].reshape(*shp, n1, n2),
                        im[1].reshape(*shp, n1, n2)], dim=-2)
-    s = _pow2_scale_block(x2_hi)
-    a_hi, a_lo = _digit_gemm(_left, f1d, _slice_df(x2_hi, x2_lo, 1.0 / s), s)
-    ar = (a_hi[..., :n1, :], a_lo[..., :n1, :])
-    ai = (a_hi[..., n1:, :], a_lo[..., n1:, :])
-
-    if stage2[0] == "folded":
-        f2d, product = stage2[1], _folded
-        br, bi = ar, ai
-    else:
-        _, f2d, twr, twi = stage2
-        product = _right
-        br, bi = _df_cmul(ar, ai, twr, twi)
-
-    # step 3: [C_r | C_i] = [B_r | B_i] @ F2b (per k1 row)
-    b2_hi = torch.cat([br[0], bi[0]], dim=-1)
-    b2_lo = torch.cat([br[1], bi[1]], dim=-1)
-    s2 = _pow2_scale_block(b2_hi)
-    c2 = _digit_gemm(product, f2d, _slice_df(b2_hi, b2_lo, 1.0 / s2), s2)
+    c2 = _digit_fft(x2_hi, x2_lo, n1, f1d, stage2)
 
     # k = k1 + N1·k2: transpose (k1, k2) -> (k2, k1) and flatten
     def fin(a):
@@ -313,14 +333,92 @@ def cfft_exact(re, im):
     zi_lo))``.  ``re``/``im`` are f32 tensors or df32 (hi, lo) pairs.
 
     K3 (``exact_cuda.cfft_exact_kernel``) serves every size
-    ``exact_cuda.supports_cfft`` admits, :func:`cfft_lowering` the rest:
-    by size alone."""
-    from .exact_cuda import cfft_exact_kernel, supports_cfft
+    ``exact_cuda.supports_cfft`` admits while ``exact_cuda.enabled()``,
+    :func:`cfft_lowering` the rest."""
+    from .exact_cuda import cfft_exact_kernel, enabled, supports_cfft
 
     re, im = _df_pair(re), _df_pair(im)
-    if supports_cfft(re[0].shape[-1]):
+    if supports_cfft(re[0].shape[-1]) and enabled():
         return cfft_exact_kernel(re, im)
     return cfft_lowering(re, im)
+
+
+@functools.lru_cache(maxsize=16)
+def _real_split_plan(n: int):
+    """Digit planes of the real-split lowering (host), the JAX package's
+    ``exactfft._real_split_plan``: stage 1 per channel against
+    F1r = [Re f1; Im f1] [2N1, N1], stage 2 on the kept half-spectrum
+    columns k2 < N2/2 only.
+
+    Returns ``(n1, n2, f1r_digits, stage2)``: ``stage2`` is ``("folded",
+    g2_digits)`` (the twiddle folded into per-k1 constants [N1, 2N2, N2])
+    while that stays under ``_FOLD_LIMIT``, else ``("twiddle", f2k_digits,
+    (twr_hi, twr_lo), (twi_hi, twi_lo))`` with f2k [2N2, N2]."""
+    n1, n2 = _split_factors(n)
+    if n2 % 2:
+        raise ValueError(f"real-split needs an even N2 factor; {n} splits "
+                         f"as {n1}x{n2}: use the packed pair")
+    f1 = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
+    f2 = np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2)
+    tw = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n2)) / n)
+    f1r = np.concatenate([f1.real, f1.imag], axis=0)
+    keep = n2 // 2
+    if n1 * (2 * n2) * n2 <= _FOLD_LIMIT:
+        g = tw[:, :, None] * f2[None, :, :keep]
+        g2 = np.concatenate([
+            np.concatenate([g.real, g.imag], axis=-1),
+            np.concatenate([-g.imag, g.real], axis=-1)], axis=-2)
+        return n1, n2, _digit_planes(f1r), ("folded", _digit_planes(g2))
+    f2k = np.block([[f2.real[:, :keep], f2.imag[:, :keep]],
+                    [-f2.imag[:, :keep], f2.real[:, :keep]]])
+    return (n1, n2, _digit_planes(f1r),
+            ("twiddle", _digit_planes(f2k), split_f64_df32(tw.real),
+             split_f64_df32(tw.imag)))
+
+
+@functools.lru_cache(maxsize=16)
+def _real_split_consts(n: int, device: torch.device):
+    return _plan_tensors(_real_split_plan(n), device)
+
+
+def use_real_split(n: int) -> bool:
+    """The JAX package's ``_use_real_split_xla(n)``:
+    ``WAVEFORM_TPU_EXACT_PACKED=never`` (read at call time) sends the
+    streams the pair kernel does not serve to :func:`rfft_mag_real_lowering`
+    when N's split has an even N2 (odd N2, e.g. 336 = 16 x 21, stays on the
+    packed pair)."""
+    return (os.environ.get("WAVEFORM_TPU_EXACT_PACKED", "always") == "never"
+            and _split_factors(n)[1] % 2 == 0)
+
+
+def rfft_mag_real_lowering(x: torch.Tensor, window=None) -> torch.Tensor:
+    """|rFFT| of [..., C, N] f32 raw channels through the real-split
+    lowering, the JAX package's ``_rfft_mag_real_xla`` in torch ops: each
+    channel an independent real-input transform (N = N1·N2 by
+    :func:`_split_factors`), one pow2 scale per (batch, channel) block and
+    stage (:func:`_pow2_scale_block`), serial slices, exact float64 digit
+    products, TwoSum recombination, stage 2 on the kept half only (folded,
+    or a df32 twiddle then the plain one), :func:`_df_mag`.  Returns
+    ``mag [..., C, N/2]`` f32, bins in natural order; ``window`` is a
+    (w_hi, w_lo) df32 pair of [N] tensors or None."""
+    shp = x.shape[:-2]
+    c, n = x.shape[-2], x.shape[-1]
+    n1, n2, f1d, stage2 = _real_split_consts(n, x.device)
+    keep = n2 // 2
+
+    xb = x.reshape(*shp, c, n1, n2)
+    if window is not None:
+        hi, lo = _windowed_df(xb, window[0].reshape(n1, n2),
+                              window[1].reshape(n1, n2))
+    else:
+        hi, lo = xb, torch.zeros_like(xb)
+
+    # per-channel real-input DFT over block rows, kept-half stage 2
+    c_hi, c_lo = _digit_fft(hi, lo, n1, f1d, stage2)
+    mag = _df_mag((c_hi[..., :keep], c_lo[..., :keep]),
+                  (c_hi[..., keep:], c_lo[..., keep:]))  # [..., C, n1, keep]
+    # block coords -> flat bins k = k1 + n1·k2
+    return mag.transpose(-1, -2).reshape(*shp, c, n // 2)
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +430,8 @@ def rfft_pair_mag_exact(x: torch.Tensor, window=None):
     [..., 2, N] f32: ``(mag [..., 2, N/2] f32, nz [..., 2] bool)``.
 
     The pair kernel (K1/K2) when ``exact_cuda.kernel_would_run(n)``;
-    otherwise the pair packs into one complex transform z = x0 + i·x1
+    otherwise the real-split lowering when :func:`use_real_split`; otherwise
+    the pair packs into one complex transform z = x0 + i·x1
     (:func:`cfft_exact`) and unpacks by conjugate symmetry on the kept
     bins."""
     from .exact_cuda import kernel_would_run, rfft_pair_mag
@@ -343,6 +442,8 @@ def rfft_pair_mag_exact(x: torch.Tensor, window=None):
     if kernel_would_run(n):
         m, nzc = rfft_pair_mag(x.reshape(-1, 2, n).contiguous(), window)
         return m.reshape(*lead, 2, nbins), nzc.reshape(*lead, 2) > 0
+    if use_real_split(n):
+        return rfft_mag_real_lowering(x, window), torch.any(x != 0, dim=-1)
     x0, x1 = x[..., 0, :], x[..., 1, :]
     if window is not None:
         re = _windowed_df(x0, *window)
@@ -369,11 +470,15 @@ def rfft_mag_exact(x: torch.Tensor, window=None):
     channel (mono capture, or the last of an odd count) rides the pair
     kernel by pairing streams when it runs, one zero row padding an odd
     stream count (the kernel's two rows are independent real transforms);
-    otherwise it is the real part of one complex transform.
+    otherwise it is the real part of one complex transform.  When the pair
+    kernel does not run and :func:`use_real_split` holds, every channel
+    goes through :func:`rfft_mag_real_lowering` at once instead.
     """
     from .exact_cuda import kernel_would_run, rfft_pair_mag
 
     c, n = x.shape[-2], x.shape[-1]
+    if not kernel_would_run(n) and use_real_split(n):
+        return rfft_mag_real_lowering(x, window), torch.any(x != 0, dim=-1)
     lead = x.shape[:-2]
     nbins = n // 2
     mags, nzs = [], []
