@@ -10,7 +10,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    power limit as nvidia-smi reports them;
 2. build   — the exact FFT kernels compiled from ``waveform_tpu_torch/
    csrc`` with nvcc (one process per source); prints ptxas's entry
-   function and register lines as nvcc gives them;
+   function and register lines as nvcc gives them, and each kernel's
+   IMMA / IGMMA / IDP.4A counts from its SASS: K2's and K2-df's four
+   kernels must run on the int8 tensor cores (IMMA or IGMMA, no IDP.4A),
+   the other 13 keep their __dp4a (IDP.4A);
 3. kernel  — the kernel against its plain PyTorch twin and float64 numpy at
    N in {1024, 2048, 4096}, S in {1, 7, 256}, Hann df32 window and none,
    with a silent stream, a silent channel, a 1e20 stream and a NaN stream;
@@ -21,7 +24,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    the bench's accuracy gate against the float64 oracle;
 5. times   — kernel, twin and full tick at S=256, N=4096 on the card's
    clock (CUDA events, median of 30 after warmup);
-6. kernel3 — the 3-factor kernel (K2) against its twin and float64 numpy at
+6. kernel3 — the 3-factor kernel (K2) bit for bit against its twin (NaN
+   lanes by position), and against float64 numpy, at
    N in {4096, 8192, 16384, 32768, 65536}, S in {1, 7, 32}, the same windows
    and bad streams as phase 3; at N=4096 (reached through K2's direct entry
    point, since the router sends 4096 to K1) also against K1;
@@ -33,7 +37,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
    the CPU port on 2 streams and the accuracy gate against the float64
    oracle;
 8. times3  — K2 and its twin at (N, S) = (8192, 256), (16384, 256),
-   (32768, 64), (65536, 32), and the full tick at N=65536, S=32;
+   (32768, 64), (65536, 32), with the library call, K2's int8 rate and its
+   share of the bound at (16384, 256) and (65536, 32); K2 in turns with
+   K1-gen at (16384, 256); K2's two launches timed apart at both shapes,
+   beside the wrapper and the library call, all on the device's clock
+   (the device kept busy ahead of each call, so the host's enqueue is not
+   timed); and the full tick at N=65536, S=32;
 9. cfft    — the complex kernel (K3) against its twin and float64 numpy at
    N in {1024, 3072, 4096, 16384, 32768}, S in {1, 7, 64}, and at the
    slice's (4096, 256); on f32 pairs, on Hann-windowed df32 pairs (path
@@ -81,7 +90,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    tick), no f32-tier kernel launch, with the checks of phases 4 and 7;
 18. times_df — K1-df at (4096, 256) and (16384, 256) and K2-df at
    (65536, 32), each beside the f32 kernel of the same shape, with the df
-   twin and the library call, and the full df tick at both slices.
+   twin and the library call; K2-df's rate and share of its bound; K2-df
+   in turns with K1-df at (16384, 256); K2-df's two launches timed apart
+   as in phase 8; and the full df tick at both slices.
 
 Every phase's seconds are printed before the kernels' JSON record and the
 result line, which are the last two lines.  Each kernel's record carries
@@ -96,6 +107,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -148,13 +160,19 @@ def hann_pair(n: int, device):
     return w64, (torch.from_numpy(hi).to(device), torch.from_numpy(lo).to(device))
 
 
-def cuda_median_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median of per-call CUDA-event times after warmup, in ms."""
+def cuda_median_ms(fn, reps: int = 30, warmup: int = 5,
+                   busy_ahead: bool = False) -> float:
+    """Median of per-call CUDA-event times after warmup, in ms.  With
+    ``busy_ahead`` the device is kept busy ahead of each timed call
+    (torch.cuda._sleep), so the events time the device work alone and not
+    the host's enqueue."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if busy_ahead:
+            torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -178,11 +196,12 @@ def bad_streams(x: np.ndarray, rng) -> tuple:
 
 
 def phase_kernel(exact_cuda, dev, kernel, twin, counter: str, sizes,
-                 streams, seed: int, versus=None):
+                 streams, seed: int, versus=None, bitwise: bool = False):
     """``kernel`` vs ``twin`` vs float64 over the size/stream/window
     matrix: each call adds one to ``exact_cuda.<counter>``, agrees with
-    the twin and float64 within TOL, counts nonzeros exactly, and keeps
-    the 1e20/NaN streams to themselves.  ``versus`` = (other kernel, its
+    the twin within TOL (``bitwise``: bit for bit, NaN lanes by position)
+    and float64 within TOL, counts nonzeros exactly, and keeps the
+    1e20/NaN streams to themselves.  ``versus`` = (other kernel, its
     sizes) also holds those sizes against the other kernel within
     TOL_SPLITS.  Returns the number of cases and the worst relative
     errors."""
@@ -208,6 +227,9 @@ def phase_kernel(exact_cuda, dev, kernel, twin, counter: str, sizes,
                       f"{counter} N={n} S={S}")
                 ref, nz_ref = twin(xd, win)
                 torch.cuda.synchronize()
+                check(not bitwise or same_bits(mag, ref),
+                      f"{counter} N={n} S={S} windowed={windowed}: not bit "
+                      "for bit with the twin")
                 mag, ref = mag.cpu().numpy(), ref.cpu().numpy()
                 want = np.abs(np.fft.rfft(x[good].astype(np.float64) * w64))
                 want = want[..., :n // 2]
@@ -310,12 +332,10 @@ def phase_df(exact_cuda, dev, cases, seed: int):
     return n_cases, worst
 
 
-def bound(name: str, n: int, S: int) -> tuple[float, str]:
-    """(bound_ms, bound_by) of one call of kernel ``name`` on S streams of
-    size n: the larger of its int8 operations (2 per digit-pair MAC, 10
-    digit pairs a product) at INT8_OPS and the bytes it must move (each
-    input, window and constant read once, each output written once) at
-    HBM."""
+def work(name: str, n: int, S: int) -> tuple[float, float]:
+    """(int8 operations, bytes) of one call of kernel ``name`` on S streams
+    of size n: 2 operations per digit-pair MAC, 10 digit pairs a product;
+    each input, window and constant read once, each output written once."""
     n1 = n // 128
     macs2 = 655360 * n1                       # kept-half or full stage 2
     tw = 2 * n1 * 128 * 4                     # twiddle (f32, or df32 pair)
@@ -333,26 +353,89 @@ def bound(name: str, n: int, S: int) -> tuple[float, str]:
             macs1 = 5120 * n1 * n1            # F1r [2N1, N1], two channels
             consts = 4 * 2 * n1 * n1
         consts += 4 * 256 * 128 + tw
-    ops_ms = 2 * S * (macs1 + macs2) / INT8_OPS * 1e3
-    bytes_ms = (io + consts) / HBM * 1e3
+    return 2 * S * (macs1 + macs2), io + consts
+
+
+def bound(name: str, n: int, S: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one call of kernel ``name`` on S streams of
+    size n: the larger of its int8 operations at INT8_OPS and the bytes it
+    must move at HBM (:func:`work`)."""
+    ops, nbytes = work(name, n, S)
+    ops_ms = ops / INT8_OPS * 1e3
+    bytes_ms = nbytes / HBM * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
 
 
-def library_ms(n: int, S: int, dev, pair: bool = True) -> float:
+def rate_line(name: str, ms: float, n: int, S: int) -> str:
+    """A kernel time as its int8 rate and its share of the bound."""
+    b_ms, b_by = bound(name, n, S)
+    rate = work(name, n, S)[0] / (ms * 1e-3)
+    return (f"{rate / 1e12:.1f} TOP/s ({rate / INT8_OPS * 100:.1f}% of "
+            f"the int8 peak), bound {b_ms * 1e3:.2f} us ({b_by}), "
+            f"{b_ms / ms * 100:.1f}% of bound")
+
+
+def k2_stage_ms(exact_cuda, n: int, S: int, dev, df: bool):
+    """K2's (df: K2-df's) two launches timed apart on CUDA events, with the
+    device kept busy ahead of each (``cuda_median_ms(busy_ahead=True)``),
+    at [S, 2, n], Hann: (stage 1 ms, stage 2 ms, both ms, the wrapper
+    ms).  The two stages run one after the other through
+    ``wf_exact_mag3_stage`` must give the wrapper's output bit for bit."""
+    lib = exact_cuda.build()
+    x = torch.from_numpy((0.5 * np.random.default_rng(SEED + 13)
+                          .standard_normal((S, 2, n))).astype(np.float32)
+                         ).to(dev)
+    _, (w_hi, w_lo) = hann_pair(n, dev)
+    c = exact_cuda._consts3(n, dev)
+    rows = torch.empty((2 if df else 1, S, 2, n // 128, 256),
+                       dtype=torch.float32, device=dev)
+    nz_int = torch.empty((S, 2), dtype=torch.int32, device=dev)
+    mag = torch.empty((S, 2, n // 2), dtype=torch.float32, device=dev)
+    nz = torch.empty((S, 2), dtype=torch.float32, device=dev)
+    tw = ("twr_df", "twi_df") if df else ("twr", "twi")
+    ptrs = [t.data_ptr() for t in (x, w_hi, w_lo,
+                                   *(c[k] for k in (*exact_cuda.K2_CONSTS,
+                                                    *tw)),
+                                   rows, nz_int, mag, nz)]
+
+    def launch(stage):
+        err = lib.wf_exact_mag3_stage(
+            stage, int(df), *ptrs, S, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"wf_exact_mag3_stage({stage}) failed: {err}")
+
+    launch(1)
+    launch(2)
+    ref, nz_ref = exact_cuda.rfft_pair_mag3(x, (w_hi, w_lo),
+                                            "df" if df else "f32")
+    torch.cuda.synchronize()
+    check(same_bits(mag, ref) and torch.equal(nz, nz_ref),
+          f"K2 stages apart vs the wrapper at N={n} S={S} df={df}")
+    return tuple(cuda_median_ms(f, busy_ahead=True) for f in (
+        lambda: launch(1), lambda: launch(2),
+        lambda: (launch(1), launch(2)),
+        lambda: exact_cuda.rfft_pair_mag3(x, (w_hi, w_lo),
+                                          "df" if df else "f32")))
+
+
+def library_ms(n: int, S: int, dev, pair: bool = True,
+               busy_ahead: bool = False) -> float:
     """The library call that computes a kernel's function in float64, timed
     on CUDA events (the port never calls it): ``torch.fft.rfft(x.double()
     * w).abs()`` for the pair kernels on [S, 2, n], ``torch.fft.fft`` of
-    the complex128 pair for K3 on [S, n]."""
+    the complex128 pair for K3 on [S, n].  ``busy_ahead`` as in
+    :func:`cuda_median_ms`."""
     rng = np.random.default_rng(SEED + 6)
     x = torch.from_numpy((0.5 * rng.standard_normal((S, 2, n))).astype(
         np.float32)).to(dev)
     w64, _ = hann_pair(n, dev)
     w = torch.from_numpy(w64).to(dev)
     if pair:
-        return cuda_median_ms(lambda: torch.fft.rfft(x.double() * w).abs())
+        return cuda_median_ms(lambda: torch.fft.rfft(x.double() * w).abs(),
+                              busy_ahead=busy_ahead)
     return cuda_median_ms(lambda: torch.fft.fft(torch.complex(
-        x[:, 0].double() * w, x[:, 1].double() * w)))
+        x[:, 0].double() * w, x[:, 1].double() * w)), busy_ahead=busy_ahead)
 
 
 def c128(z) -> np.ndarray:
@@ -534,6 +617,61 @@ def cfft_times(exact_cuda, exactfft, n: int, S: int, dev):
             max_abs)
 
 
+def k2_stage_ops(n: int, S: int) -> tuple[int, int]:
+    """K2's int8 operations in stage 1 and in stage 2 at [S, 2, n]."""
+    a = n // 512
+    return (2 * S * 2 * 2 * (4 * a) * (2 * a) * 128 * 10,
+            2 * S * 655360 * (n // 128))
+
+
+def print_k2_extras(exact_cuda, card: str, dev, phase: str, df: bool,
+                    lib_ms: float):
+    """K2 (df: K2-df) against K1-gen (df: K1-df) in turns at (16384, 256),
+    with the library call there (``lib_ms``), K2's rate and share of its
+    bound, and the two stages of K2 apart at (65536, 32) and (16384,
+    256), beside the wrapper and the library call on the device's clock."""
+    tier = "df" if df else "f32"
+    name = "K2-df" if df else "K2"
+    n, s_n = 16384, 256
+    x = torch.from_numpy((0.5 * np.random.default_rng(SEED + 14)
+                          .standard_normal((s_n, 2, n))).astype(np.float32)
+                         ).to(dev)
+    _, win = hann_pair(n, dev)
+
+    def k2():
+        return exact_cuda.rfft_pair_mag3(x, win, tier)
+
+    def gen():
+        return exact_cuda.rfft_pair_mag_gen(x, win, tier)
+
+    t = [cuda_median_ms(f) for f in (k2, gen, gen, k2)]
+    print(f"{phase} [{card}]: {name} {t[0] * 1e3:.1f} / {t[3] * 1e3:.1f} us, "
+          f"{'K1-df' if df else 'K1-gen'} {t[1] * 1e3:.1f} / "
+          f"{t[2] * 1e3:.1f} us (in turns) at S={s_n} N={n}: {name} "
+          f"{(t[1] + t[2]) / (t[0] + t[3]):.2f}x faster; library "
+          f"{lib_ms * 1e3:.1f} us; {name} "
+          + rate_line("exact_mag3", (t[0] + t[3]) / 2, n, s_n), flush=True)
+    for n, s_n in ((65536, 32), (16384, 256)):
+        st1, st2, both, wrapped = k2_stage_ms(exact_cuda, n, s_n, dev, df)
+        ops1, ops2 = k2_stage_ops(n, s_n)
+        lib_dev = library_ms(n, s_n, dev, busy_ahead=True)
+        print(f"{phase} [{card}]: {name} stages apart (device time) at "
+              f"S={s_n} N={n}: stage 1 {st1 * 1e3:.1f} us "
+              f"({ops1 / (st1 * 1e-3) / 1e12:.1f} TOP/s), stage 2 "
+              f"{st2 * 1e3:.1f} us ({ops2 / (st2 * 1e-3) / 1e12:.1f} TOP/s), "
+              f"both {both * 1e3:.1f} us; on the same clock the wrapper "
+              f"{wrapped * 1e3:.1f} us, the library call "
+              f"{lib_dev * 1e3:.1f} us", flush=True)
+
+
+def kernel_label(fn: str) -> str:
+    """A mangled kernel name as name<template arguments>."""
+    m = re.search(r"_cu_[0-9a-f]{8}\d+(exact_[a-z0-9_]+?)(I.*?E)?E", fn)
+    if m is None:
+        return fn
+    return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) or ''))}>"
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -561,6 +699,19 @@ def main() -> None:
     for ln in exact_cuda.build_info.get("log", "").splitlines():
         if "entry function" in ln or "registers" in ln:
             print(f"build: {ln.strip()}", flush=True)
+    # K2 and K2-df (exact_mag3.cu) run their digit GEMMs on the int8 tensor
+    # cores; the other sources keep __dp4a (IDP.4A)
+    sass = exact_cuda.sass_counts()
+    for fn, c in sass.items():
+        print(f"build: sass {kernel_label(fn)}: "
+              + ", ".join(f"{op} {k}" for op, k in c.items()), flush=True)
+    mag3 = [c for fn, c in sass.items() if "exact_mag3_stage" in fn]
+    check(len(mag3) == 4 and all(c["IMMA"] + c["IGMMA"] > 0
+                                 and c["IDP.4A"] == 0 for c in mag3),
+          f"exact_mag3 kernels not on the tensor cores: {mag3}")
+    dp4a = [c for fn, c in sass.items() if "exact_mag3" not in fn]
+    check(len(dp4a) == 13 and all(c["IDP.4A"] > 0 for c in dp4a),
+          f"K1/K1-gen/K3 kernels without their IDP.4A: {dp4a}")
 
     # 3. kernel vs twin ---------------------------------------------------
     t0 = time.perf_counter()
@@ -618,10 +769,11 @@ def main() -> None:
         exact_cuda, dev, exact_cuda.rfft_pair_mag3,
         exact_cuda.rfft_pair_mag3_ref, "launches3",
         (4096,) + exact_cuda.SIZES3, (1, 7, 32), SEED + 3,
-        versus=(exact_cuda.rfft_pair_mag, exact_cuda.SIZES))
+        versus=(exact_cuda.rfft_pair_mag, exact_cuda.SIZES), bitwise=True)
     secs["kernel3"] = time.perf_counter() - t0
     print(f"kernel3: {cases3} cases at N in {(4096,) + exact_cuda.SIZES3}, "
-          f"max|d|/max|ref| vs twin {worst3['twin']:.3e}, vs float64 "
+          f"bit for bit vs the twin (max|d|/max|ref| "
+          f"{worst3['twin']:.3e}), vs float64 "
           f"{worst3['f64']:.3e} (bound {TOL}), vs K1 at N=4096 "
           f"{worst3['versus']:.3e} (bound {TOL_SPLITS}); nz exact; 1e20/NaN "
           "streams isolated", flush=True)
@@ -656,13 +808,20 @@ def main() -> None:
 
     # 8. times3 -------------------------------------------------------------
     t0 = time.perf_counter()
+    lib3 = {}
     for n, s_n in ((8192, 256), (16384, 256), (32768, 64), (65536, 32)):
         k3_ms, p3_ms, max_abs3 = kernel_times(
             exact_cuda.rfft_pair_mag3, exact_cuda.rfft_pair_mag3_ref, n, s_n,
             dev)
-        print(f"times3 [{card}]: K2 {k3_ms * 1e3:.1f} us, twin "
-              f"{p3_ms * 1e3:.1f} us at S={s_n} N={n}", flush=True)
+        line = (f"times3 [{card}]: K2 {k3_ms * 1e3:.1f} us, twin "
+                f"{p3_ms * 1e3:.1f} us at S={s_n} N={n}")
+        if (n, s_n) in ((16384, 256), (65536, 32)):
+            lib3[n] = library_ms(n, s_n, dev)
+            line += (f", library {lib3[n] * 1e3:.1f} us, "
+                     + rate_line("exact_mag3", k3_ms, n, s_n))
+        print(line, flush=True)
     mag3_row = (k3_ms, p3_ms, max_abs3)           # (65536, 32)
+    print_k2_extras(exact_cuda, card, dev, "times3", False, lib3[16384])
     t3_ms = tick_ms(eng3, packets3, now3)
     secs["times3"] = time.perf_counter() - t0
     print(f"times3 [{card}]: full tick (feed_batch + tick) "
@@ -875,7 +1034,7 @@ def main() -> None:
           f"{tg_ms * 1e3:.1f} us at S={S} N=6144 = "
           f"{S / (tg_ms * 1e-3):,.0f} frames/s", flush=True)
     libs = {"exact_mag": library_ms(4096, S, dev),
-            "exact_mag3": library_ms(65536, 32, dev),
+            "exact_mag3": lib3[65536],
             "exact_cfft": library_ms(4096, S, dev, pair=False)}
     secs["times_gen"] = time.perf_counter() - t0
 
@@ -959,7 +1118,10 @@ def main() -> None:
               f"{turns[2] * 1e3:.1f} us (in turns), df twin "
               f"{twin_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
               f"{b_ms * 1e3:.2f} us ({b_by}) at S={s_n} N={n}, "
-              f"max|{body}-df - twin| {max_abs:.1e}", flush=True)
+              f"max|{body}-df - twin| {max_abs:.1e}"
+              + (f"; K2-df {rate_line('exact_mag3', turns[0], n, s_n)}"
+                 if body == "K2" else ""), flush=True)
+    print_k2_extras(exact_cuda, card, dev, "times_df", True, lib3[16384])
     with env("WAVEFORM_TPU_KERNEL_TWIDDLE", "df"):
         for n_d, (eng_d, pk_d, now_d, _) in df_slices.items():
             td_ms = tick_ms(eng_d, pk_d, now_d)

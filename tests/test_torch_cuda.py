@@ -69,15 +69,34 @@ def test_kernel_matches_twin_and_f64(n, S, dev):
                                   np.count_nonzero(x, axis=-1))
 
 
-@pytest.mark.parametrize("S", [1, 5])
+def _bad_streams(x, rng):
+    """Streams 1, 3 and 4 of ``x`` [S, 2, N] (S >= 7) silent, 1e20 and
+    with one NaN sample; returns the streams a float64 bound applies to."""
+    if x.shape[0] < 7:
+        return list(range(x.shape[0]))
+    x[1] = 0.0
+    x[3] = 1e20 * rng.standard_normal(x.shape[1:])
+    x[4, 0, 11] = np.nan
+    return [s for s in range(x.shape[0]) if s not in (3, 4)]
+
+
+def _same_bits(a, b):
+    """Bit for bit, NaN lanes by position."""
+    return torch.equal(torch.nan_to_num(a, nan=-1.0),
+                       torch.nan_to_num(b, nan=-1.0))
+
+
+@pytest.mark.parametrize("S", [1, 7, 32])
 @pytest.mark.parametrize("n", (4096,) + exact_cuda.SIZES3)
 def test_k2_matches_twin_and_f64(n, S, dev):
-    """K2 at every size it serves, bit for bit against its twin: through
-    the router at 32768 and 65536, through its direct entry point below
-    (the router sends 4096 to K1 and 8192/16384 to K1-gen)."""
+    """K2 at every size it serves, bit for bit against its twin with a
+    silent, a 1e20 and a NaN stream (NaN lanes by position): through the
+    router at 32768 and 65536, through its direct entry point below (the
+    router sends 4096 to K1 and 8192/16384 to K1-gen)."""
     rng = np.random.default_rng(n + S + 7)
     x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
     x[-1, -1] = 0.0
+    good = _bad_streams(x, rng)
     w64, win = _hann(n, dev)
     xd = torch.from_numpy(x).to(dev)
     call = (exact_cuda.rfft_pair_mag if exact_cuda.stage1_split(n) == 3
@@ -87,12 +106,26 @@ def test_k2_matches_twin_and_f64(n, S, dev):
     torch.cuda.synchronize()
     assert _counts() == (before[0], before[1] + 1, before[2], before[3])
     ref, nz_ref = exact_cuda.rfft_pair_mag3_ref(xd, win)
-    assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
-    want = np.abs(np.fft.rfft(x.astype(np.float64) * w64))[..., :n // 2]
-    got = mag.cpu().numpy().astype(np.float64)
+    assert _same_bits(mag, ref) and torch.equal(nz, nz_ref)
+    want = np.abs(np.fft.rfft(x[good].astype(np.float64) * w64))[..., :n // 2]
+    got = mag.cpu().numpy()[good].astype(np.float64)
     assert np.abs(got - want).max() / want.max() <= TOL
     np.testing.assert_array_equal(nz.cpu().numpy(),
                                   np.count_nonzero(x, axis=-1))
+
+
+def test_k2_runs_on_the_int8_tensor_cores(dev):
+    """The SASS of the built library: K2's and K2-df's two kernels each
+    hold int8 tensor-core products (IMMA from mma.sync, or IGMMA from
+    wgmma) and no __dp4a (IDP.4A); the sources not redesigned yet (K1,
+    K1-gen and K1-df, K3) keep their IDP.4A."""
+    counts = exact_cuda.sass_counts()
+    mag3 = {fn: c for fn, c in counts.items() if "exact_mag3_stage" in fn}
+    assert len(mag3) == 4          # stage 1 and stage 2, f32 and df tiers
+    for fn, c in mag3.items():
+        assert c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0, (fn, c)
+    rest = {fn: c for fn, c in counts.items() if "exact_mag3" not in fn}
+    assert rest and all(c["IDP.4A"] > 0 for c in rest.values()), rest
 
 
 def test_corrupt_streams_isolated_on_card(dev):
@@ -327,25 +360,22 @@ def _df_counts():
     return exact_cuda.launches_gen_df, exact_cuda.launches3_df
 
 
-@pytest.mark.parametrize("S", [1, 7])
+@pytest.mark.parametrize("S", [1, 7, 32])
 @pytest.mark.parametrize("n,split", [(1024, 2), (4096, 2), (6144, 2),
-                                     (31744, 2), (8192, 3), (65536, 3)])
+                                     (31744, 2), (4096, 3), (8192, 3),
+                                     (16384, 3), (32768, 3), (65536, 3)])
 def test_df_kernels_match_twins_bitwise(n, split, S, dev, monkeypatch):
     """Under ``WAVEFORM_TPU_KERNEL_TWIDDLE=df``: K1-df through the router,
-    K2-df through the router at 65536 and its direct entry point at 8192
-    (which the router sends to split 2); one launch of the df kernel and
-    of no other, bit for bit against the df twin with a 1e20 and a NaN
-    stream (NaN lanes by position), within 2.5e-7 of float64 on the
-    other streams."""
+    K2-df through the router at 32768 and 65536 and its direct entry
+    point below (which the router sends to split 2); one launch of the df
+    kernel and of no other, bit for bit against the df twin with a
+    silent, a 1e20 and a NaN stream (NaN lanes by position), within
+    2.5e-7 of float64 on the other streams."""
     monkeypatch.setenv("WAVEFORM_TPU_KERNEL_TWIDDLE", "df")
     rng = np.random.default_rng(n + S + 19)
     x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
     x[-1, -1] = 0.0
-    good = list(range(S))
-    if S >= 7:
-        x[3] = 1e20 * rng.standard_normal((2, n))
-        x[4, 0, 11] = np.nan
-        good = [0, 1, 2, 5, 6]
+    good = _bad_streams(x, rng)
     w64, win = _hann(n, dev)
     xd = torch.from_numpy(x).to(dev)
     direct = split == 3 and exact_cuda.stage1_split(n) == 2
@@ -359,8 +389,7 @@ def test_df_kernels_match_twins_bitwise(n, split, S, dev, monkeypatch):
     twin = (exact_cuda.rfft_pair_mag3_df_ref if split == 3
             else exact_cuda.rfft_pair_mag_df_ref)
     ref, nz_ref = twin(xd, win)
-    assert torch.equal(torch.nan_to_num(mag, nan=-1.0),
-                       torch.nan_to_num(ref, nan=-1.0))
+    assert _same_bits(mag, ref)
     assert torch.equal(nz, nz_ref)
     want = np.abs(np.fft.rfft(x[good].astype(np.float64) * w64))[..., :n // 2]
     got = mag.cpu().numpy()[good].astype(np.float64)

@@ -94,11 +94,68 @@ def test_plan3_constants_match_jax(n):
     for got, want in zip(port[6:], ref[6:]):
         np.testing.assert_array_equal(got, want)
     c = exact_cuda._consts3(n, torch.device("cpu"))
-    for key, planes in (("c02w", port[3]), ("c13w", port[4])):
-        words = c[key].numpy()
-        assert words.shape == planes.shape[:2] + (planes.shape[2] // 4,)
-        np.testing.assert_array_equal(
-            words.view(np.int8).reshape(planes.shape), planes)
+    for key, planes in (("c02f", port[3]), ("c13f", port[4])):
+        np.testing.assert_array_equal(_unpack_a3(c[key].numpy()), planes)
+    np.testing.assert_array_equal(_unpack_b2(c["f2b"].numpy()), port[5])
+
+
+def _unpack_a3(frag):
+    """K2's stage-1 A fragments [4, a/4, k, 32, 4] back to the digit
+    planes [4, 4a, 2a], read by the PTX ISA's mma.m16n8k32 .s8 layout
+    (lane = 4g + t; register r holds fragment row g + 8·(r % 2) at k =
+    16·(r // 2) + 4t .. +3 of its k-step); M tile T = h·(a/8) + kb has its
+    fragment row i at c row h·2a + kb·8 + i % 8 + a·(i // 8).  The
+    contraction past 2a must be zero padding."""
+    nd, tiles, ksteps = frag.shape[:3]
+    a = 4 * tiles
+    out = np.zeros((nd, 4 * a, 32 * ksteps), np.int8)
+    digits = frag.view(np.int8).reshape(nd, tiles, ksteps, 32, 4, 4)
+    for tile in range(tiles):
+        h, kb = divmod(tile, a // 8)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for r in range(4):
+                i = g + 8 * (r % 2)
+                row = h * 2 * a + kb * 8 + i % 8 + a * (i // 8)
+                for ks in range(ksteps):
+                    k0 = 32 * ks + 16 * (r // 2) + 4 * t
+                    out[:, row, k0:k0 + 4] = digits[:, tile, ks, lane, r]
+    assert not out[:, :, 2 * a:].any()
+    return out[:, :, :2 * a]
+
+
+def _unpack_b2(frag):
+    """The stage-2 B fragments [4, 8, 16, 32, 2] back to the digit planes
+    [4, 256, 128] (register r of lane 4g + t holds column 8·tile + g at
+    k = 16r + 4t .. +3 of its k-step)."""
+    out = np.zeros((4, 256, 128), np.int8)
+    digits = frag.view(np.int8).reshape(4, 8, 16, 32, 2, 4)
+    for ks in range(8):
+        for tile in range(16):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for r in range(2):
+                    k0 = 32 * ks + 16 * r + 4 * t
+                    out[:, k0:k0 + 4, 8 * tile + g] = digits[:, ks, tile,
+                                                             lane, r]
+    return out
+
+
+@pytest.mark.parametrize("n", [4096, 8192, 65536])
+def test_fragment_words_unpack_to_plan3_digits(n):
+    """The tensor-core kernel's constant words (c02f/c13f, f2b) hold
+    exactly the plan's digit planes, N=4096's 16-deep contraction padded
+    with zero digits to one k-step of 32."""
+    plan = exact_cuda._kernel_plan_real3(n)
+    a = plan[2]
+    c = exact_cuda._consts3(n, torch.device("cpu"))
+    for key, planes in (("c02f", plan[3]), ("c13f", plan[4])):
+        frag = c[key].numpy()
+        assert frag.dtype == np.int32 and frag.shape == (
+            4, a // 4, -(-2 * a // 32), 32, 4)
+        np.testing.assert_array_equal(_unpack_a3(frag), planes)
+    assert c["f2b"].shape == (4, 8, 16, 32, 2)
+    np.testing.assert_array_equal(_unpack_b2(c["f2b"].numpy()), plan[5])
 
 
 @pytest.mark.parametrize("windowed", [True, False])

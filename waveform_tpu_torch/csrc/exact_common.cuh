@@ -19,7 +19,11 @@
 // serial slice of (hi, lo)), 10 exact int8 digit-pair products against the
 // 128 KB of f2 digits, then the f32 tier's ((w0 + w1) + w2) + w3, a clamp to
 // +-2^63 and sqrt(cr^2 + ci^2), or the df tier's TwoSum recombination, the
-// clamp of the hi words and mag_df.
+// clamp of the hi words and mag_df.  stage2_mag runs the digit products as
+// __dp4a (K1, K1-gen, K1-df); stage2_mag_mma runs them on the int8 tensor
+// cores (mma.sync, K2 and K2-df; K2's stage 1 runs digit_wgmma) and gives
+// the same class sums, since int32 sums of int8 products are exact in any
+// order.
 
 #pragma once
 
@@ -180,16 +184,15 @@ __device__ __forceinline__ void mul_ps(float a0, float a1, float ah, float al,
 }
 
 // The df tier's outer twiddle (_real_mag_tail): (br + i*bi) =
-// (ar + i*ai) * (tr + i*ti) in double-floats.  tr and ti point at the
-// element's planes [hi, lo, Veltkamp-high half of hi], `plane` floats apart:
-// the twiddle's halves come from the host, only the data is split here.
-__device__ __forceinline__ void twiddle_df(float arh, float arl, float aih,
-                                           float ail, const float* tr,
-                                           const float* ti, size_t plane,
-                                           float* brh, float* brl, float* bih,
-                                           float* bil) {
-  const float trh = tr[0], trl = tr[plane], trH = tr[2 * plane];
-  const float tih = ti[0], til = ti[plane], tiH = ti[2 * plane];
+// (ar + i*ai) * (tr + i*ti) in double-floats, the twiddle given as its
+// planes (hi, lo, Veltkamp-high half of hi): the twiddle's halves come from
+// the host, only the data is split here.  twiddle_df reads the planes at
+// tr and ti, `plane` floats apart.
+__device__ __forceinline__ void twiddle_df_v(float arh, float arl, float aih,
+                                             float ail, float trh, float trl,
+                                             float trH, float tih, float til,
+                                             float tiH, float* brh, float* brl,
+                                             float* bih, float* bil) {
   const float trL = fsub(trh, trH), tiL = fsub(tih, tiH);
   float arH, arL, aiH, aiL;
   vsplit(arh, &arH, &arL);
@@ -201,6 +204,15 @@ __device__ __forceinline__ void twiddle_df(float arh, float arl, float aih,
   mul_ps(aih, ail, aiH, aiL, trh, trl, trH, trL, &qih, &qil);
   df_add(prh, prl, -pih, -pil, brh, brl);
   df_add(qrh, qrl, qih, qil, bih, bil);
+}
+
+__device__ __forceinline__ void twiddle_df(float arh, float arl, float aih,
+                                           float ail, const float* tr,
+                                           const float* ti, size_t plane,
+                                           float* brh, float* brl, float* bih,
+                                           float* bil) {
+  twiddle_df_v(arh, arl, aih, ail, tr[0], tr[plane], tr[2 * plane], ti[0],
+               ti[plane], ti[2 * plane], brh, brl, bih, bil);
 }
 
 // _tail_stage2's df magnitude of the clamped (cr, ci): rr = cr^2, ii = ci^2
@@ -216,17 +228,19 @@ __device__ __forceinline__ float mag_df(float crh, float crl, float cih,
   return sqrtf(v < 0.0f ? 0.0f : v);
 }
 
-// Stage-2 slice, one warp per row: each row's 256 f32 values [br | bi] get
-// one pow2 scale (row_scale[r] = s) and are overwritten in place by their
-// packed digit words [plane][kWords2].  The block's kThreads threads call it.
-template <int kRows>
-__device__ __forceinline__ void stage2_slice(float (*rows)[kRow2],
-                                             float* row_scale) {
+// Stage-2 slice into any word layout, one warp per row: the 256 f32 values
+// [br | bi] of each row r < kRows (at row(r)) get one pow2 scale
+// (row_scale[r] = s) and their packed digit words, word(r, k, w) = word w of
+// digit plane k (w < kWords2, four consecutive values).  The block's
+// kThreads threads call it.
+template <int kRows, class Row, class Word>
+__device__ __forceinline__ void stage2_slice_into(Row row, float* row_scale,
+                                                  Word word) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int r = warp; r < kRows; r += kThreads / 32) {
-    const float4 v0 = reinterpret_cast<const float4*>(rows[r])[2 * lane];
-    const float4 v1 = reinterpret_cast<const float4*>(rows[r])[2 * lane + 1];
+    const float4 v0 = reinterpret_cast<const float4*>(row(r))[2 * lane];
+    const float4 v1 = reinterpret_cast<const float4*>(row(r))[2 * lane + 1];
     const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
     float rm = 0.0f;
 #pragma unroll
@@ -245,32 +259,41 @@ __device__ __forceinline__ void stage2_slice(float (*rows)[kRow2],
         packed[k][q >> 2] |= digit_byte(u, k) << (8 * (q & 3));
     }
     __syncwarp();
-    int* words = reinterpret_cast<int*>(rows[r]);
 #pragma unroll
     for (int k = 0; k < kDigits; ++k) {
-      words[k * kWords2 + 2 * lane] = static_cast<int>(packed[k][0]);
-      words[k * kWords2 + 2 * lane + 1] = static_cast<int>(packed[k][1]);
+      word(r, k, 2 * lane) = static_cast<int>(packed[k][0]);
+      word(r, k, 2 * lane + 1) = static_cast<int>(packed[k][1]);
     }
     if (lane == 0) row_scale[r] = s2;
   }
 }
 
-// The df tier's stage-2 slice, one warp per row: flat rows row0 .. row0 +
-// kRows - 1 of the (hi, lo) planes `rows` (hi at rows + R*kRow2, lo `plane`
-// floats further) each get one pow2 scale from their 256 hi words
-// (row_scale[r] = s) and the serial slice into packed digit words
-// words[r][plane][kWords2]; rows from `total` on get zero words.  The
-// block's kThreads threads call it.
+// Stage-2 slice in place: each row's words [plane][kWords2] overwrite its
+// f32 values.
 template <int kRows>
-__device__ __forceinline__ void stage2_slice_df(const float* __restrict__ rows,
-                                                size_t plane, int row0,
-                                                int total,
-                                                int (*words)[kRow2],
-                                                float* row_scale) {
+__device__ __forceinline__ void stage2_slice(float (*rows)[kRow2],
+                                             float* row_scale) {
+  stage2_slice_into<kRows>(
+      [rows](int r) -> const float* { return rows[r]; }, row_scale,
+      [rows](int r, int k, int w) -> int& {
+        return reinterpret_cast<int*>(rows[r])[k * kWords2 + w];
+      });
+}
+
+// The df tier's stage-2 slice into any word layout, one warp per row: flat
+// rows R = row_of(r), r < kRows, of the (hi, lo) planes `rows` (hi at rows
+// + R*kRow2, lo `plane` floats further) each get one pow2 scale from their
+// 256 hi words (row_scale[r] = s) and the serial slice into packed digit
+// words word(r, k, w); rows from `total` on get zero words.  The block's
+// kThreads threads call it.
+template <int kRows, class RowOf, class Word>
+__device__ __forceinline__ void stage2_slice_df_into(
+    const float* __restrict__ rows, size_t plane, RowOf row_of, int total,
+    float* row_scale, Word word) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int r = warp; r < kRows; r += kThreads / 32) {
-    const size_t R = static_cast<size_t>(row0) + r;
+    const size_t R = static_cast<size_t>(row_of(r));
     uint32_t packed[kDigits][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}, {0u, 0u}};
     float s2 = 0.0f;
     if (R < static_cast<size_t>(total)) {
@@ -301,11 +324,26 @@ __device__ __forceinline__ void stage2_slice_df(const float* __restrict__ rows,
     }
 #pragma unroll
     for (int k = 0; k < kDigits; ++k) {
-      words[r][k * kWords2 + 2 * lane] = static_cast<int>(packed[k][0]);
-      words[r][k * kWords2 + 2 * lane + 1] = static_cast<int>(packed[k][1]);
+      word(r, k, 2 * lane) = static_cast<int>(packed[k][0]);
+      word(r, k, 2 * lane + 1) = static_cast<int>(packed[k][1]);
     }
     if (lane == 0) row_scale[r] = s2;
   }
+}
+
+// The df tier's stage-2 slice of the flat rows row0 .. row0 + kRows - 1
+// into words[r][plane][kWords2].
+template <int kRows>
+__device__ __forceinline__ void stage2_slice_df(const float* __restrict__ rows,
+                                                size_t plane, int row0,
+                                                int total,
+                                                int (*words)[kRow2],
+                                                float* row_scale) {
+  stage2_slice_df_into<kRows>(
+      rows, plane, [row0](int r) { return row0 + r; }, total, row_scale,
+      [words](int r, int k, int w) -> int& {
+        return words[r][k * kWords2 + w];
+      });
 }
 
 // Stage 2 proper over kRows sliced rows: thread (k2, row group) runs the re
@@ -366,6 +404,233 @@ __device__ __forceinline__ void stage2_mag(const float (*rows)[kRow2],
         emit(r0 + r, k2, sqrtf(fadd(fmul(cr, cr), fmul(ci, ci))));
       }
     }
+  }
+}
+
+// ---- the int8 tensor cores (K2 and K2-df) ---------------------------------
+//
+// wgmma m64n32k32 s8 x s8 -> s32 runs one warpgroup (4 warps) over 64 rows
+// (M) x 32 columns (N) x 32 int8 of the contraction (k).  A comes from
+// registers, each warp its 16 rows, with g = lane / 4 and t = lane % 4
+// (PTX ISA, the mma.m16n8k32 .s8 A layout): a[0], a[2] = row g at k =
+// 4t..4t+3 and 16+4t..19+4t, a[1], a[3] = row g + 8; each register one
+// int8x4 word of four consecutive k, lowest k in the lowest byte, so the
+// port's packed words load as they are.  B comes from shared memory in the
+// K-major core-matrix layout without swizzle (cm_word): per k-step a 1 KB
+// tile of 4 groups of 8 columns x 2 16-byte halves of the k-step, each a
+// core matrix of 8 columns x 16 bytes.  d[4j..4j+3] of column group j hold
+// row g at columns 8j + 2t, 8j + 2t + 1, then row g + 8 at the same columns.
+// No .satfinite: the class sums stay far inside int32.
+
+// Word of column n, packed word w (of a k-step's 8) in a 1 KB B tile
+__device__ __forceinline__ int cm_word(int n, int w) {
+  return ((n >> 3) * 2 + ((w >> 2) & 1)) * 32 + (n & 7) * 4 + (w & 3);
+}
+
+// Descriptor of a B tile at shared address addr: no swizzle, leading (K)
+// byte offset 128 between the two core matrices of a k-step, stride (N)
+// byte offset 256 between groups of 8 columns.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Shared-memory stores made by the threads, visible to wgmma's reads (the
+// async proxy); a __syncthreads() follows.
+__device__ __forceinline__ void fence_to_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d += a * b over the warpgroup
+__device__ __forceinline__ void wgmma_n32(int d[16], const uint32_t a[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+// Compiler fences: the accumulators are not read before wgmma.wait_group,
+// and the A registers of a group stay untouched until it has completed.
+__device__ __forceinline__ void fence_acc(int d[16]) {
+  asm volatile(""
+               : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+                 "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+                 "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+                 "+r"(d[14]), "+r"(d[15])::"memory");
+}
+
+__device__ __forceinline__ void keep_a(const uint32_t a[kDigits][4]) {
+#pragma unroll
+  for (int p = 0; p < kDigits; ++p)
+    asm volatile("" ::"r"(a[p][0]), "r"(a[p][1]), "r"(a[p][2]), "r"(a[p][3])
+                 : "memory");
+}
+
+// The digit GEMMs of one warpgroup: acc[t] (+)= sum over i <= t of A_i B_(t-i)
+// over `ksteps` k-steps, the 10 digit pairs of the 4-term split.  load(af,
+// ks) fills the warp's A fragments of k-step ks (one per digit plane);
+// b_tile(k, ks) is the shared address of the B tile of digit plane k at
+// k-step ks.  Each k-step's 10 wgmmas run while the next k-step's A loads.
+template <class Load, class BTile>
+__device__ __forceinline__ void digit_wgmma(int acc[kDigits][16], int ksteps,
+                                            Load load, BTile b_tile) {
+  uint32_t a0[kDigits][4], a1[kDigits][4];
+  auto step = [&](uint32_t (&cur)[kDigits][4], uint32_t (&nxt)[kDigits][4],
+                  int ks) {
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < kDigits; ++t)
+#pragma unroll
+      for (int i = 0; i <= t; ++i)
+        wgmma_n32(acc[t], cur[i], wg_desc(b_tile(t - i, ks)));
+    wg_commit();
+    if (ks + 1 < ksteps) load(nxt, ks + 1);
+    wg_wait0();
+#pragma unroll
+    for (int t = 0; t < kDigits; ++t) fence_acc(acc[t]);
+    keep_a(cur);
+  };
+  load(a0, 0);
+  for (int ks = 0; ks < ksteps; ks += 2) {
+    step(a0, a1, ks);
+    if (ks + 1 < ksteps) step(a1, a0, ks + 1);
+  }
+}
+
+// The warp's A fragments of one k-step from a fragment-ordered constant:
+// src is the lane's int4 of digit plane 0 at that k-step, the planes lie
+// `plane` int4 apart
+__device__ __forceinline__ void load_a(uint32_t (&af)[kDigits][4],
+                                       const int4* __restrict__ src,
+                                       size_t plane) {
+#pragma unroll
+  for (int p = 0; p < kDigits; ++p) {
+    const int4 v = __ldg(src + p * plane);
+    af[p][0] = static_cast<uint32_t>(v.x);
+    af[p][1] = static_cast<uint32_t>(v.y);
+    af[p][2] = static_cast<uint32_t>(v.z);
+    af[p][3] = static_cast<uint32_t>(v.w);
+  }
+}
+
+// One int8 tensor-core product c += a * b of mma.sync m16n8k32 (A 16x32
+// row-major, B 32x8 column-major, C 16x8 int32), with g = lane / 4 and
+// t = lane % 4: a as wgmma's A above; b[0], b[1] = column g at k =
+// 4t..4t+3 and 16+4t..19+4t; c[0], c[1] = row g at columns 2t, 2t+1, c[2],
+// c[3] = row g+8.
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
+                                       const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Stage 2 proper on the tensor cores (mma.sync) over kRows sliced rows
+// (kRows % 32 == 0, rows kStride words apart, kStride % 32 == 4 so the A
+// loads are free of bank conflicts): warp w owns the 8 re columns k2 =
+// 8w..8w+7 and the 8 im columns of the same k2 (N tiles w and w + 8), so
+// each thread holds re and im of its (row, k2) and takes the magnitude in
+// registers.  A = the rows' data digit words from shared memory; B = the f2
+// digits f2b [4][8 k-steps][16 N tiles][32 lanes][2] (exact_cuda._frag_b2:
+// one 8-byte __ldg per lane is one B fragment).  Class t sums the products
+// data digit t - i by f2 digit i, as stage2_mag does.  emit(r, k2, m) as in
+// stage2_mag.  The block's kThreads threads call it.
+template <int kRows, int kStride, bool kDf, class Emit>
+__device__ __forceinline__ void stage2_mag_mma(const int (*words)[kStride],
+                                               const float* row_scale,
+                                               const int* __restrict__ f2b,
+                                               Emit emit) {
+  static_assert(kThreads == 256 && kRows % 32 == 0 && kStride % 32 == 4,
+                "stage2_mag_mma: 8 warps, 32-row passes, padded rows");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gl = lane >> 2, tl = lane & 3;
+  const int2* bsrc = reinterpret_cast<const int2*>(f2b) + lane;
+  for (int m0 = 0; m0 < kRows; m0 += 32) {
+    int acc[2][2][kDigits][4];            // [M tile][re, im][class][c reg]
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int t = 0; t < kDigits; ++t)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[m][h][t][q] = 0;
+    for (int ks = 0; ks < kWords2 / 8; ++ks) {
+      uint32_t bf[2][kDigits][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int p = 0; p < kDigits; ++p) {
+          const int2 v =
+              __ldg(bsrc + ((p * (kWords2 / 8) + ks) * 16 + warp + 8 * h) * 32);
+          bf[h][p][0] = static_cast<uint32_t>(v.x);
+          bf[h][p][1] = static_cast<uint32_t>(v.y);
+        }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int* r0 = words[m0 + 16 * m + gl] + ks * 8 + tl;
+        const int* r1 = words[m0 + 16 * m + 8 + gl] + ks * 8 + tl;
+        uint32_t af[kDigits][4];
+#pragma unroll
+        for (int p = 0; p < kDigits; ++p) {
+          af[p][0] = static_cast<uint32_t>(r0[p * kWords2]);
+          af[p][1] = static_cast<uint32_t>(r1[p * kWords2]);
+          af[p][2] = static_cast<uint32_t>(r0[p * kWords2 + 4]);
+          af[p][3] = static_cast<uint32_t>(r1[p * kWords2 + 4]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int t = 0; t < kDigits; ++t)
+#pragma unroll
+            for (int i = 0; i <= t; ++i)
+              mma_s8(acc[m][h][t], af[t - i], bf[h][i]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {       // c reg: row half q / 2, column q % 2
+        const int r = m0 + 16 * m + gl + 8 * (q >> 1);
+        const int k2 = 8 * warp + 2 * tl + (q & 1);
+        int cre[kDigits], cim[kDigits];
+#pragma unroll
+        for (int t = 0; t < kDigits; ++t) {
+          cre[t] = acc[m][0][t][q];
+          cim[t] = acc[m][1][t][q];
+        }
+        const float s2 = row_scale[r];
+        if constexpr (kDf) {
+          float crh, crl, cih, cil;
+          recombine_df(cre, s2, &crh, &crl);
+          recombine_df(cim, s2, &cih, &cil);
+          emit(r, k2, mag_df(clamp63(crh), crl, clamp63(cih), cil));
+        } else {
+          const float cr = clamp63(recombine(cre, s2));
+          const float ci = clamp63(recombine(cim, s2));
+          emit(r, k2, sqrtf(fadd(fmul(cr, cr), fmul(ci, ci))));
+        }
+      }
   }
 }
 

@@ -1,7 +1,7 @@
 """Batched spectrum step: exact |rFFT| magnitudes -> EMA -> gated dBFS.
 
-The PyTorch counterpart of ``waveform_tpu/dsp/spectrum.py`` with the exact
-backend (the only FFT backend of the port so far).  One function over a
+The PyTorch counterpart of ``waveform_tpu/dsp/spectrum.py`` with its
+"exact" and "xla" FFT backends (:func:`resolve_fft_backend`).  One function over a
 ``[S, C, N]`` batch replaces the reference's per-source tick
 (reference src/source_generic.cpp:26-180).
 
@@ -16,6 +16,7 @@ old frame when every channel is silent below the floor gate.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -139,6 +140,31 @@ def window_pair(cfg: ResolvedConfig, device: torch.device | str = "cpu"):
     return (torch.from_numpy(w_hi).to(device), torch.from_numpy(w_lo).to(device))
 
 
+def resolve_fft_backend() -> str:
+    """The step's FFT backend, ``WAVEFORM_TPU_FFT_BACKEND`` read when a
+    step is built, as the JAX package's ``resolve_fft_backend`` reads it.
+
+    "exact" runs the exact |rFFT| (``kernels/exactfft.rfft_mag_exact``);
+    "xla" runs ``torch.fft.rfft`` of the f32-windowed frame, as the JAX
+    package's "xla" runs ``jnp.fft.rfft``.  Unset (or "auto") is "exact":
+    the JAX package picks exact on its accelerator and "xla" on any other
+    backend, and this card is the port's accelerator.  "matmul" (the JAX
+    package's ``kernels/matfft.py``) is not ported yet and raises
+    NotImplementedError; any other value raises ValueError.
+    """
+    backend = os.environ.get("WAVEFORM_TPU_FFT_BACKEND", "auto")
+    if backend == "auto":
+        return "exact"
+    if backend == "matmul":
+        raise NotImplementedError(
+            "WAVEFORM_TPU_FFT_BACKEND=matmul: the matmul FFT backend "
+            "(waveform_tpu/kernels/matfft.py) is not ported yet (ROADMAP A14)")
+    if backend not in ("exact", "xla"):
+        raise ValueError(f"unknown fft_backend {backend!r}; expected 'auto', "
+                         "'exact', 'matmul', or 'xla'")
+    return backend
+
+
 def _mag_tail(cfg: ResolvedConfig, mag: torch.Tensor,
               slope: torch.Tensor | None) -> torch.Tensor:
     """2/Σw normalization and the slope modifiers."""
@@ -152,7 +178,8 @@ def _mag_tail(cfg: ResolvedConfig, mag: torch.Tensor,
 
 def make_spectrum_step(cfg: ResolvedConfig,
                        device: torch.device | str = "cpu"):
-    """Build the spectrum step for a resolved config on ``device``.
+    """Build the spectrum step for a resolved config on ``device``, on the
+    FFT backend :func:`resolve_fft_backend` reads now.
 
     Returns ``step(samples, state, dt, active, input_rms, valid=None,
     run=None) -> SpectrumState``:
@@ -170,7 +197,13 @@ def make_spectrum_step(cfg: ResolvedConfig,
     C, O = _channels(cfg)
     D = cfg.display_channels
     floor_gate = float(np.float32(cfg.floor - 10))
+    backend = resolve_fft_backend()
     window = window_pair(cfg, device)
+    w32 = None
+    if backend == "xla" and cfg.window != FFTWindow.NONE:
+        w32 = torch.from_numpy(window_coefficients(
+            cfg.window, cfg.fft_size, cfg.sine_exponent,
+            dtype=np.float32)).to(device)
     slope = None
     if cfg.slope > 0.0:
         slope = torch.from_numpy(
@@ -193,7 +226,12 @@ def make_spectrum_step(cfg: ResolvedConfig,
         g = gravity_coefficient(cfg, dt)
         g2 = float(np.float32(1.0) - np.float32(g))
 
-        mag, nz_k = rfft_mag_exact(samples, window)
+        if backend == "exact":
+            mag, nz_k = rfft_mag_exact(samples, window)
+        else:
+            x = samples if w32 is None else samples * w32
+            mag = torch.fft.rfft(x).abs()[..., :nbins]
+            nz_k = torch.any(samples != 0.0, dim=-1)
         mag = _mag_tail(cfg, mag, slope)                  # [S, C, nbins]
 
         if cfg.tsmoothing != TSmoothingMode.NONE:

@@ -55,6 +55,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -72,6 +73,7 @@ SIZES = (1024, 2048, 4096)      # N1 = 8, 16, 32: what K1 is built for
 SIZES3 = (8192, 16384, 32768, 65536)   # the K2 sizes the JAX plan ships
 MAX_N2 = 32768                  # K1-gen and K3 serve N1 % 8 == 0 up to here
 MAX_N3 = 65536                  # K2 serves N1 % 32 == 0 up to here
+K2_CONSTS = ("c02f", "c13f", "f2b")   # K2's constants, in its C order
 
 # fixed-point geometry of the parallel digit extraction: i = rint(r·2^27)
 # splits into 4 offset-binary base-128 fields
@@ -283,14 +285,57 @@ def _consts(n: int, device: torch.device):
 @functools.lru_cache(maxsize=16)
 def _consts3(n: int, device: torch.device):
     """K2's plan as tensors on ``device``: ``c02``/``c13`` as float64
-    [4, 4a, 2a] for the twin, ``c02w``/``c13w`` [4, 4a, a/2] packed along
-    the 2a contraction for the kernel, the chunk-major twiddle as in
-    :func:`_twiddle_consts`, and the stage-2 digits as in :func:`_consts`."""
+    [4, 4a, 2a] and ``f2`` for the twin; for the kernel's tensor cores
+    ``c02f``/``c13f`` (:func:`_frag_a3`) and ``f2b`` (:func:`_frag_b2`), the
+    digit words in the fragment order of stage 1's A and stage 2's B
+    operands; the chunk-major twiddle as in :func:`_twiddle_consts`."""
     _, _, _, c02d, c13d, f2d, *tw = _kernel_plan_real3(n)
+    f2 = _f2_consts(f2d)
     host = {"c02": c02d.astype(np.float64), "c13": c13d.astype(np.float64),
-            "c02w": _words(c02d), "c13w": _words(c13d),
-            **_twiddle_consts(*tw), **_f2_consts(f2d)}
+            "c02f": _frag_a3(c02d), "c13f": _frag_a3(c13d), "f2": f2["f2"],
+            "f2b": _frag_b2(f2["f2w"]), **_twiddle_consts(*tw)}
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+# The A fragment of the int8 tensor cores (PTX ISA, mma.m16n8k32 .s8, and
+# each warp's 16 rows of wgmma m64nNk32), lane = 4*g + t: registers 0-3
+# hold rows g, g + 8, g, g + 8 at k-words t, t, t + 4, t + 4 of a k-step of
+# 8 words (32 int8).
+_LANE_G = np.arange(32) >> 2
+_LANE_T = np.arange(32) & 3
+_A_ROW8 = np.array([0, 1, 0, 1])          # A register -> upper row half
+_A_WORD4 = np.array([0, 0, 1, 1])         # A register -> upper k-word half
+
+
+def _frag_a3(planes: np.ndarray) -> np.ndarray:
+    """K2's stage-1 digit planes [4, 4a, 2a] (c02 or c13) as int8x4 words
+    in A-fragment order [4, a/4, k, 32, 4] int32, k = 2a/32 rounded up (the
+    contraction zero-padded to whole k-steps).  M tile T = h·(a/8) + kb
+    holds the re rows h·2a + kb·8 + g (fragment rows g) and the im rows a
+    further on (fragment rows g + 8): the re and im rows of the 8 positions
+    (2h + c)·a + kb·8 + g of constant block c."""
+    _, rows, k = planes.shape
+    a = rows // 4
+    kp = -(-k // 32) * 32
+    words = _words(np.pad(planes, ((0, 0), (0, 0), (0, kp - k))))
+    tile = np.arange(a // 4)
+    re_row = ((tile // (a // 8)) * 2 * a + (tile % (a // 8)) * 8)[:, None] \
+        + _LANE_G[None, :]                                   # [T, 32]
+    row = re_row[:, :, None] + a * _A_ROW8                   # [T, 32, 4]
+    word = (np.arange(kp // 32)[:, None, None] * 8 + _LANE_T[None, :, None]
+            + 4 * _A_WORD4)                                  # [k, 32, 4]
+    return np.ascontiguousarray(words[:, row[:, None], word[None]])
+
+
+def _frag_b2(f2w: np.ndarray) -> np.ndarray:
+    """The stage-2 digit words ``f2w`` [4, 64, 128] (int8x4 along the
+    [br | bi] contraction, one column per kept re/im bin) in B-fragment
+    order [4, 8 k-steps, 16 N tiles, 32, 2] int32 (lane 4g + t holds
+    column 8j + g of N tile j at k-words t and t + 4 of its k-step)."""
+    word = (np.arange(8)[:, None, None] * 8 + _LANE_T[None, :, None]
+            + 4 * np.arange(2))                              # [8, 32, 2]
+    col = np.arange(16)[:, None] * 8 + _LANE_G[None, :]      # [16, 32]
+    return np.ascontiguousarray(f2w[:, word[:, None], col[None, :, :, None]])
 
 
 def _twiddle_consts(twr_hi, twr_lo, twi_hi, twi_lo, twr_h, twi_h) -> dict:
@@ -679,8 +724,39 @@ def build() -> ctypes.CDLL:
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.wf_exact_mag3_df.restype = ctypes.c_int
     lib.wf_exact_mag3_df.argtypes = lib.wf_exact_mag3.argtypes
+    lib.wf_exact_mag3_stage.restype = ctypes.c_int
+    lib.wf_exact_mag3_stage.argtypes = ([ctypes.c_int, ctypes.c_int]
+                                        + lib.wf_exact_mag3.argtypes)
     _lib = lib
     return lib
+
+
+def sass_counts(ops=("IMMA", "IGMMA", "IDP.4A")) -> dict:
+    """Instruction counts of each kernel in the built library, read from
+    its SASS (``cuobjdump -sass``, beside ``nvcc``): ``{mangled kernel
+    name: {op: count}}``, an instruction counting for ``op`` when its
+    opcode is ``op`` or starts with ``op.`` (``IGMMA``: the int8
+    ``wgmma``; ``IMMA.16832.S8.S8``: the int8 ``mma.sync``;
+    ``IDP.4A.S8.S8``: ``__dp4a``)."""
+    build()
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build_info["library"]],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = dict.fromkeys(ops, 0)
+            continue
+        ins = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn is not None and ins:
+            opcode = ins.group(1)
+            for op in ops:
+                if opcode == op or opcode.startswith(op + "."):
+                    counts[fn][op] += 1
+    return counts
 
 
 def _check_pair(x: torch.Tensor) -> None:
@@ -830,7 +906,7 @@ def rfft_pair_mag3(x: torch.Tensor, window=None, twiddle: str | None = None):
     lib = build()
     out = _launch_two_stage(
         lib.wf_exact_mag3_df if df else lib.wf_exact_mag3, x, w_hi, w_lo,
-        ("c02w", "c13w", "f2w"), _consts3(n, x.device), df)
+        K2_CONSTS, _consts3(n, x.device), df)
     if df:
         launches3_df += 1
     else:

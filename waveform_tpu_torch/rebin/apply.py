@@ -10,6 +10,8 @@ The tables come from the numpy builders in ``rebin/interp.py`` and
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -65,8 +67,10 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
     with ``apply_pixel_map=False`` the output stays in dBFS.
 
     ``dense`` picks the interp form: one [nbins, P] f32 matmul, or a
-    gather of the taps and a weighted sum.  The default is dense on CUDA
-    up to ``DENSE_MAX_BINS`` input bins (the matrix stays a few MB) and the
+    gather of the taps and a weighted sum.  With ``dense=None``,
+    ``WAVEFORM_TPU_REBIN`` = ``dense`` or ``gather`` (read here, as the JAX
+    package reads it) forces the form; otherwise it is dense on CUDA up to
+    ``DENSE_MAX_BINS`` input bins (the matrix stays a few MB) and the
     gather elsewhere.  The dense form raises unless float32 matmuls run
     in full float32 (:func:`check_full_f32_matmul`).
     """
@@ -76,7 +80,9 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
     nbins_in = (cfg.fft_size if cfg.display_mode == DisplayMode.WAVEFORM
                 else cfg.num_bins)
     if dense is None:
-        dense = device.type == "cuda" and nbins_in <= DENSE_MAX_BINS
+        mode = os.environ.get("WAVEFORM_TPU_REBIN", "auto")
+        dense = (mode == "dense" if mode in ("dense", "gather") else
+                 device.type == "cuda" and nbins_in <= DENSE_MAX_BINS)
     if dense:
         check_full_f32_matmul()
         imat = torch.from_numpy(_interp_matrix(
