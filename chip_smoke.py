@@ -11,9 +11,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
 2. build   — the exact FFT kernels compiled from ``waveform_tpu_torch/
    csrc`` with nvcc (one process per source); prints ptxas's entry
    function and register lines as nvcc gives them, and each kernel's
-   IMMA / IGMMA / IDP.4A counts from its SASS: K2's and K2-df's four
-   kernels must run on the int8 tensor cores (IMMA or IGMMA, no IDP.4A),
-   the other 13 keep their __dp4a (IDP.4A);
+   IMMA / IGMMA / IDP.4A counts from its SASS: the four kernels of K2 and
+   K2-df and the four of K1-gen and K1-df must run on the int8 tensor
+   cores (IMMA or IGMMA, no IDP.4A), K1's three and K3's four keep their
+   __dp4a (IDP.4A);
 3. kernel  — the kernel against its plain PyTorch twin and float64 numpy at
    N in {1024, 2048, 4096}, S in {1, 7, 256}, Hann df32 window and none,
    with a silent stream, a silent channel, a 1e20 stream and a NaN stream;
@@ -73,8 +74,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    rule sends to K1-gen too;
 15. times_gen — K1-gen, its twin and the library call
    ``torch.fft.rfft(x.double() * w).abs()`` at (6144, 256) and (16384,
-   256), K2 and its twin at (16384, 256), K1-gen's direct entry point
-   against K1 at (4096, 256), and the full tick at N=6144, S=256;
+   256), K1-gen's two launches timed apart at both shapes beside the
+   wrapper and the library call on the device's clock (as in phase 8), K2
+   and its twin at (16384, 256), K1-gen's direct entry point against K1 at
+   (4096, 256), and the full tick at N=6144, S=256;
 16. kernel_df — under WAVEFORM_TPU_KERNEL_TWIDDLE=df, K1-df (K1's body at
    the df twiddle tier) through the router at N in {1024, 2048, 3072,
    4096, 6144, 16384, 31744} and K2-df (K2 at the df tier) at 8192
@@ -92,7 +95,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (65536, 32), each beside the f32 kernel of the same shape, with the df
    twin and the library call; K2-df's rate and share of its bound; K2-df
    in turns with K1-df at (16384, 256); K2-df's two launches timed apart
-   as in phase 8; and the full df tick at both slices.
+   as in phase 8, and K1-df's at (4096, 256) and (16384, 256); and the
+   full df tick at both slices.
 
 Every phase's seconds are printed before the kernels' JSON record and the
 result line, which are the last two lines.  Each kernel's record carries
@@ -125,6 +129,9 @@ HBM = 3.35e12         # H100 SXM device memory, bytes/s
 # exact_cuda's launch counters: K1, K2, K3, K1-gen, K1-df, K2-df
 COUNTERS = ("launches", "launches3", "launches_cfft", "launches_gen",
             "launches_gen_df", "launches3_df")
+# kernels on the int8 tensor cores: exact_mag3.cu's and exact_mag_gen.cu's
+# stage 1 and stage 2 at both tiers
+TENSOR_KERNELS = 8
 
 
 @contextlib.contextmanager
@@ -376,18 +383,30 @@ def rate_line(name: str, ms: float, n: int, S: int) -> str:
             f"{b_ms / ms * 100:.1f}% of bound")
 
 
-def k2_stage_ms(exact_cuda, n: int, S: int, dev, df: bool):
-    """K2's (df: K2-df's) two launches timed apart on CUDA events, with the
-    device kept busy ahead of each (``cuda_median_ms(busy_ahead=True)``),
-    at [S, 2, n], Hann: (stage 1 ms, stage 2 ms, both ms, the wrapper
-    ms).  The two stages run one after the other through
-    ``wf_exact_mag3_stage`` must give the wrapper's output bit for bit."""
+# the two-launch pair kernels whose stages run apart: (stage entry point,
+# constants, their keys, the wrapper, the df instance's name)
+STAGED = {"K2": ("wf_exact_mag3_stage", "_consts3", "K2_CONSTS",
+                 "rfft_pair_mag3", "K2-df"),
+          "K1-gen": ("wf_exact_mag_gen_stage", "_consts", "K1GEN_CONSTS",
+                     "rfft_pair_mag_gen", "K1-df")}
+
+
+def stage_ms(exact_cuda, body: str, n: int, S: int, dev, df: bool):
+    """The two launches of ``body`` (``STAGED``: K2 or K1-gen; df: K2-df or
+    K1-df) timed apart on CUDA events, with the device kept busy ahead of
+    each (``cuda_median_ms(busy_ahead=True)``), at [S, 2, n], Hann: (stage
+    1 ms, stage 2 ms, both ms, the wrapper ms).  The two stages run one
+    after the other through the stage entry point must give the wrapper's
+    output bit for bit."""
+    entry, consts, keys, wrapper, _ = STAGED[body]
     lib = exact_cuda.build()
+    wrap = getattr(exact_cuda, wrapper)
+    tier = "df" if df else "f32"
     x = torch.from_numpy((0.5 * np.random.default_rng(SEED + 13)
                           .standard_normal((S, 2, n))).astype(np.float32)
                          ).to(dev)
     _, (w_hi, w_lo) = hann_pair(n, dev)
-    c = exact_cuda._consts3(n, dev)
+    c = getattr(exact_cuda, consts)(n, dev)
     rows = torch.empty((2 if df else 1, S, 2, n // 128, 256),
                        dtype=torch.float32, device=dev)
     nz_int = torch.empty((S, 2), dtype=torch.int32, device=dev)
@@ -395,28 +414,26 @@ def k2_stage_ms(exact_cuda, n: int, S: int, dev, df: bool):
     nz = torch.empty((S, 2), dtype=torch.float32, device=dev)
     tw = ("twr_df", "twi_df") if df else ("twr", "twi")
     ptrs = [t.data_ptr() for t in (x, w_hi, w_lo,
-                                   *(c[k] for k in (*exact_cuda.K2_CONSTS,
-                                                    *tw)),
+                                   *(c[k] for k in (*getattr(exact_cuda,
+                                                             keys), *tw)),
                                    rows, nz_int, mag, nz)]
 
     def launch(stage):
-        err = lib.wf_exact_mag3_stage(
+        err = getattr(lib, entry)(
             stage, int(df), *ptrs, S, n,
             torch.cuda.current_stream(dev).cuda_stream)
-        check(err == 0, f"wf_exact_mag3_stage({stage}) failed: {err}")
+        check(err == 0, f"{entry}({stage}) failed: {err}")
 
     launch(1)
     launch(2)
-    ref, nz_ref = exact_cuda.rfft_pair_mag3(x, (w_hi, w_lo),
-                                            "df" if df else "f32")
+    ref, nz_ref = wrap(x, (w_hi, w_lo), tier)
     torch.cuda.synchronize()
     check(same_bits(mag, ref) and torch.equal(nz, nz_ref),
-          f"K2 stages apart vs the wrapper at N={n} S={S} df={df}")
+          f"{body} stages apart vs the wrapper at N={n} S={S} df={df}")
     return tuple(cuda_median_ms(f, busy_ahead=True) for f in (
         lambda: launch(1), lambda: launch(2),
         lambda: (launch(1), launch(2)),
-        lambda: exact_cuda.rfft_pair_mag3(x, (w_hi, w_lo),
-                                          "df" if df else "f32")))
+        lambda: wrap(x, (w_hi, w_lo), tier)))
 
 
 def library_ms(n: int, S: int, dev, pair: bool = True,
@@ -617,11 +634,36 @@ def cfft_times(exact_cuda, exactfft, n: int, S: int, dev):
             max_abs)
 
 
-def k2_stage_ops(n: int, S: int) -> tuple[int, int]:
-    """K2's int8 operations in stage 1 and in stage 2 at [S, 2, n]."""
-    a = n // 512
-    return (2 * S * 2 * 2 * (4 * a) * (2 * a) * 128 * 10,
-            2 * S * 655360 * (n // 128))
+def stage_ops(body: str, n: int, S: int) -> tuple[int, int]:
+    """The int8 operations of ``body``'s stage 1 and stage 2 at [S, 2, n]
+    (``STAGED``; the df tier adds none)."""
+    n1 = n // 128
+    if body == "K2":
+        a = n1 // 4
+        macs1 = 2 * 2 * (4 * a) * (2 * a) * 128 * 10       # c02, c13
+    else:
+        macs1 = 5120 * n1 * n1                              # F1r, 2 channels
+    return 2 * S * macs1, 2 * S * 655360 * n1
+
+
+def print_stages(exact_cuda, card: str, dev, phase: str, body: str,
+                 df: bool, shapes) -> None:
+    """One line per (n, S) of ``shapes``: ``body``'s (df: its df
+    instance's) two stages apart, both, the wrapper and the library call,
+    all on the device's clock (:func:`stage_ms`), with each stage's int8
+    rate."""
+    name = STAGED[body][4] if df else body
+    for n, s_n in shapes:
+        st1, st2, both, wrapped = stage_ms(exact_cuda, body, n, s_n, dev, df)
+        ops1, ops2 = stage_ops(body, n, s_n)
+        lib_dev = library_ms(n, s_n, dev, busy_ahead=True)
+        print(f"{phase} [{card}]: {name} stages apart (device time) at "
+              f"S={s_n} N={n}: stage 1 {st1 * 1e3:.1f} us "
+              f"({ops1 / (st1 * 1e-3) / 1e12:.1f} TOP/s), stage 2 "
+              f"{st2 * 1e3:.1f} us ({ops2 / (st2 * 1e-3) / 1e12:.1f} TOP/s), "
+              f"both {both * 1e3:.1f} us; on the same clock the wrapper "
+              f"{wrapped * 1e3:.1f} us, the library call "
+              f"{lib_dev * 1e3:.1f} us", flush=True)
 
 
 def print_k2_extras(exact_cuda, card: str, dev, phase: str, df: bool,
@@ -629,7 +671,7 @@ def print_k2_extras(exact_cuda, card: str, dev, phase: str, df: bool,
     """K2 (df: K2-df) against K1-gen (df: K1-df) in turns at (16384, 256),
     with the library call there (``lib_ms``), K2's rate and share of its
     bound, and the two stages of K2 apart at (65536, 32) and (16384,
-    256), beside the wrapper and the library call on the device's clock."""
+    256) (:func:`print_stages`)."""
     tier = "df" if df else "f32"
     name = "K2-df" if df else "K2"
     n, s_n = 16384, 256
@@ -651,17 +693,8 @@ def print_k2_extras(exact_cuda, card: str, dev, phase: str, df: bool,
           f"{(t[1] + t[2]) / (t[0] + t[3]):.2f}x faster; library "
           f"{lib_ms * 1e3:.1f} us; {name} "
           + rate_line("exact_mag3", (t[0] + t[3]) / 2, n, s_n), flush=True)
-    for n, s_n in ((65536, 32), (16384, 256)):
-        st1, st2, both, wrapped = k2_stage_ms(exact_cuda, n, s_n, dev, df)
-        ops1, ops2 = k2_stage_ops(n, s_n)
-        lib_dev = library_ms(n, s_n, dev, busy_ahead=True)
-        print(f"{phase} [{card}]: {name} stages apart (device time) at "
-              f"S={s_n} N={n}: stage 1 {st1 * 1e3:.1f} us "
-              f"({ops1 / (st1 * 1e-3) / 1e12:.1f} TOP/s), stage 2 "
-              f"{st2 * 1e3:.1f} us ({ops2 / (st2 * 1e-3) / 1e12:.1f} TOP/s), "
-              f"both {both * 1e3:.1f} us; on the same clock the wrapper "
-              f"{wrapped * 1e3:.1f} us, the library call "
-              f"{lib_dev * 1e3:.1f} us", flush=True)
+    print_stages(exact_cuda, card, dev, phase, "K2", df,
+                 ((65536, 32), (16384, 256)))
 
 
 def kernel_label(fn: str) -> str:
@@ -699,19 +732,22 @@ def main() -> None:
     for ln in exact_cuda.build_info.get("log", "").splitlines():
         if "entry function" in ln or "registers" in ln:
             print(f"build: {ln.strip()}", flush=True)
-    # K2 and K2-df (exact_mag3.cu) run their digit GEMMs on the int8 tensor
-    # cores; the other sources keep __dp4a (IDP.4A)
+    # K2, K2-df (exact_mag3.cu), K1-gen and K1-df (exact_mag_gen.cu) run
+    # their digit GEMMs on the int8 tensor cores; K1 and K3 keep __dp4a
     sass = exact_cuda.sass_counts()
     for fn, c in sass.items():
         print(f"build: sass {kernel_label(fn)}: "
               + ", ".join(f"{op} {k}" for op, k in c.items()), flush=True)
-    mag3 = [c for fn, c in sass.items() if "exact_mag3_stage" in fn]
-    check(len(mag3) == 4 and all(c["IMMA"] + c["IGMMA"] > 0
-                                 and c["IDP.4A"] == 0 for c in mag3),
-          f"exact_mag3 kernels not on the tensor cores: {mag3}")
-    dp4a = [c for fn, c in sass.items() if "exact_mag3" not in fn]
-    check(len(dp4a) == 13 and all(c["IDP.4A"] > 0 for c in dp4a),
-          f"K1/K1-gen/K3 kernels without their IDP.4A: {dp4a}")
+    tensor = {fn: c for fn, c in sass.items()
+              if "exact_mag3_stage" in fn or "exact_mag_gen_stage" in fn}
+    check(len(tensor) == TENSOR_KERNELS
+          and all(c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0
+                  for c in tensor.values()),
+          f"exact_mag3 / exact_mag_gen kernels not on the tensor cores: "
+          f"{tensor}")
+    dp4a = [c for fn, c in sass.items() if fn not in tensor]
+    check(len(dp4a) == 7 and all(c["IDP.4A"] > 0 for c in dp4a),
+          f"K1/K3 kernels without their IDP.4A: {dp4a}")
 
     # 3. kernel vs twin ---------------------------------------------------
     t0 = time.perf_counter()
@@ -1009,16 +1045,17 @@ def main() -> None:
             exact_cuda.rfft_pair_mag, exact_cuda.rfft_pair_mag_ref, n, s_n,
             dev)
         lg_ms = library_ms(n, s_n, dev)
-        bg_ms, bg_by = bound("exact_mag_gen", n, s_n)
-        gen[n] = (kg_ms, pg_ms, max_abs_g, lg_ms, bg_ms, bg_by)
+        gen[n] = (kg_ms, pg_ms, max_abs_g, lg_ms)
         print(f"times_gen [{card}]: K1-gen {kg_ms * 1e3:.1f} us, twin "
-              f"{pg_ms * 1e3:.1f} us, library {lg_ms * 1e3:.1f} us, bound "
-              f"{bg_ms * 1e3:.2f} us ({bg_by}) at S={s_n} N={n}, "
-              f"max|K1-gen - twin| {max_abs_g:.1e}", flush=True)
+              f"{pg_ms * 1e3:.1f} us, library {lg_ms * 1e3:.1f} us at "
+              f"S={s_n} N={n}, max|K1-gen - twin| {max_abs_g:.1e}; K1-gen "
+              + rate_line("exact_mag_gen", kg_ms, n, s_n), flush=True)
     k2_ms, p2_ms, _ = kernel_times(exact_cuda.rfft_pair_mag3,
                                    exact_cuda.rfft_pair_mag3_ref, 16384, S,
                                    dev)
     b2_ms, b2_by = bound("exact_mag3", 16384, S)
+    print_stages(exact_cuda, card, dev, "times_gen", "K1-gen", False,
+                 ((6144, S), (16384, S)))
     print(f"times_gen [{card}]: K2 {k2_ms * 1e3:.1f} us, twin "
           f"{p2_ms * 1e3:.1f} us, bound {b2_ms * 1e3:.2f} us ({b2_by}) at "
           f"S={S} N=16384", flush=True)
@@ -1118,10 +1155,12 @@ def main() -> None:
               f"{turns[2] * 1e3:.1f} us (in turns), df twin "
               f"{twin_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
               f"{b_ms * 1e3:.2f} us ({b_by}) at S={s_n} N={n}, "
-              f"max|{body}-df - twin| {max_abs:.1e}"
-              + (f"; K2-df {rate_line('exact_mag3', turns[0], n, s_n)}"
-                 if body == "K2" else ""), flush=True)
+              f"max|{body}-df - twin| {max_abs:.1e}; {body}-df "
+              + rate_line("exact_mag3" if body == "K2" else "exact_mag_gen",
+                          turns[0], n, s_n), flush=True)
     print_k2_extras(exact_cuda, card, dev, "times_df", True, lib3[16384])
+    print_stages(exact_cuda, card, dev, "times_df", "K1-gen", True,
+                 ((4096, S), (16384, S)))
     with env("WAVEFORM_TPU_KERNEL_TWIDDLE", "df"):
         for n_d, (eng_d, pk_d, now_d, _) in df_slices.items():
             td_ms = tick_ms(eng_d, pk_d, now_d)
@@ -1146,7 +1185,7 @@ def main() -> None:
             ("exact_cfft", "exact_cfft", 479, 4096, S, launches_c,
              (*cfft_row, libs["exact_cfft"])),
             ("exact_mag_gen", "exact_mag_gen", 525, 6144, S, launches_gen,
-             gen[6144][:4]),
+             gen[6144]),
             ("exact_mag_df", "exact_mag_gen", 525, 4096, S,
              df_slices[4096][3][COUNTERS.index("launches_gen_df")],
              df_rows[4096]),

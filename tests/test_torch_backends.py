@@ -48,8 +48,9 @@ def test_xla_backend_matches_jax(smoothing, monkeypatch):
                        temporal_smoothing=smoothing)
     assert tspec.resolve_fft_backend() == "xla"
     jstep = jspec.make_spectrum_step(jcfg)
-    tstep = tspec.make_spectrum_step(tcfg)
-    jst, tst = jspec.init_state(jcfg, S), tspec.init_state(tcfg, S)
+    tstep = tspec.make_spectrum_step(tcfg, device="cpu")
+    jst, tst = (jspec.init_state(jcfg, S),
+                tspec.init_state(tcfg, S, device="cpu"))
     rng = np.random.default_rng(0)
     w32 = window_coefficients(tcfg.window, N, tcfg.sine_exponent,
                               dtype=np.float32)
@@ -79,10 +80,10 @@ def test_matmul_backend_raises_and_unknown_backend_refused(monkeypatch):
     _, tcfg = _cfgs()
     monkeypatch.setenv("WAVEFORM_TPU_FFT_BACKEND", "matmul")
     with pytest.raises(NotImplementedError, match="A14"):
-        tspec.make_spectrum_step(tcfg)
+        tspec.make_spectrum_step(tcfg, device="cpu")
     monkeypatch.setenv("WAVEFORM_TPU_FFT_BACKEND", "fftw")
     with pytest.raises(ValueError, match="fftw"):
-        tspec.make_spectrum_step(tcfg)
+        tspec.make_spectrum_step(tcfg, device="cpu")
     for value in ("auto", "exact"):
         monkeypatch.setenv("WAVEFORM_TPU_FFT_BACKEND", value)
         assert tspec.resolve_fft_backend() == "exact"
@@ -101,8 +102,8 @@ def test_rebin_reads_the_variable(mode, monkeypatch):
     jcfg, tcfg = _cfgs(fft_size=2048, width=300)
     db = np.random.default_rng(1).uniform(
         -65.0, 0.0, (3, 2, tcfg.num_bins)).astype(np.float32)
-    got = tapply.make_rebin_fn(tcfg)(torch.from_numpy(db))
-    forced = tapply.make_rebin_fn(tcfg, dense=mode == "dense")
+    got = tapply.make_rebin_fn(tcfg, device="cpu")(torch.from_numpy(db))
+    forced = tapply.make_rebin_fn(tcfg, device="cpu", dense=mode == "dense")
     assert torch.equal(got, forced(torch.from_numpy(db)))
     want = np.asarray(japply.make_rebin_fn(jcfg)(jnp.asarray(db)))
     np.testing.assert_allclose(got.numpy(), want, rtol=2.5e-7, atol=1e-5)
@@ -111,8 +112,8 @@ def test_rebin_reads_the_variable(mode, monkeypatch):
         torch.set_float32_matmul_precision("high")
         if mode == "dense":
             with pytest.raises(RuntimeError, match="full-f32"):
-                tapply.make_rebin_fn(tcfg)
+                tapply.make_rebin_fn(tcfg, device="cpu")
         else:
-            tapply.make_rebin_fn(tcfg)
+            tapply.make_rebin_fn(tcfg, device="cpu")
     finally:
         torch.set_float32_matmul_precision(before)

@@ -115,17 +115,19 @@ def test_k2_matches_twin_and_f64(n, S, dev):
 
 
 def test_k2_runs_on_the_int8_tensor_cores(dev):
-    """The SASS of the built library: K2's and K2-df's two kernels each
-    hold int8 tensor-core products (IMMA from mma.sync, or IGMMA from
-    wgmma) and no __dp4a (IDP.4A); the sources not redesigned yet (K1,
-    K1-gen and K1-df, K3) keep their IDP.4A."""
+    """The SASS of the built library: the two kernels of K2 and K2-df and
+    of K1-gen and K1-df each hold int8 tensor-core products (IMMA from
+    mma.sync, or IGMMA from wgmma) and no __dp4a (IDP.4A); the sources not
+    redesigned yet (K1's three kernels, K3's four) keep their IDP.4A."""
     counts = exact_cuda.sass_counts()
-    mag3 = {fn: c for fn, c in counts.items() if "exact_mag3_stage" in fn}
-    assert len(mag3) == 4          # stage 1 and stage 2, f32 and df tiers
-    for fn, c in mag3.items():
+    tensor = {fn: c for fn, c in counts.items()
+              if "exact_mag3_stage" in fn or "exact_mag_gen_stage" in fn}
+    assert len(tensor) == 8   # stage 1 and stage 2, f32 and df, two sources
+    for fn, c in tensor.items():
         assert c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0, (fn, c)
-    rest = {fn: c for fn, c in counts.items() if "exact_mag3" not in fn}
-    assert rest and all(c["IDP.4A"] > 0 for c in rest.values()), rest
+    rest = {fn: c for fn, c in counts.items() if fn not in tensor}
+    assert len(rest) == 7 and all(c["IDP.4A"] > 0 for c in rest.values()), \
+        rest
 
 
 def test_corrupt_streams_isolated_on_card(dev):

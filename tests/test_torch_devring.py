@@ -17,7 +17,7 @@ def _rings(rng, flat):
     ref = jring.init_ring(S, C, L, flat=flat)
     ref = jring.DeviceRing(buf=jnp.asarray(buf.reshape(ref.buf.shape)),
                            channels=ref.channels)
-    return ref, tring.ring_from_numpy(buf)
+    return ref, tring.ring_from_numpy(buf, device="cpu")
 
 
 @pytest.mark.parametrize("flat", [False, True])
@@ -49,6 +49,6 @@ def test_per_stream_push_matches_jax(flat):
 
 
 def test_init_ring_is_zero_and_contiguous():
-    ring = tring.init_ring(S, C, L)
+    ring = tring.init_ring(S, C, L, device="cpu")
     assert ring.buf.shape == (S, C, L) and ring.buf.is_contiguous()
     assert ring.buf.dtype == torch.float32 and not ring.buf.any()

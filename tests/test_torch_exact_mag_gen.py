@@ -37,6 +37,8 @@ from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.kernels import exactfft as tex
 from waveform_tpu_torch.runtime.serving import ServingEngine
 
+from test_torch_exact_mag3 import _unpack_b2
+
 TOL = 2.5e-7
 TOL_SPLITS = 3e-7
 SR, HOP, T0, FRAME_NS = 48000, 800, 10_000_000_000, 16_666_667
@@ -213,24 +215,61 @@ def test_split3_sends_6144_to_the_packed_pair(monkeypatch):
                                   > 0)
 
 
+def _unpack_a1(frag):
+    """K1-gen's stage-1 A fragments [4, n1/8, k, 32, 4] back to F1r's digit
+    planes [4, 2n1, n1], read by the PTX ISA's mma.m16n8k32 .s8 layout
+    (lane = 4g + t; register r holds fragment row g + 8·(r % 2) at k =
+    16·(r // 2) + 4t .. +3 of its k-step): M tile T has the re row
+    k1 = 8T + g as fragment row g and the im row n1 + 8T + g as row g + 8.
+    The contraction past n1 must be zero padding."""
+    nd, tiles, ksteps = frag.shape[:3]
+    n1 = 8 * tiles
+    out = np.zeros((nd, 2 * n1, 32 * ksteps), np.int8)
+    digits = frag.view(np.int8).reshape(nd, tiles, ksteps, 32, 4, 4)
+    for tile in range(tiles):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for r in range(4):
+                row = 8 * tile + g + n1 * (r % 2)
+                for ks in range(ksteps):
+                    k0 = 32 * ks + 16 * (r // 2) + 4 * t
+                    out[:, row, k0:k0 + 4] = digits[:, tile, ks, lane, r]
+    assert not out[:, :, n1:].any()
+    return out[:, :, :n1]
+
+
+@pytest.mark.parametrize("n1", [8, 24, 48, 128, 256])
+def test_fragment_words_unpack_to_plan_digits(n1):
+    """K1-gen's tensor-core constant words (``f1f``, ``f2b``) hold exactly
+    the plan's digit planes: N1 = 8 and 24 padded with zero digits to one
+    k-step of 32 and a partial 64-row group, 48 to two k-steps, 256 the
+    largest (8 k-steps, 8 full groups)."""
+    n = 128 * n1
+    plan = exact_cuda._kernel_plan_real(n)
+    c = exact_cuda._consts(n, torch.device("cpu"))
+    frag = c["f1f"].numpy()
+    assert frag.dtype == np.int32 and frag.shape == (
+        4, n1 // 8, -(-n1 // 32), 32, 4)
+    np.testing.assert_array_equal(_unpack_a1(frag), plan[2])
+    assert c["f2b"].shape == (4, 8, 16, 32, 2)
+    np.testing.assert_array_equal(_unpack_b2(c["f2b"].numpy()), plan[3])
+
+
 def test_direct_entry_and_constants():
     """``rfft_pair_mag_gen`` takes every 2-factor size, K1's included,
-    runs the twin on a CPU tensor and counts no launch; K1-gen's F1r words
-    are K1's, zero-padded to whole 16-byte loads."""
+    runs the twin on a CPU tensor and counts no launch; K1-gen's stage-2
+    B fragments are K2's at every size (one f2 block)."""
     before = (exact_cuda.launches, exact_cuda.launches3,
               exact_cuda.launches_cfft, exact_cuda.launches_gen)
     rng = np.random.default_rng(3)
+    f2b = exact_cuda._consts3(4096, torch.device("cpu"))["f2b"]
     for n in (1024, 3072, 4096):
         x = torch.from_numpy(_signal(rng, 2, n))
         mag, nz = exact_cuda.rfft_pair_mag_gen(x)
         ref, nz_ref = exact_cuda.rfft_pair_mag_ref(x)
         assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
-        c = exact_cuda._consts(n, torch.device("cpu"))
-        kw = n // 128 // 4
-        words = c["f1w_gen"].numpy()
-        assert words.shape[2] % 4 == 0 and words.shape[2] - kw < 4
-        np.testing.assert_array_equal(words[..., :kw], c["f1w"].numpy())
-        assert not words[..., kw:].any()
+        assert torch.equal(exact_cuda._consts(n, torch.device("cpu"))["f2b"],
+                           f2b)
     assert (exact_cuda.launches, exact_cuda.launches3,
             exact_cuda.launches_cfft, exact_cuda.launches_gen) == before
     for n in (1040, 512, 65536):

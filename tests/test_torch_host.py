@@ -211,14 +211,14 @@ def test_port_entry_points_refuse_a_jax_config():
     with pytest.raises(TypeError, match="waveform_tpu_torch.resolve"):
         ServingEngine(ref, 2, device="cpu")
     with pytest.raises(TypeError):
-        tspec.make_spectrum_step(ref)
+        tspec.make_spectrum_step(ref, device="cpu")
     with pytest.raises(TypeError):
-        tspec.init_state(ref, 2)
+        tspec.init_state(ref, 2, device="cpu")
     with pytest.raises(TypeError):
-        tapply.make_rebin_fn(ref)
+        tapply.make_rebin_fn(ref, device="cpu")
     ServingEngine(port, 2, device="cpu")
-    tapply.make_rebin_fn(port)
-    step = tspec.make_spectrum_step(port)
-    state = tspec.init_state(port, 2)
+    tapply.make_rebin_fn(port, device="cpu")
+    step = tspec.make_spectrum_step(port, device="cpu")
+    state = tspec.init_state(port, 2, device="cpu")
     x = torch.zeros((2, 2, 1024))
     step(x, state, 1 / 60, torch.ones(2, dtype=torch.bool), torch.zeros(2))

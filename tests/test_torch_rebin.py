@@ -61,7 +61,8 @@ def test_rebin_matches_jax(name, dense, pixel_map, monkeypatch):
     rng = np.random.default_rng(len(name))
     db = rng.uniform(-65.0, 0.0, (3, 2, cfg.num_bins)).astype(np.float32)
     ref = japply.make_rebin_fn(cfg, apply_pixel_map=pixel_map)
-    port = tapply.make_rebin_fn(tcfg, apply_pixel_map=pixel_map, dense=dense)
+    port = tapply.make_rebin_fn(tcfg, apply_pixel_map=pixel_map,
+                                device="cpu", dense=dense)
     kw = dict(top=4.0, bottom=220.0) if pixel_map else {}
     atol = 1e-5 * ((220.0 - 4.0) / (cfg.ceiling - cfg.floor)
                    if pixel_map else 1.0)
@@ -88,9 +89,10 @@ def test_dense_rebin_refuses_reduced_precision_matmul():
     try:
         torch.set_float32_matmul_precision("high")
         with pytest.raises(RuntimeError, match="full-f32"):
-            tapply.make_rebin_fn(cfg, dense=True)
-        tapply.make_rebin_fn(cfg, dense=False)       # the gather has no matmul
+            tapply.make_rebin_fn(cfg, device="cpu", dense=True)
+        # the gather has no matmul
+        tapply.make_rebin_fn(cfg, device="cpu", dense=False)
     finally:
         torch.set_float32_matmul_precision(before)
     assert torch.get_float32_matmul_precision() == before
-    tapply.make_rebin_fn(cfg, dense=True)
+    tapply.make_rebin_fn(cfg, device="cpu", dense=True)

@@ -86,13 +86,13 @@ def _run(cfgs, frames, active=None, rms=None, valid=None, run=None,
     tick."""
     jcfg, tcfg = cfgs
     jstep = jspec.make_spectrum_step(jcfg, fft_backend="exact")
-    tstep = tspec.make_spectrum_step(tcfg)
+    tstep = tspec.make_spectrum_step(tcfg, device="cpu")
     if start is None:
         jst = jspec.init_state(jcfg, S)
-        tst = tspec.init_state(tcfg, S)
+        tst = tspec.init_state(tcfg, S, device="cpu")
     else:
         jst = jspec.SpectrumState(*(jnp.asarray(a) for a in start))
-        tst = tspec.state_from_numpy(*start)
+        tst = tspec.state_from_numpy(*start, device="cpu")
     for k, x in enumerate(frames):
         act = np.ones(S, bool) if active is None else active[k]
         r = np.zeros(S, np.float32) if rms is None else rms[k]

@@ -6,7 +6,7 @@
 // Dekker TwoProd) stay error-free and the plain PyTorch twins in
 // kernels/exact_cuda.py give the same bits.
 //
-// The df tier's pieces (slice_serial, recombine_df, df_mul, twiddle_df,
+// The df tier's pieces (slice_serial, recombine_df, df_mul, twiddle_df_v,
 // stage2_slice_df, mag_df) serve the complex kernel exact_cfft.cu and the df
 // instances of exact_mag_gen.cu and exact_mag3.cu; they are the arithmetic of
 // kernels/exactfft.py's _slice_df, _digit_gemm and df_mul, and of the df
@@ -20,10 +20,10 @@
 // 128 KB of f2 digits, then the f32 tier's ((w0 + w1) + w2) + w3, a clamp to
 // +-2^63 and sqrt(cr^2 + ci^2), or the df tier's TwoSum recombination, the
 // clamp of the hi words and mag_df.  stage2_mag runs the digit products as
-// __dp4a (K1, K1-gen, K1-df); stage2_mag_mma runs them on the int8 tensor
-// cores (mma.sync, K2 and K2-df; K2's stage 1 runs digit_wgmma) and gives
-// the same class sums, since int32 sums of int8 products are exact in any
-// order.
+// __dp4a (K1, f32 tier only); stage2_mag_mma runs them on the int8 tensor
+// cores (mma.sync: K2, K2-df, K1-gen, K1-df; their stage 1 runs
+// digit_wgmma) and gives the same class sums, since int32 sums of int8
+// products are exact in any order.
 
 #pragma once
 
@@ -186,8 +186,7 @@ __device__ __forceinline__ void mul_ps(float a0, float a1, float ah, float al,
 // The df tier's outer twiddle (_real_mag_tail): (br + i*bi) =
 // (ar + i*ai) * (tr + i*ti) in double-floats, the twiddle given as its
 // planes (hi, lo, Veltkamp-high half of hi): the twiddle's halves come from
-// the host, only the data is split here.  twiddle_df reads the planes at
-// tr and ti, `plane` floats apart.
+// the host, only the data is split here.
 __device__ __forceinline__ void twiddle_df_v(float arh, float arl, float aih,
                                              float ail, float trh, float trl,
                                              float trH, float tih, float til,
@@ -204,15 +203,6 @@ __device__ __forceinline__ void twiddle_df_v(float arh, float arl, float aih,
   mul_ps(aih, ail, aiH, aiL, trh, trl, trH, trL, &qih, &qil);
   df_add(prh, prl, -pih, -pil, brh, brl);
   df_add(qrh, qrl, qih, qil, bih, bil);
-}
-
-__device__ __forceinline__ void twiddle_df(float arh, float arl, float aih,
-                                           float ail, const float* tr,
-                                           const float* ti, size_t plane,
-                                           float* brh, float* brl, float* bih,
-                                           float* bil) {
-  twiddle_df_v(arh, arl, aih, ail, tr[0], tr[plane], tr[2 * plane], ti[0],
-               ti[plane], ti[2 * plane], brh, brl, bih, bil);
 }
 
 // _tail_stage2's df magnitude of the clamped (cr, ci): rr = cr^2, ii = ci^2
@@ -346,12 +336,12 @@ __device__ __forceinline__ void stage2_slice_df(const float* __restrict__ rows,
       });
 }
 
-// Stage 2 proper over kRows sliced rows: thread (k2, row group) runs the re
-// and im columns of its k2 together, the f2 digit words (f2w [4][64][128]
-// packed int8x4 along the [br | bi] row) streaming from L2.  emit(r, k2, m)
-// receives the magnitude of row r at kept bin k2, at the f32 tier or, with
-// kDf, the df tier.
-template <int kRows, bool kDf = false, class Emit>
+// Stage 2 proper on __dp4a over kRows sliced rows, at the f32 tier (K1):
+// thread (k2, row group) runs the re and im columns of its k2 together, the
+// f2 digit words (f2w [4][64][128] packed int8x4 along the [br | bi] row)
+// streaming from L2.  emit(r, k2, m) receives the magnitude of row r at
+// kept bin k2.
+template <int kRows, class Emit>
 __device__ __forceinline__ void stage2_mag(const float (*rows)[kRow2],
                                            const float* row_scale,
                                            const int* __restrict__ f2w,
@@ -393,21 +383,14 @@ __device__ __forceinline__ void stage2_mag(const float (*rows)[kRow2],
 #pragma unroll
     for (int r = 0; r < kTile; ++r) {
       const float s2 = row_scale[r0 + r];
-      if constexpr (kDf) {
-        float crh, crl, cih, cil;
-        recombine_df(acc[r][0], s2, &crh, &crl);
-        recombine_df(acc[r][1], s2, &cih, &cil);
-        emit(r0 + r, k2, mag_df(clamp63(crh), crl, clamp63(cih), cil));
-      } else {
-        const float cr = clamp63(recombine(acc[r][0], s2));
-        const float ci = clamp63(recombine(acc[r][1], s2));
-        emit(r0 + r, k2, sqrtf(fadd(fmul(cr, cr), fmul(ci, ci))));
-      }
+      const float cr = clamp63(recombine(acc[r][0], s2));
+      const float ci = clamp63(recombine(acc[r][1], s2));
+      emit(r0 + r, k2, sqrtf(fadd(fmul(cr, cr), fmul(ci, ci))));
     }
   }
 }
 
-// ---- the int8 tensor cores (K2 and K2-df) ---------------------------------
+// ---- the int8 tensor cores (K2, K2-df, K1-gen, K1-df) ---------------------
 //
 // wgmma m64n32k32 s8 x s8 -> s32 runs one warpgroup (4 warps) over 64 rows
 // (M) x 32 columns (N) x 32 int8 of the contraction (k).  A comes from

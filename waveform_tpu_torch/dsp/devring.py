@@ -14,6 +14,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.device import checked_device
+
 
 @dataclass
 class DeviceRing:
@@ -23,16 +25,21 @@ class DeviceRing:
 
 
 def init_ring(num_streams: int, channels: int, window: int,
-              device: torch.device | str = "cpu") -> DeviceRing:
-    return DeviceRing(buf=torch.zeros((num_streams, channels, window),
-                                      dtype=torch.float32, device=device))
+              device: torch.device | str = "cuda") -> DeviceRing:
+    """A silent ring on ``device`` (the card unless the caller asks for
+    the CPU; raises RuntimeError without one)."""
+    return DeviceRing(buf=torch.zeros(
+        (num_streams, channels, window), dtype=torch.float32,
+        device=checked_device(device, "init_ring")))
 
 
 def ring_from_numpy(buf: np.ndarray,
-                    device: torch.device | str = "cpu") -> DeviceRing:
-    """A ring holding ``buf`` [S, C, L] (natural layout, copied)."""
-    return DeviceRing(buf=torch.tensor(np.asarray(buf, np.float32),
-                                       device=device))
+                    device: torch.device | str = "cuda") -> DeviceRing:
+    """A ring holding ``buf`` [S, C, L] (natural layout, copied) on
+    ``device``, as :func:`init_ring` places it."""
+    return DeviceRing(buf=torch.tensor(
+        np.asarray(buf, np.float32),
+        device=checked_device(device, "ring_from_numpy")))
 
 
 def push(ring: DeviceRing, new: torch.Tensor,

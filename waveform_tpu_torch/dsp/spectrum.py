@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.config import DB_MIN, ResolvedConfig, check_config
+from ..core.device import checked_device
 from ..core.enums import FFTWindow, TSmoothingMode
 from ..kernels.exactfft import rfft_mag_exact, two_prod, two_sum
 from .oracle import TV_EMA_DENOM, rolloff_modifiers, slope_modifiers
@@ -44,8 +45,11 @@ def _channels(cfg: ResolvedConfig) -> tuple[int, int]:
 
 
 def init_state(cfg: ResolvedConfig, num_streams: int,
-               device: torch.device | str = "cpu") -> SpectrumState:
+               device: torch.device | str = "cuda") -> SpectrumState:
+    """A fresh state on ``device`` (the card unless the caller asks for
+    the CPU; raises RuntimeError without one)."""
     check_config(cfg)
+    device = checked_device(device, "init_state")
     nbins = cfg.fft_size // 2
     C, O = _channels(cfg)
     return SpectrumState(
@@ -59,8 +63,10 @@ def init_state(cfg: ResolvedConfig, num_streams: int,
 
 def state_from_numpy(tsmooth: np.ndarray, decibels: np.ndarray,
                      last_silent: np.ndarray,
-                     device: torch.device | str = "cpu") -> SpectrumState:
-    """A state from natural-order host arrays (copied)."""
+                     device: torch.device | str = "cuda") -> SpectrumState:
+    """A state from natural-order host arrays (copied) on ``device``, as
+    :func:`init_state` places it."""
+    device = checked_device(device, "state_from_numpy")
     return SpectrumState(
         tsmooth=torch.tensor(np.asarray(tsmooth, np.float32), device=device),
         decibels=torch.tensor(np.asarray(decibels, np.float32), device=device),
@@ -128,9 +134,11 @@ def gravity_coefficient(cfg: ResolvedConfig, dt: float) -> float:
     return float(np.float32(cfg.gravity))
 
 
-def window_pair(cfg: ResolvedConfig, device: torch.device | str = "cpu"):
-    """The config's window as a df32 (hi, lo) pair of [N] tensors, or None
-    for no window — the exact path applies it in double-float."""
+def window_pair(cfg: ResolvedConfig, device: torch.device | str = "cuda"):
+    """The config's window as a df32 (hi, lo) pair of [N] tensors on
+    ``device`` (as :func:`init_state` places them), or None for no window —
+    the exact path applies it in double-float."""
+    device = checked_device(device, "window_pair")
     if cfg.window == FFTWindow.NONE:
         return None
     w64 = window_coefficients(cfg.window, cfg.fft_size, cfg.sine_exponent,
@@ -177,9 +185,10 @@ def _mag_tail(cfg: ResolvedConfig, mag: torch.Tensor,
 
 
 def make_spectrum_step(cfg: ResolvedConfig,
-                       device: torch.device | str = "cpu"):
-    """Build the spectrum step for a resolved config on ``device``, on the
-    FFT backend :func:`resolve_fft_backend` reads now.
+                       device: torch.device | str = "cuda"):
+    """Build the spectrum step for a resolved config on ``device`` (the
+    card unless the caller asks for the CPU; raises RuntimeError without
+    one), on the FFT backend :func:`resolve_fft_backend` reads now.
 
     Returns ``step(samples, state, dt, active, input_rms, valid=None,
     run=None) -> SpectrumState``:
@@ -192,7 +201,7 @@ def make_spectrum_step(cfg: ResolvedConfig,
     * ``run``       [S] bool — streams whose tick ran (default all)
     """
     check_config(cfg)
-    device = torch.device(device)
+    device = checked_device(device, "make_spectrum_step")
     nbins = cfg.fft_size // 2
     C, O = _channels(cfg)
     D = cfg.display_channels

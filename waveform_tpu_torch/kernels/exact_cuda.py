@@ -74,6 +74,7 @@ SIZES3 = (8192, 16384, 32768, 65536)   # the K2 sizes the JAX plan ships
 MAX_N2 = 32768                  # K1-gen and K3 serve N1 % 8 == 0 up to here
 MAX_N3 = 65536                  # K2 serves N1 % 32 == 0 up to here
 K2_CONSTS = ("c02f", "c13f", "f2b")   # K2's constants, in its C order
+K1GEN_CONSTS = ("f1f", "f2b")         # K1-gen's and K1-df's
 
 # fixed-point geometry of the parallel digit extraction: i = rint(r·2^27)
 # splits into 4 offset-binary base-128 fields
@@ -269,16 +270,15 @@ def _consts(n: int, device: torch.device):
     matrices (``f1``, ``f2``) for the twin's exact products, and packed
     four int8 digits to an int32 word along each GEMM's contraction axis
     (``f1w`` [4, 2n1, n1/4] over j1, ``f2w`` [4, 2n2/4, n2] over the
-    [br | bi] row), the layout the kernel's ``__dp4a`` reads.  K1-gen
-    reads ``f1w_gen`` [4, 2n1, W]: ``f1w`` with each row zero-padded to
-    W = n1/4 rounded up to a multiple of 4 words (16-byte loads).  The
-    twiddle as in :func:`_twiddle_consts`."""
-    n1, n2, f1d, f2d, *tw = _kernel_plan_real(n)
-    f1w = _words(f1d)
-    pad = -(n1 // 4) % 4
-    host = {"f1": f1d.astype(np.float64), "f1w": f1w,
-            "f1w_gen": np.pad(f1w, ((0, 0), (0, 0), (0, pad))),
-            **_twiddle_consts(*tw), **_f2_consts(f2d)}
+    [br | bi] row), the layout K1's ``__dp4a`` reads.  For K1-gen's
+    tensor cores ``f1f`` (:func:`_frag_a1`) and ``f2b`` (:func:`_frag_b2`),
+    the same digit words in the fragment order of stage 1's A and stage
+    2's B operands.  The twiddle as in :func:`_twiddle_consts`."""
+    _, _, f1d, f2d, *tw = _kernel_plan_real(n)
+    f2 = _f2_consts(f2d)
+    host = {"f1": f1d.astype(np.float64), "f1w": _words(f1d),
+            "f1f": _frag_a1(f1d), "f2b": _frag_b2(f2["f2w"]),
+            **_twiddle_consts(*tw), **f2}
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
@@ -307,24 +307,40 @@ _A_ROW8 = np.array([0, 1, 0, 1])          # A register -> upper row half
 _A_WORD4 = np.array([0, 0, 1, 1])         # A register -> upper k-word half
 
 
-def _frag_a3(planes: np.ndarray) -> np.ndarray:
-    """K2's stage-1 digit planes [4, 4a, 2a] (c02 or c13) as int8x4 words
-    in A-fragment order [4, a/4, k, 32, 4] int32, k = 2a/32 rounded up (the
-    contraction zero-padded to whole k-steps).  M tile T = h·(a/8) + kb
-    holds the re rows h·2a + kb·8 + g (fragment rows g) and the im rows a
-    further on (fragment rows g + 8): the re and im rows of the 8 positions
-    (2h + c)·a + kb·8 + g of constant block c."""
-    _, rows, k = planes.shape
-    a = rows // 4
+def _frag_a(planes: np.ndarray, row0: np.ndarray, im: int) -> np.ndarray:
+    """Stage-1 digit planes [4, R, K] as int8x4 words in A-fragment order
+    [4, T, k, 32, 4] int32, k = K/32 rounded up (the contraction
+    zero-padded to whole k-steps): M tile T holds the re rows row0[T] + g
+    (fragment rows g) and the im rows ``im`` further on (fragment rows
+    g + 8)."""
+    k = planes.shape[2]
     kp = -(-k // 32) * 32
     words = _words(np.pad(planes, ((0, 0), (0, 0), (0, kp - k))))
-    tile = np.arange(a // 4)
-    re_row = ((tile // (a // 8)) * 2 * a + (tile % (a // 8)) * 8)[:, None] \
-        + _LANE_G[None, :]                                   # [T, 32]
-    row = re_row[:, :, None] + a * _A_ROW8                   # [T, 32, 4]
+    re_row = row0[:, None] + _LANE_G[None, :]                 # [T, 32]
+    row = re_row[:, :, None] + im * _A_ROW8                   # [T, 32, 4]
     word = (np.arange(kp // 32)[:, None, None] * 8 + _LANE_T[None, :, None]
             + 4 * _A_WORD4)                                  # [k, 32, 4]
     return np.ascontiguousarray(words[:, row[:, None], word[None]])
+
+
+def _frag_a1(f1d: np.ndarray) -> np.ndarray:
+    """K1-gen's F1r digit planes [4, 2n1, n1] in A-fragment order
+    [4, n1/8, k, 32, 4], k = n1/32 rounded up: M tile T holds the re rows
+    k1 = 8T + g and the im rows n1 + 8T + g."""
+    n1 = f1d.shape[2]
+    return _frag_a(f1d, 8 * np.arange(n1 // 8), n1)
+
+
+def _frag_a3(planes: np.ndarray) -> np.ndarray:
+    """K2's stage-1 digit planes [4, 4a, 2a] (c02 or c13) in A-fragment
+    order [4, a/4, k, 32, 4], k = 2a/32 rounded up.  M tile T = h·(a/8) +
+    kb holds the re rows h·2a + kb·8 + g and the im rows a further on: the
+    re and im rows of the 8 positions (2h + c)·a + kb·8 + g of constant
+    block c."""
+    a = planes.shape[1] // 4
+    tile = np.arange(a // 4)
+    return _frag_a(planes, (tile // (a // 8)) * 2 * a + (tile % (a // 8)) * 8,
+                   a)
 
 
 def _frag_b2(f2w: np.ndarray) -> np.ndarray:
@@ -724,9 +740,11 @@ def build() -> ctypes.CDLL:
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.wf_exact_mag3_df.restype = ctypes.c_int
     lib.wf_exact_mag3_df.argtypes = lib.wf_exact_mag3.argtypes
-    lib.wf_exact_mag3_stage.restype = ctypes.c_int
-    lib.wf_exact_mag3_stage.argtypes = ([ctypes.c_int, ctypes.c_int]
-                                        + lib.wf_exact_mag3.argtypes)
+    # one stage alone (chip_smoke times the stages apart)
+    for fn, whole in ((lib.wf_exact_mag3_stage, lib.wf_exact_mag3),
+                      (lib.wf_exact_mag_gen_stage, lib.wf_exact_mag_gen)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int] + whole.argtypes
     _lib = lib
     return lib
 
@@ -876,7 +894,7 @@ def rfft_pair_mag_gen(x: torch.Tensor, window=None,
     lib = build()
     out = _launch_two_stage(
         lib.wf_exact_mag_gen_df if df else lib.wf_exact_mag_gen, x, w_hi,
-        w_lo, ("f1w_gen", "f2w"), _consts(n, x.device), df)
+        w_lo, K1GEN_CONSTS, _consts(n, x.device), df)
     if df:
         launches_gen_df += 1
     else:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.config import ResolvedConfig, check_config
+from ..core.device import checked_device
 from ..core.enums import DisplayMode, FilterMode
 from .filter import build_gauss_tables
 from .interp import build_interp_tables, mirror_indices
@@ -58,9 +59,11 @@ def check_full_f32_matmul() -> None:
 
 
 def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
-                  device: torch.device | str = "cpu",
+                  device: torch.device | str = "cuda",
                   dense: bool | None = None):
-    """Build ``rebin(db [..., nbins]) -> [..., P]`` for the resolved config.
+    """Build ``rebin(db [..., nbins]) -> [..., P]`` for the resolved config
+    on ``device`` (the card unless the caller asks for the CPU; raises
+    RuntimeError without one).
 
     ``top``/``bottom`` are the pixel-map endpoints (curve mode uses
     ``(0, cpos - channel_offset)``, bars ``(border_top, border_bottom)``);
@@ -75,7 +78,7 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
     in full float32 (:func:`check_full_f32_matmul`).
     """
     check_config(cfg)
-    device = torch.device(device)
+    device = checked_device(device, "make_rebin_fn")
     tables = build_interp_tables(cfg)
     nbins_in = (cfg.fft_size if cfg.display_mode == DisplayMode.WAVEFORM
                 else cfg.num_bins)

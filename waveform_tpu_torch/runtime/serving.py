@@ -29,6 +29,7 @@ from ..core.config import (
     ResolvedConfig,
     check_config,
 )
+from ..core.device import checked_device
 from ..core.ring import audio_frames_to_ns, ns_to_audio_frames
 from ..dsp.devring import init_ring, push
 from ..dsp.spectrum import display_decibels, init_state, make_spectrum_step
@@ -60,10 +61,7 @@ class ServingEngine:
         check_config(cfg)
         if not cfg.spectrum_mode:
             raise ValueError("ServingEngine handles spectrum mode only")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("ServingEngine(device='cuda') needs a CUDA "
-                               "device and none is available")
+        self.device = checked_device(device, "ServingEngine")
         self.cfg = cfg
         self.S = num_streams
         self.C = max(cfg.capture_channels, 1)
