@@ -10,30 +10,32 @@ Phases, one line each; any failure raises and the script exits non-zero:
    power limit as nvidia-smi reports them;
 2. build   — the exact FFT kernels compiled from ``waveform_tpu_torch/
    csrc`` with nvcc (one process per source); prints ptxas's entry
-   function and register lines as nvcc gives them, and each kernel's
-   IMMA / IGMMA / IDP.4A counts from its SASS: the four kernels of K2 and
-   K2-df and the four of K1-gen and K1-df must run on the int8 tensor
-   cores (IMMA or IGMMA, no IDP.4A), K1's three and K3's four keep their
-   __dp4a (IDP.4A);
-3. kernel  — the kernel against its plain PyTorch twin and float64 numpy at
-   N in {1024, 2048, 4096}, S in {1, 7, 256}, Hann df32 window and none,
-   with a silent stream, a silent channel, a 1e20 stream and a NaN stream;
+   function and register lines as nvcc gives them (no spills allowed),
+   and each kernel's IMMA / IGMMA / IDP.4A counts from its SASS: all 10
+   kernels (stage 1 and stage 2 of K2, K2-df, K1-gen, K1-df and K3) must
+   run on the int8 tensor cores (IMMA or IGMMA, no IDP.4A);
+3. kernel  — K1-gen through the router (K1's body at K1's sizes) bit for
+   bit against its plain PyTorch twin (NaN lanes by position) and against
+   float64 numpy at N in {1024, 2048, 4096}, S in {1, 7, 256}, Hann df32
+   window and none, with a silent stream, a silent channel, a 1e20 stream
+   and a NaN stream;
 4. slice   — ``ServingEngine`` at the headline configuration (stereo 48 kHz,
    N=4096, Hann, 800-px Lanczos rebin, S=256) fed a 440 Hz tone plus noise
-   for 8 ticks: one kernel launch per tick, finite pixels, a silent stream
-   at exactly DB_MIN, agreement with the CPU port on the first streams, and
-   the bench's accuracy gate against the float64 oracle;
-5. times   — kernel, twin and full tick at S=256, N=4096 on the card's
-   clock (CUDA events, median of 30 after warmup);
+   for 8 ticks: one K1-gen launch per tick and no other kernel, finite
+   pixels, a silent stream at exactly DB_MIN, agreement with the CPU port
+   on the first streams, and the bench's accuracy gate against the
+   float64 oracle;
+5. times   — K1-gen, its twin and the full tick at S=256, N=4096 on the
+   card's clock (CUDA events, median of 30 after warmup);
 6. kernel3 — the 3-factor kernel (K2) bit for bit against its twin (NaN
    lanes by position), and against float64 numpy, at
    N in {4096, 8192, 16384, 32768, 65536}, S in {1, 7, 32}, the same windows
    and bad streams as phase 3; at N=4096 (reached through K2's direct entry
-   point, since the router sends 4096 to K1) also against K1;
+   point, since the router sends 4096 to K1-gen) also against K1-gen;
 7. slice3  — ``ServingEngine`` on the large-FFT configuration (stereo
    48 kHz, N=65536 behind enable_large_fft, Hann, 800-px Lanczos rebin in
    its gather form, S=32) for 84 ticks, enough to fill the 65536-sample
-   window: one K2 launch per tick and no K1 launch, finite pixels, the
+   window: one K2 launch per tick and no other kernel, finite pixels, the
    silent stream at DB_MIN, the 440 Hz peak within one bin, agreement with
    the CPU port on 2 streams and the accuracy gate against the float64
    oracle;
@@ -44,7 +46,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    beside the wrapper and the library call, all on the device's clock
    (the device kept busy ahead of each call, so the host's enqueue is not
    timed); and the full tick at N=65536, S=32;
-9. cfft    — the complex kernel (K3) against its twin and float64 numpy at
+9. cfft    — the complex kernel (K3) bit for bit against its twin (NaN
+   lanes by position) and against float64 numpy at
    N in {1024, 3072, 4096, 16384, 32768}, S in {1, 7, 64}, and at the
    slice's (4096, 256); on f32 pairs, on Hann-windowed df32 pairs (path
    a's input) and on a Hann-windowed df32 real part with a zero imaginary
@@ -52,33 +55,34 @@ Phases, one line each; any failure raises and the script exits non-zero:
    call;
 10. slice_packed — ``ServingEngine`` under WAVEFORM_TPU_EXACT_FUSED=never
    at the headline configuration, stereo (path a) and mono capture (path
-   b), 8 ticks each: one K3 launch per tick and no K1/K2 launch, finite
+   b), 8 ticks each: one K3 launch per tick and no other kernel, finite
    pixels, the silent stream at DB_MIN, the 440 Hz peak within one bin,
    agreement with the CPU port on the first streams, and the accuracy
    gate against the float64 oracle;
 11. slice_small — the auto FFT size (N=800 at 48 kHz and 60 fps), stereo,
    S=256, the gate unset (path c), 8 ticks: the digit lowering in torch
    ops and no kernel launch of any kind, with the checks of phase 10;
-12. times_cfft — K3 and its twin at (N, S) = (4096, 256), (32768, 32), and
-   the full tick of paths a and c at S=256;
-13. kernel_gen — K1-gen (K1's body at every other N1 % 8 == 0) through the
-   router against its twin and float64 numpy at N in {3072, 5120, 6144,
-   7168, 9216, 16384, 31744}, S in {1, 7, 64}, at (6144, 256), and at
-   N=32768 under WAVEFORM_TPU_STAGE1_SPLIT=2, with the windows and bad
-   streams of phase 3; against K2 at 8192 and 16384; through its direct
-   entry point bit for bit against K1 at N=4096;
+12. times_cfft — K3, its twin and the library call (``torch.fft.fft`` of
+   the complex128 pair) at (N, S) = (4096, 256), (32768, 32), with K3's
+   int8 rate and share of its bound; K3's two launches timed apart at both
+   shapes beside the wrapper and the library call on the device's clock
+   (as in phase 8); and the full tick of paths a and c at S=256;
+13. kernel_gen — K1-gen through the router against its twin and float64
+   numpy at N in {3072, 5120, 6144, 7168, 8192, 9216, 16384, 31744},
+   S in {1, 7, 64}, at (6144, 256), and at N=32768 under
+   WAVEFORM_TPU_STAGE1_SPLIT=2, with the windows and bad streams of phase
+   3; against K2 at 8192 and 16384;
 14. slice_gen — ``ServingEngine`` at N=6144 (an FFT-size slider position),
    the headline configuration otherwise, S=256, 8 ticks: one K1-gen launch
-   per tick and no K1/K2/K3 launch, with the checks of phase 4; then
+   per tick and no other kernel, with the checks of phase 4; then
    N=16384 behind enable_large_fft, S=64, 21 ticks, which the JAX split
    rule sends to K1-gen too;
 15. times_gen — K1-gen, its twin and the library call
    ``torch.fft.rfft(x.double() * w).abs()`` at (6144, 256) and (16384,
    256), K1-gen's two launches timed apart at both shapes beside the
    wrapper and the library call on the device's clock (as in phase 8), K2
-   and its twin at (16384, 256), K1-gen's direct entry point against K1 at
-   (4096, 256), and the full tick at N=6144, S=256;
-16. kernel_df — under WAVEFORM_TPU_KERNEL_TWIDDLE=df, K1-df (K1's body at
+   and its twin at (16384, 256), and the full tick at N=6144, S=256;
+16. kernel_df — under WAVEFORM_TPU_KERNEL_TWIDDLE=df, K1-df (K1-gen at
    the df twiddle tier) through the router at N in {1024, 2048, 3072,
    4096, 6144, 16384, 31744} and K2-df (K2 at the df tier) at 8192
    through its direct entry point and at 32768 and 65536 through the
@@ -103,7 +107,9 @@ result line, which are the last two lines.  Each kernel's record carries
 its time, its plain twin's, the library call's (timed here, never called
 by the port) and its bound: the larger of its int8 operations at the
 card's peak and the bytes it must move (inputs read once, outputs written
-once) at its memory rate.
+once) at its memory rate.  The record named ``exact_mag`` (the TPU body
+at N1 in {8, 16, 32}) carries K1-gen's numbers at (4096, 256) and the
+``slice`` phase's launches: K1-gen serves those sizes.
 """
 
 from __future__ import annotations
@@ -122,16 +128,17 @@ import torch
 
 SR, HOP = 48000, 800
 TOL = 2.5e-7          # kernel bound of the JAX package's tests
-TOL_SPLITS = 3e-7     # K2 vs K1 (tests/test_exact_pallas.py:217-229)
+TOL_SPLITS = 3e-7     # K2 vs K1's body (tests/test_exact_pallas.py:217-229)
 SEED = 0
+K1_SIZES = (1024, 2048, 4096)   # N1 = 8, 16, 32: K1's sizes, now K1-gen's
 INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak, ops/s
 HBM = 3.35e12         # H100 SXM device memory, bytes/s
-# exact_cuda's launch counters: K1, K2, K3, K1-gen, K1-df, K2-df
-COUNTERS = ("launches", "launches3", "launches_cfft", "launches_gen",
-            "launches_gen_df", "launches3_df")
-# kernels on the int8 tensor cores: exact_mag3.cu's and exact_mag_gen.cu's
-# stage 1 and stage 2 at both tiers
-TENSOR_KERNELS = 8
+# exact_cuda's launch counters: K2, K3, K1-gen, K1-df, K2-df
+COUNTERS = ("launches3", "launches_cfft", "launches_gen", "launches_gen_df",
+            "launches3_df")
+# the library's kernels, all on the int8 tensor cores: stage 1 and stage 2
+# of exact_mag3.cu and exact_mag_gen.cu at both tiers and of exact_cfft.cu
+KERNELS = 10
 
 
 @contextlib.contextmanager
@@ -467,11 +474,11 @@ def phase_cfft(exact_cuda, exactfft, dev, shapes, seed: int):
     inputs made from ``x`` [S, 2, N]: the channel pair as f32 tensors, as
     Hann-windowed df32 pairs (the packed pair's input), and channel 0 as
     a Hann-windowed df32 real part with a zero f32 imaginary part (the
-    mono input).  Each call adds one to ``exact_cuda.launches_cfft`` and
-    agrees with the twin and float64 within TOL; a silent stream stays
-    exactly 0, the 1e20 stream finite, and the 1e20/NaN streams keep to
-    themselves.  Returns the number of cases and the worst relative
-    errors."""
+    mono input).  Each call adds one to ``exact_cuda.launches_cfft``,
+    matches the twin bit for bit in all four df32 outputs (NaN lanes by
+    position) and float64 within TOL; a silent stream stays exactly 0, the
+    1e20 stream finite, and the 1e20/NaN streams keep to themselves.
+    Returns the number of cases and the worst relative errors."""
     rng = np.random.default_rng(seed)
     worst = {"twin": 0.0, "f64": 0.0}
     cases = 0
@@ -494,11 +501,15 @@ def phase_cfft(exact_cuda, exactfft, dev, shapes, seed: int):
                 re = exactfft._windowed_df(xd[:, 0], *win)
                 im = torch.zeros_like(xd[:, 0])
             before = exact_cuda.launches_cfft
-            got = c128(exact_cuda.cfft_exact_kernel(re, im))
+            z = exact_cuda.cfft_exact_kernel(re, im)
             torch.cuda.synchronize()
             check(exact_cuda.launches_cfft == before + 1,
                   f"launches_cfft N={n} S={S} {kind}")
-            twin = c128(exact_cuda.cfft_exact_ref(re, im))
+            ref = exact_cuda.cfft_exact_ref(re, im)
+            check(all(same_bits(a, b) for a, b in zip((*z[0], *z[1]),
+                                                       (*ref[0], *ref[1]))),
+                  f"K3 N={n} S={S} {kind}: not bit for bit with the twin")
+            got, twin = c128(z), c128(ref)
             want = np.fft.fft((x[good, 0].astype(np.float64)
                                + 1j * x[good, 1].astype(np.float64)) * w64)
             scale = np.abs(want).max()
@@ -553,8 +564,8 @@ def drive_slice(wt, exact_cuda, eng, cpu, packets, now0):
     """Feed ``packets`` through the card engine (counts set to 0 just
     before, read just after) and, for its first streams and the silent
     last one, through the CPU port; check pixels, silence, the tone's peak
-    and card vs CPU.  Returns ((K1, K2, K3, K1-gen, K1-df, K2-df
-    launches), pixel shape, peak Hz, card-vs-CPU dB)."""
+    and card vs CPU.  Returns (the launch counts in ``COUNTERS`` order,
+    pixel shape, peak Hz, card-vs-CPU dB)."""
     for name in COUNTERS:
         setattr(exact_cuda, name, 0)
     for k, x in enumerate(packets):
@@ -584,6 +595,12 @@ def drive_slice(wt, exact_cuda, eng, cpu, packets, now0):
     check(e_cpu < 1e-4, f"N={n} card vs CPU port {e_cpu} dB")
     check(np.array_equal(db[-1], db_cpu[-1]), "silent stream vs CPU port")
     return counts, px.shape, peak_hz, e_cpu
+
+
+def only(counter: str, count: int) -> tuple:
+    """The launch counts (``COUNTERS`` order) of a run that launched
+    ``counter``'s kernel ``count`` times and no other kernel."""
+    return tuple(count if c == counter else 0 for c in COUNTERS)
 
 
 def tick_ms(eng, packets, now0) -> float:
@@ -634,9 +651,49 @@ def cfft_times(exact_cuda, exactfft, n: int, S: int, dev):
             max_abs)
 
 
+def cfft_stage_ms(exact_cuda, exactfft, n: int, S: int, dev):
+    """K3's two launches timed apart on CUDA events with the device kept
+    busy ahead of each (as :func:`stage_ms`), on a Hann-windowed df32 pair
+    [S, n] (path a's input): (stage 1 ms, stage 2 ms, both ms, the wrapper
+    ms).  The stages run apart must give the wrapper's four outputs bit
+    for bit."""
+    lib = exact_cuda.build()
+    x = torch.from_numpy((0.5 * np.random.default_rng(SEED + 15)
+                          .standard_normal((S, 2, n))).astype(np.float32)
+                         ).to(dev)
+    _, win = hann_pair(n, dev)
+    re, im = (tuple(p.contiguous() for p in exactfft._windowed_df(
+        x[:, c], *win)) for c in range(2))
+    c = exact_cuda._consts_cfft(n, dev)
+    rows = torch.empty((2, S, n // 128, 256), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((4, S, n), dtype=torch.float32, device=dev)
+    ptrs = [t.data_ptr() for t in (*re, *im,
+                                   *(c[k] for k in exact_cuda.K3_CONSTS),
+                                   rows, out)]
+
+    def launch(stage):
+        err = lib.wf_exact_cfft_stage(
+            stage, *ptrs, S, n, torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"wf_exact_cfft_stage({stage}) failed: {err}")
+
+    launch(1)
+    launch(2)
+    z = exact_cuda.cfft_exact_kernel(re, im)
+    torch.cuda.synchronize()
+    check(all(same_bits(out[i], w) for i, w in enumerate((*z[0], *z[1]))),
+          f"K3 stages apart vs the wrapper at N={n} S={S}")
+    return tuple(cuda_median_ms(f, busy_ahead=True) for f in (
+        lambda: launch(1), lambda: launch(2),
+        lambda: (launch(1), launch(2)),
+        lambda: exact_cuda.cfft_exact_kernel(re, im)))
+
+
 def stage_ops(body: str, n: int, S: int) -> tuple[int, int]:
     """The int8 operations of ``body``'s stage 1 and stage 2 at [S, 2, n]
-    (``STAGED``; the df tier adds none)."""
+    (``STAGED``; the df tier adds none), or at K3's [S, n] (``body`` "K3":
+    F1b is K1-gen's two channels' work, F2b's 256 columns its kept half
+    of both channels)."""
     n1 = n // 128
     if body == "K2":
         a = n1 // 4
@@ -732,31 +789,33 @@ def main() -> None:
     for ln in exact_cuda.build_info.get("log", "").splitlines():
         if "entry function" in ln or "registers" in ln:
             print(f"build: {ln.strip()}", flush=True)
-    # K2, K2-df (exact_mag3.cu), K1-gen and K1-df (exact_mag_gen.cu) run
-    # their digit GEMMs on the int8 tensor cores; K1 and K3 keep __dp4a
+    # every kernel runs its digit GEMMs on the int8 tensor cores
     sass = exact_cuda.sass_counts()
     for fn, c in sass.items():
         print(f"build: sass {kernel_label(fn)}: "
               + ", ".join(f"{op} {k}" for op, k in c.items()), flush=True)
-    tensor = {fn: c for fn, c in sass.items()
-              if "exact_mag3_stage" in fn or "exact_mag_gen_stage" in fn}
-    check(len(tensor) == TENSOR_KERNELS
+    check(len(sass) == KERNELS
           and all(c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0
-                  for c in tensor.values()),
-          f"exact_mag3 / exact_mag_gen kernels not on the tensor cores: "
-          f"{tensor}")
-    dp4a = [c for fn, c in sass.items() if fn not in tensor]
-    check(len(dp4a) == 7 and all(c["IDP.4A"] > 0 for c in dp4a),
-          f"K1/K3 kernels without their IDP.4A: {dp4a}")
+                  for c in sass.values()),
+          f"kernels not on the int8 tensor cores, or {KERNELS} expected: "
+          f"{sass}")
+    props = [ln for ln in exact_cuda.build_info.get("log", "").splitlines()
+             if "spill" in ln]
+    spills = [ln for ln in props if not re.search(
+        r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
+    check(not spills, f"ptxas reports spills: {spills}")
+    print(f"build: ptxas: {len(props)} functions, no spill stores or loads",
+          flush=True)
 
     # 3. kernel vs twin ---------------------------------------------------
     t0 = time.perf_counter()
     cases, worst = phase_kernel(exact_cuda, dev, exact_cuda.rfft_pair_mag,
-                                exact_cuda.rfft_pair_mag_ref, "launches",
-                                exact_cuda.SIZES, (1, 7, 256), SEED)
+                                exact_cuda.rfft_pair_mag_ref, "launches_gen",
+                                K1_SIZES, (1, 7, 256), SEED, bitwise=True)
     secs["kernel"] = time.perf_counter() - t0
-    print(f"kernel: {cases} cases, max|d|/max|ref| vs twin "
-          f"{worst['twin']:.3e}, vs float64 {worst['f64']:.3e} (bound "
+    print(f"kernel: {cases} K1-gen cases at N in {K1_SIZES} through the "
+          f"router, bit for bit vs the twin (max|d|/max|ref| "
+          f"{worst['twin']:.3e}), vs float64 {worst['f64']:.3e} (bound "
           f"{TOL}); nz exact; 1e20/NaN streams isolated", flush=True)
 
     # 4. slice ------------------------------------------------------------
@@ -771,18 +830,18 @@ def main() -> None:
     rng = np.random.default_rng(SEED + 1)
     packets = [feed_signal(rng, S, k) for k in range(ticks)]
     now0 = time.monotonic_ns()
-    (launches, launches3, n_cfft, n_gen, *n_df), px_shape, peak_hz, e_cpu = \
-        drive_slice(wt, exact_cuda, eng, cpu, packets, now0)
-    check(launches == ticks, f"{launches} kernel launches in {ticks} ticks")
-    check(launches3 == 0 and n_cfft == 0 and n_gen == 0 and not any(n_df),
-          f"{launches3} K2, {n_cfft} K3, {n_gen} K1-gen and {n_df} df "
-          "launches at N=4096")
+    counts, px_shape, peak_hz, e_cpu = drive_slice(wt, exact_cuda, eng, cpu,
+                                                   packets, now0)
+    launches = counts[COUNTERS.index("launches_gen")]
+    check(counts == only("launches_gen", ticks),
+          f"launches {counts} ({'/'.join(COUNTERS)}) in {ticks} ticks at "
+          "N=4096: want K1-gen's alone")
     gate = oracle_gate(wt, ServingEngine, 4096, 8, rng, now0)
     torch.cuda.synchronize()
     secs["slice"] = time.perf_counter() - t0
     print(f"slice: S={S} N=4096 800px Lanczos, {ticks} ticks, {launches} "
-          f"kernel launches, pixels {px_shape} finite, silent stream at "
-          f"DB_MIN, peak {peak_hz:.1f} Hz, card vs CPU port {e_cpu:.2e} dB, "
+          f"K1-gen launches, no other kernel, pixels {px_shape} finite, "
+          f"silent stream at DB_MIN, peak {peak_hz:.1f} Hz, card vs CPU port {e_cpu:.2e} dB, "
           f"oracle gate {gate:.2e} dB (< 1e-4), assembler "
           f"{'native' if eng._native is not None else 'python'}", flush=True)
 
@@ -793,7 +852,7 @@ def main() -> None:
                                        dev)
     t_ms = tick_ms(eng, packets, now0)
     secs["times"] = time.perf_counter() - t0
-    print(f"times [{card}]: kernel {k_ms * 1e3:.1f} us, twin "
+    print(f"times [{card}]: K1-gen {k_ms * 1e3:.1f} us, twin "
           f"{p_ms * 1e3:.1f} us at S={S} N=4096; full tick (feed_batch + "
           f"tick) {t_ms * 1e3:.1f} us = {S / (t_ms * 1e-3):,.0f} frames/s",
           flush=True)
@@ -805,12 +864,12 @@ def main() -> None:
         exact_cuda, dev, exact_cuda.rfft_pair_mag3,
         exact_cuda.rfft_pair_mag3_ref, "launches3",
         (4096,) + exact_cuda.SIZES3, (1, 7, 32), SEED + 3,
-        versus=(exact_cuda.rfft_pair_mag, exact_cuda.SIZES), bitwise=True)
+        versus=(exact_cuda.rfft_pair_mag, (4096,)), bitwise=True)
     secs["kernel3"] = time.perf_counter() - t0
     print(f"kernel3: {cases3} cases at N in {(4096,) + exact_cuda.SIZES3}, "
           f"bit for bit vs the twin (max|d|/max|ref| "
           f"{worst3['twin']:.3e}), vs float64 "
-          f"{worst3['f64']:.3e} (bound {TOL}), vs K1 at N=4096 "
+          f"{worst3['f64']:.3e} (bound {TOL}), vs K1-gen at N=4096 "
           f"{worst3['versus']:.3e} (bound {TOL_SPLITS}); nz exact; 1e20/NaN "
           "streams isolated", flush=True)
 
@@ -826,18 +885,17 @@ def main() -> None:
     cpu3 = ServingEngine(cfg3, 2, device="cpu")
     packets3 = [feed_signal(rng, S3, k) for k in range(ticks3)]
     now3 = time.monotonic_ns()
-    (k1_in_3, launches3, k3_in_3, gen_in_3, *df_in_3), px3, peak3, e_cpu3 = \
-        drive_slice(wt, exact_cuda, eng3, cpu3, packets3, now3)
-    check(launches3 == ticks3, f"{launches3} K2 launches in {ticks3} ticks")
-    check(k1_in_3 == 0 and k3_in_3 == 0 and gen_in_3 == 0
-          and not any(df_in_3),
-          f"{k1_in_3} K1, {k3_in_3} K3, {gen_in_3} K1-gen and {df_in_3} df "
-          "launches at N=65536")
+    counts3, px3, peak3, e_cpu3 = drive_slice(wt, exact_cuda, eng3, cpu3,
+                                              packets3, now3)
+    launches3 = counts3[COUNTERS.index("launches3")]
+    check(counts3 == only("launches3", ticks3),
+          f"launches {counts3} ({'/'.join(COUNTERS)}) in {ticks3} ticks at "
+          "N=65536: want K2's alone")
     gate3 = oracle_gate(wt, ServingEngine, 65536, ticks3, rng, now3)
     torch.cuda.synchronize()
     secs["slice3"] = time.perf_counter() - t0
     print(f"slice3: S={S3} N=65536 800px Lanczos (gather rebin), {ticks3} "
-          f"ticks, {launches3} K2 launches, {k1_in_3} K1 launches, pixels "
+          f"ticks, {launches3} K2 launches, no other kernel, pixels "
           f"{px3} finite, silent stream at DB_MIN, peak {peak3:.2f} Hz, card "
           f"vs CPU port (2 streams) {e_cpu3:.2e} dB, oracle gate "
           f"{gate3:.2e} dB (< 1e-4)", flush=True)
@@ -891,18 +949,18 @@ def main() -> None:
             cpu_p = ServingEngine(cfg_p, 4, device="cpu")
             pk = [feed_signal(rng, S, k, channels) for k in range(ticks)]
             now_p = time.monotonic_ns()
-            (k1_p, k2_p, k3_p, gen_p, *df_p), px_p, peak_p, e_cpu_p = \
-                drive_slice(wt, exact_cuda, eng_p, cpu_p, pk, now_p)
-            check(k3_p == ticks and k1_p == 0 and k2_p == 0 and gen_p == 0
-                  and not any(df_p),
-                  f"path {path}: {k3_p} K3, {k1_p} K1, {k2_p} K2, {gen_p} "
-                  f"K1-gen launches in {ticks} ticks")
+            counts_p, px_p, peak_p, e_cpu_p = drive_slice(
+                wt, exact_cuda, eng_p, cpu_p, pk, now_p)
+            k3_p = counts_p[COUNTERS.index("launches_cfft")]
+            check(counts_p == only("launches_cfft", ticks),
+                  f"path {path}: launches {counts_p} ({'/'.join(COUNTERS)}) "
+                  f"in {ticks} ticks: want K3's alone")
             gate_p = oracle_gate(wt, ServingEngine, 4096, 8, rng, now_p,
                                  channels)
             packed[path] = (eng_p, pk, now_p, k3_p)
             print(f"slice_packed: path {path} ({channels}-channel capture, "
                   f"EXACT_FUSED=never) S={S} N=4096 800px Lanczos, {ticks} "
-                  f"ticks, {k3_p} K3 launches, {k1_p} K1, {k2_p} K2, pixels "
+                  f"ticks, {k3_p} K3 launches, no other kernel, pixels "
                   f"{px_p} finite, silent stream at DB_MIN, peak "
                   f"{peak_p:.1f} Hz, card vs CPU port {e_cpu_p:.2e} dB, "
                   f"oracle gate {gate_p:.2e} dB (< 1e-4)", flush=True)
@@ -929,7 +987,7 @@ def main() -> None:
     torch.cuda.synchronize()
     secs["slice_small"] = time.perf_counter() - t0
     print(f"slice_small: path c (auto FFT size) S={S} N=800 800px Lanczos, "
-          f"{ticks} ticks, K1/K2/K3/K1-gen/K1-df/K2-df launches "
+          f"{ticks} ticks, K2/K3/K1-gen/K1-df/K2-df launches "
           f"{counts_c[0]}, pixels "
           f"{counts_c[1]} finite, silent stream at DB_MIN, peak "
           f"{counts_c[2]:.1f} Hz, card vs CPU port {counts_c[3]:.2e} dB, "
@@ -938,14 +996,29 @@ def main() -> None:
 
     # 12. times_cfft --------------------------------------------------------
     t0 = time.perf_counter()
+    lib_c = {}
     for n, s_n in ((4096, 256), (32768, 32)):
         kc_ms, pc_ms, max_abs_c = cfft_times(exact_cuda, exactfft, n, s_n,
                                              dev)
+        lib_c[n] = library_ms(n, s_n, dev, pair=False)
         print(f"times_cfft [{card}]: K3 {kc_ms * 1e3:.1f} us, twin "
-              f"{pc_ms * 1e3:.1f} us at S={s_n} N={n}, max|K3 - twin| "
-              f"{max_abs_c:.1e}", flush=True)
+              f"{pc_ms * 1e3:.1f} us, library {lib_c[n] * 1e3:.1f} us at "
+              f"S={s_n} N={n}, max|K3 - twin| {max_abs_c:.1e}; K3 "
+              + rate_line("exact_cfft", kc_ms, n, s_n), flush=True)
         if n == 4096:
             cfft_row = (kc_ms, pc_ms, max_abs_c)
+        st1, st2, both, wrapped = cfft_stage_ms(exact_cuda, exactfft, n, s_n,
+                                                dev)
+        ops1, ops2 = stage_ops("K3", n, s_n)
+        lib_dev = library_ms(n, s_n, dev, pair=False, busy_ahead=True)
+        print(f"times_cfft [{card}]: K3 stages apart (device time) at "
+              f"S={s_n} N={n}: stage 1 {st1 * 1e3:.1f} us "
+              f"({ops1 / (st1 * 1e-3) / 1e12:.1f} TOP/s), stage 2 "
+              f"{st2 * 1e3:.1f} us "
+              f"({ops2 / (st2 * 1e-3) / 1e12:.1f} TOP/s), both "
+              f"{both * 1e3:.1f} us; on the same clock the wrapper "
+              f"{wrapped * 1e3:.1f} us, the library call "
+              f"{lib_dev * 1e3:.1f} us", flush=True)
     with env("WAVEFORM_TPU_EXACT_FUSED", "never"):
         eng_a, pk_a, now_a, launches_c = packed["a"]
         ta_ms = tick_ms(eng_a, pk_a, now_a)
@@ -960,8 +1033,8 @@ def main() -> None:
     # 13. kernel_gen: K1-gen vs twin, float64, K2 and K1 ----------------
     t0 = time.perf_counter()
     sizes_g = (3072, 5120, 6144, 7168, 8192, 9216, 16384, 31744)
-    check(all(exact_cuda.stage1_split(n) == 2 and n not in exact_cuda.SIZES
-              for n in sizes_g), "K1-gen sizes route to split 2")
+    check(all(exact_cuda.stage1_split(n) == 2 for n in sizes_g),
+          "K1-gen sizes route to split 2")
     cases_g, worst_g = phase_kernel(
         exact_cuda, dev, exact_cuda.rfft_pair_mag,
         exact_cuda.rfft_pair_mag_ref, "launches_gen", sizes_g, (1, 7, 64),
@@ -977,23 +1050,6 @@ def main() -> None:
             exact_cuda, dev, exact_cuda.rfft_pair_mag,
             exact_cuda.rfft_pair_mag_ref, "launches_gen", (32768,),
             (1, 7, 64), SEED + 9)
-    rng_b = np.random.default_rng(SEED + 10)
-    for s_b in (1, 7, 64):
-        for windowed in (True, False):
-            x = (0.5 * rng_b.standard_normal((s_b, 2, 4096))).astype(
-                np.float32)
-            bad_streams(x, rng_b)
-            win = hann_pair(4096, dev)[1] if windowed else None
-            xd = torch.from_numpy(x).to(dev)
-            before = exact_cuda.launches_gen
-            g, nz_g = exact_cuda.rfft_pair_mag_gen(xd, win)
-            check(exact_cuda.launches_gen == before + 1, "launches_gen 4096")
-            k1, nz_k1 = exact_cuda.rfft_pair_mag(xd, win)
-            # NaN != NaN: the NaN stream's lanes compare by position
-            check(torch.equal(torch.nan_to_num(g, nan=-1.0),
-                              torch.nan_to_num(k1, nan=-1.0))
-                  and torch.equal(nz_g, nz_k1),
-                  f"K1-gen vs K1 at N=4096 S={s_b}: not bit-identical")
     secs["kernel_gen"] = time.perf_counter() - t0
     for w in (worst_s, worst_32):
         worst_g = {k: max(v, w[k]) for k, v in worst_g.items()}
@@ -1001,8 +1057,8 @@ def main() -> None:
           f"{sizes_g}, (6144, {S}) and 32768 under STAGE1_SPLIT=2, "
           f"max|d|/max|ref| vs twin {worst_g['twin']:.3e}, vs float64 "
           f"{worst_g['f64']:.3e} (bound {TOL}), vs K2 at 8192/16384 "
-          f"{worst_g['versus']:.3e} (bound {TOL_SPLITS}); bit-identical to "
-          "K1 at N=4096 (6 cases); nz exact; 1e20/NaN streams isolated",
+          f"{worst_g['versus']:.3e} (bound {TOL_SPLITS}); nz exact; "
+          "1e20/NaN streams isolated",
           flush=True)
 
     # 14. slice_gen: N=6144 (a slider position) and N=16384 -------------
@@ -1019,15 +1075,15 @@ def main() -> None:
         cpu_g = ServingEngine(cfg_g, n_cpu, device="cpu")
         pk_g = [feed_signal(rng, s_g, k) for k in range(ticks_g)]
         now_g = time.monotonic_ns()
-        (k1_g, k2_g, k3_g, gen_g, *df_g), px_g, peak_g, e_cpu_g = \
-            drive_slice(wt, exact_cuda, eng_g, cpu_g, pk_g, now_g)
-        check(gen_g == ticks_g and k1_g == 0 and k2_g == 0 and k3_g == 0
-              and not any(df_g),
-              f"N={n_g}: {gen_g} K1-gen, {k1_g} K1, {k2_g} K2, {k3_g} K3 "
-              f"launches in {ticks_g} ticks")
+        counts_g, px_g, peak_g, e_cpu_g = drive_slice(
+            wt, exact_cuda, eng_g, cpu_g, pk_g, now_g)
+        gen_g = counts_g[COUNTERS.index("launches_gen")]
+        check(counts_g == only("launches_gen", ticks_g),
+              f"N={n_g}: launches {counts_g} ({'/'.join(COUNTERS)}) in "
+              f"{ticks_g} ticks: want K1-gen's alone")
         gate_g = oracle_gate(wt, ServingEngine, n_g, ticks_g, rng, now_g)
         print(f"slice_gen: S={s_g} N={n_g} 800px Lanczos, {ticks_g} ticks, "
-              f"{gen_g} K1-gen launches, K1/K2/K3 {k1_g}/{k2_g}/{k3_g}, "
+              f"{gen_g} K1-gen launches, no other kernel, "
               f"pixels {px_g} finite, silent stream at DB_MIN, peak "
               f"{peak_g:.2f} Hz, card vs CPU port ({n_cpu} streams) "
               f"{e_cpu_g:.2e} dB, oracle gate {gate_g:.2e} dB (< 1e-4)",
@@ -1059,12 +1115,6 @@ def main() -> None:
     print(f"times_gen [{card}]: K2 {k2_ms * 1e3:.1f} us, twin "
           f"{p2_ms * 1e3:.1f} us, bound {b2_ms * 1e3:.2f} us ({b2_by}) at "
           f"S={S} N=16384", flush=True)
-    # K1's own sizes: the router keeps them on K1 while K1 is the faster
-    g4_ms, k4_ms, d4 = kernel_times(exact_cuda.rfft_pair_mag_gen,
-                                    exact_cuda.rfft_pair_mag, 4096, S, dev)
-    print(f"times_gen [{card}]: K1-gen (direct entry) {g4_ms * 1e3:.1f} us, "
-          f"K1 {k4_ms * 1e3:.1f} us at S={S} N=4096, max|K1-gen - K1| "
-          f"{d4:.1e}", flush=True)
     eng_g, pk_g, now_g, launches_gen = gen_slice
     tg_ms = tick_ms(eng_g, pk_g, now_g)
     print(f"times_gen [{card}]: full tick (feed_batch + tick) "
@@ -1072,7 +1122,7 @@ def main() -> None:
           f"{S / (tg_ms * 1e-3):,.0f} frames/s", flush=True)
     libs = {"exact_mag": library_ms(4096, S, dev),
             "exact_mag3": lib3[65536],
-            "exact_cfft": library_ms(4096, S, dev, pair=False)}
+            "exact_cfft": lib_c[4096]}
     secs["times_gen"] = time.perf_counter() - t0
 
     # 16. kernel_df: K1-df and K2-df vs their twins, float64, the f32 tier
@@ -1108,7 +1158,7 @@ def main() -> None:
             now_d = time.monotonic_ns()
             counts_d, px_d, peak_d, e_cpu_d = drive_slice(
                 wt, exact_cuda, eng_d, cpu_d, pk_d, now_d)
-            want = tuple(ticks_d if c == counter else 0 for c in COUNTERS)
+            want = only(counter, ticks_d)
             check(counts_d == want, f"df N={n_d}: launches {counts_d} "
                   f"({'/'.join(COUNTERS)}), want {want}")
             gate_d = oracle_gate(wt, ServingEngine, n_d, ticks_d, rng, now_d)
@@ -1178,7 +1228,7 @@ def main() -> None:
     # the df kernels are the df instances of exact_mag_gen.cu and
     # exact_mag3.cu: the f32 sources' MACs and bytes bound them
     for name, source, line, n, s_n, count, row in (
-            ("exact_mag", "exact_mag", 525, 4096, S, launches,
+            ("exact_mag", "exact_mag_gen", 525, 4096, S, launches,
              (k_ms, p_ms, max_abs, libs["exact_mag"])),
             ("exact_mag3", "exact_mag3", 825, 65536, 32, launches3,
              (*mag3_row, libs["exact_mag3"])),

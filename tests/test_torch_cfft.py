@@ -20,6 +20,9 @@ from waveform_tpu.kernels import exactfft as jex
 from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.kernels import exactfft as tex
 
+from test_torch_exact_mag3 import _unpack_b2
+from test_torch_exact_mag_gen import _unpack_a1
+
 TOL = 2.5e-7
 ATOL = 2e-7
 
@@ -71,17 +74,20 @@ def test_plan_constants_match_jax(n):
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("n", [1024, 3072])
+@pytest.mark.parametrize("n", [1024, 3072, 4096, 32768])
 def test_packed_words_hold_the_planes(n):
-    """The int8x4 words the kernel reads unpack to the digit planes: F1b
-    along its columns (stage 1 contracts them), F2b along its rows."""
-    _, _, f1d, f2d, *tw = exact_cuda._kernel_plan_cfft(n)
+    """The int8x4 words the kernel reads unpack to the digit planes: ``f1f``
+    to F1b (A fragments, the 2·N1-deep contraction zero-padded to k-steps
+    of 32: N1 = 8 one half-empty k-step, 24 two, 32 two, 256 sixteen),
+    ``f2b`` to all 256 columns of F2b (B fragments, 32 N tiles)."""
+    n1, _, f1d, f2d, *tw = exact_cuda._kernel_plan_cfft(n)
     c = exact_cuda._consts_cfft(n, torch.device("cpu"))
-    f1 = c["f1w"].numpy().view(np.int8).reshape(f1d.shape)
-    np.testing.assert_array_equal(f1, f1d)
-    f2 = c["f2w"].numpy().view(np.int8).reshape(4, 64, 256, 4)
-    np.testing.assert_array_equal(f2.transpose(0, 1, 3, 2).reshape(f2d.shape),
-                                  f2d)
+    frag = c["f1f"].numpy()
+    assert frag.dtype == np.int32 and frag.shape == (
+        4, n1 // 8, -(-2 * n1 // 32), 32, 4)
+    np.testing.assert_array_equal(_unpack_a1(frag, 2 * n1), f1d)
+    assert c["f2b"].shape == (4, 8, 32, 32, 2)
+    np.testing.assert_array_equal(_unpack_b2(c["f2b"].numpy()), f2d)
     np.testing.assert_array_equal(c["tw"].numpy(), np.stack(tw))
     assert np.abs(f1d).max() <= 64 and np.abs(f2d).max() <= 64
 
@@ -193,7 +199,7 @@ def test_sizes_without_pair_kernel_geometry_raise(monkeypatch):
     admitted = [n for n in range(128, 65537, 16) if jep.supports(n)]
     assert len(admitted) == 40 and admitted[0] == 1024
     gen = [n for n in admitted
-           if exact_cuda.stage1_split(n) == 2 and n not in exact_cuda.SIZES]
+           if exact_cuda.stage1_split(n) == 2 and n not in (1024, 2048, 4096)]
     assert len(gen) == 28 and gen[0] == 3072 and gen[-1] == 31744
     for n in (128, 1040, 3080, 65536 + 128):
         assert not jep.supports(n)

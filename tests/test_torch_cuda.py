@@ -25,6 +25,7 @@ from waveform_tpu_torch.runtime.serving import ServingEngine
 pytestmark = pytest.mark.cuda
 
 TOL = 2.5e-7
+K1_SIZES = (1024, 2048, 4096)   # N1 = 8, 16, 32: K1's sizes, K1-gen's now
 
 
 @pytest.fixture
@@ -35,9 +36,9 @@ def dev():
 
 
 def _counts():
-    """(K1, K2, K3, K1-gen) launch counts."""
-    return (exact_cuda.launches, exact_cuda.launches3,
-            exact_cuda.launches_cfft, exact_cuda.launches_gen)
+    """(K2, K3, K1-gen) launch counts."""
+    return (exact_cuda.launches3, exact_cuda.launches_cfft,
+            exact_cuda.launches_gen)
 
 
 def _hann(n, dev):
@@ -48,19 +49,21 @@ def _hann(n, dev):
 
 
 @pytest.mark.parametrize("S", [1, 5, 256])
-@pytest.mark.parametrize("n", exact_cuda.SIZES)
+@pytest.mark.parametrize("n", K1_SIZES)
 def test_kernel_matches_twin_and_f64(n, S, dev):
+    """K1's sizes through the router: one K1-gen launch and no other
+    kernel, bit for bit against the twin, within 2.5e-7 of float64."""
     rng = np.random.default_rng(n + S)
     x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
     x[-1, -1] = 0.0
     w64, win = _hann(n, dev)
     xd = torch.from_numpy(x).to(dev)
-    before = exact_cuda.launches
+    before = _counts()
     mag, nz = exact_cuda.rfft_pair_mag(xd, win)
     torch.cuda.synchronize()
-    assert exact_cuda.launches == before + 1
+    assert _counts() == (*before[:2], before[2] + 1)
     ref, nz_ref = exact_cuda.rfft_pair_mag_ref(xd, win)
-    assert exact_cuda.launches == before + 1
+    assert _counts() == (*before[:2], before[2] + 1)
     assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
     want = np.abs(np.fft.rfft(x.astype(np.float64) * w64))[..., :n // 2]
     got = mag.cpu().numpy().astype(np.float64)
@@ -92,7 +95,7 @@ def test_k2_matches_twin_and_f64(n, S, dev):
     """K2 at every size it serves, bit for bit against its twin with a
     silent, a 1e20 and a NaN stream (NaN lanes by position): through the
     router at 32768 and 65536, through its direct entry point below (the
-    router sends 4096 to K1 and 8192/16384 to K1-gen)."""
+    router sends 4096, 8192 and 16384 to K1-gen)."""
     rng = np.random.default_rng(n + S + 7)
     x = (0.5 * rng.standard_normal((S, 2, n))).astype(np.float32)
     x[-1, -1] = 0.0
@@ -104,7 +107,7 @@ def test_k2_matches_twin_and_f64(n, S, dev):
     before = _counts()
     mag, nz = call(xd, win)
     torch.cuda.synchronize()
-    assert _counts() == (before[0], before[1] + 1, before[2], before[3])
+    assert _counts() == (before[0] + 1, before[1], before[2])
     ref, nz_ref = exact_cuda.rfft_pair_mag3_ref(xd, win)
     assert _same_bits(mag, ref) and torch.equal(nz, nz_ref)
     want = np.abs(np.fft.rfft(x[good].astype(np.float64) * w64))[..., :n // 2]
@@ -115,19 +118,15 @@ def test_k2_matches_twin_and_f64(n, S, dev):
 
 
 def test_k2_runs_on_the_int8_tensor_cores(dev):
-    """The SASS of the built library: the two kernels of K2 and K2-df and
-    of K1-gen and K1-df each hold int8 tensor-core products (IMMA from
-    mma.sync, or IGMMA from wgmma) and no __dp4a (IDP.4A); the sources not
-    redesigned yet (K1's three kernels, K3's four) keep their IDP.4A."""
+    """The SASS of the built library: every kernel (stage 1 and stage 2 of
+    K2, K2-df, K1-gen, K1-df and K3) holds int8 tensor-core products (IMMA
+    from mma.sync, or IGMMA from wgmma) and no __dp4a (IDP.4A)."""
     counts = exact_cuda.sass_counts()
-    tensor = {fn: c for fn, c in counts.items()
-              if "exact_mag3_stage" in fn or "exact_mag_gen_stage" in fn}
-    assert len(tensor) == 8   # stage 1 and stage 2, f32 and df, two sources
-    for fn, c in tensor.items():
+    assert len(counts) == 10, counts
+    for fn, c in counts.items():
         assert c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0, (fn, c)
-    rest = {fn: c for fn, c in counts.items() if fn not in tensor}
-    assert len(rest) == 7 and all(c["IDP.4A"] > 0 for c in rest.values()), \
-        rest
+    cfft = [fn for fn in counts if "exact_cfft_stage" in fn]
+    assert len(cfft) == 2, cfft
 
 
 def test_corrupt_streams_isolated_on_card(dev):
@@ -171,7 +170,7 @@ def test_engine_on_card_matches_cpu_port(per_stream, dev):
     card = ServingEngine(cfg, S, device=dev)
     cpu = ServingEngine(cfg, S, device="cpu")
     rng = np.random.default_rng(2)
-    before = exact_cuda.launches
+    before = _counts()
     for k in range(8):
         x = (0.3 * rng.standard_normal((S, 2, 800))).astype(np.float32)
         x[-1] = 0.0
@@ -183,7 +182,7 @@ def test_engine_on_card_matches_cpu_port(per_stream, dev):
             else:
                 eng.feed_batch(x, now, now_ns=now)
             eng.tick(now_ns=now)
-    assert exact_cuda.launches == before + 8
+    assert _counts() == (*before[:2], before[2] + 8)
     db, want = card.read_decibels(), cpu.read_decibels()
     vis = want > -120.0
     np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)
@@ -195,8 +194,8 @@ def test_engine_on_card_matches_cpu_port(per_stream, dev):
 
 def test_large_fft_engine_on_card_matches_cpu_port(dev):
     """N=16384 behind enable_large_fft: one K1-gen launch per tick, as the
-    JAX package's split rule sends 16384 to its 2-factor body (no K1, K2
-    or K3 launch), 21 ticks to fill the window, against the CPU port."""
+    JAX package's split rule sends 16384 to its 2-factor body (no K2 or
+    K3 launch), 21 ticks to fill the window, against the CPU port."""
     cfg = resolve(Settings(fft_size=16384, enable_large_fft=True, width=800,
                            window=FFTWindow.HANN,
                            interp_mode=InterpMode.LANCZOS),
@@ -213,7 +212,7 @@ def test_large_fft_engine_on_card_matches_cpu_port(dev):
         for eng in (card, cpu):
             eng.feed_batch(x, now, now_ns=now)
             eng.tick(now_ns=now)
-    assert _counts() == (*before[:3], before[3] + ticks)
+    assert _counts() == (*before[:2], before[2] + ticks)
     db, want = card.read_decibels(), cpu.read_decibels()
     vis = want > -120.0
     np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)
@@ -253,6 +252,30 @@ def test_k3_matches_twin_and_f64(n, dev):
     assert (got[-1] == 0).all()
 
 
+@pytest.mark.parametrize("n", [1024, 4096, 6144, 9216, 32768])
+def test_k3_bad_streams_bitwise(n, dev):
+    """K3 bit for bit against its twin in all four df32 outputs with a
+    silent, a 1e20 and a NaN stream (NaN lanes by position), f32 inputs.
+    Stage 1's 64-row groups: one at N = 1024 (a quarter of it M tiles) and
+    4096, two at 6144 (the second partial), three at 9216 (the second
+    warpgroup takes one), eight at 32768."""
+    rng = np.random.default_rng(n + 23)
+    x = (0.5 * rng.standard_normal((7, 2, n))).astype(np.float32)
+    good = _bad_streams(x, rng)
+    xd = torch.from_numpy(x).to(dev)
+    re, im = xd[:, 0].contiguous(), xd[:, 1].contiguous()
+    z = exact_cuda.cfft_exact_kernel(re, im)
+    ref = exact_cuda.cfft_exact_ref(re, im)
+    for got, want in zip((*z[0], *z[1]), (*ref[0], *ref[1])):
+        assert _same_bits(got, want)
+    assert (z[0][0][1] == 0).all() and (z[1][0][1] == 0).all()
+    got = ((z[0][0].double() + z[0][1].double()).cpu().numpy()
+           + 1j * (z[1][0].double() + z[1][1].double()).cpu().numpy())[good]
+    want = np.fft.fft(x[good, 0].astype(np.float64)
+                      + 1j * x[good, 1].astype(np.float64))
+    assert np.abs(got - want).max() / np.abs(want).max() <= TOL
+
+
 @pytest.mark.parametrize("channels", [2, 1])
 def test_fused_never_engine_on_card_matches_cpu_port(channels, dev,
                                                      monkeypatch):
@@ -267,8 +290,7 @@ def test_fused_never_engine_on_card_matches_cpu_port(channels, dev,
     card = ServingEngine(cfg, S, device=dev)
     cpu = ServingEngine(cfg, S, device="cpu")
     rng = np.random.default_rng(4)
-    before = (exact_cuda.launches, exact_cuda.launches3,
-              exact_cuda.launches_cfft)
+    before = _counts()
     for k in range(6):
         x = (0.3 * rng.standard_normal((S, channels, 800))).astype(np.float32)
         x[-1] = 0.0
@@ -276,8 +298,7 @@ def test_fused_never_engine_on_card_matches_cpu_port(channels, dev,
         for eng in (card, cpu):
             eng.feed_batch(x, now, now_ns=now)
             eng.tick(now_ns=now)
-    assert (exact_cuda.launches, exact_cuda.launches3,
-            exact_cuda.launches_cfft) == (before[0], before[1], before[2] + 6)
+    assert _counts() == (before[0], before[1] + 6, before[2])
     db, want = card.read_decibels(), cpu.read_decibels()
     vis = want > -120.0
     np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)
@@ -301,7 +322,7 @@ def test_k1_gen_matches_twin_and_f64(n, S, dev):
     before = _counts()
     mag, nz = exact_cuda.rfft_pair_mag(xd, win)
     torch.cuda.synchronize()
-    assert _counts() == (*before[:3], before[3] + 1)
+    assert _counts() == (*before[:2], before[2] + 1)
     ref, nz_ref = exact_cuda.rfft_pair_mag_ref(xd, win)
     assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
     want = np.abs(np.fft.rfft(x.astype(np.float64) * w64))[..., :n // 2]
@@ -311,9 +332,11 @@ def test_k1_gen_matches_twin_and_f64(n, S, dev):
                                   np.count_nonzero(x, axis=-1))
 
 
-@pytest.mark.parametrize("n", exact_cuda.SIZES)
+@pytest.mark.parametrize("n", K1_SIZES)
 def test_k1_gen_matches_k1_bitwise(n, dev):
-    """K1-gen's direct entry point at K1's own sizes gives K1's bits."""
+    """K1's sizes through the router (K1-gen) give the bits of K1-gen's
+    direct entry point and of the twin that K1 was held to, with a 1e20
+    and a NaN stream (NaN lanes by position)."""
     rng = np.random.default_rng(n + 17)
     x = (0.5 * rng.standard_normal((7, 2, n))).astype(np.float32)
     x[3] = 1e20 * rng.standard_normal((2, n))
@@ -321,11 +344,10 @@ def test_k1_gen_matches_k1_bitwise(n, dev):
     _, win = _hann(n, dev)
     xd = torch.from_numpy(x).to(dev)
     gen, nz_gen = exact_cuda.rfft_pair_mag_gen(xd, win)
-    k1, nz_k1 = exact_cuda.rfft_pair_mag(xd, win)
-    # NaN != NaN: compare the NaN stream's lanes by position
-    assert torch.equal(torch.nan_to_num(gen, nan=-1.0),
-                       torch.nan_to_num(k1, nan=-1.0))
-    assert torch.equal(nz_gen, nz_k1)
+    routed, nz_routed = exact_cuda.rfft_pair_mag(xd, win)
+    ref, nz_ref = exact_cuda.rfft_pair_mag_ref(xd, win)
+    assert _same_bits(gen, routed) and _same_bits(routed, ref)
+    assert torch.equal(nz_gen, nz_routed) and torch.equal(nz_routed, nz_ref)
 
 
 def test_k1_gen_engine_on_card_matches_cpu_port(dev):
@@ -346,7 +368,7 @@ def test_k1_gen_engine_on_card_matches_cpu_port(dev):
         for eng in (card, cpu):
             eng.feed_batch(x, now, now_ns=now)
             eng.tick(now_ns=now)
-    assert _counts() == (*before[:3], before[3] + ticks)
+    assert _counts() == (*before[:2], before[2] + ticks)
     db, want = card.read_decibels(), cpu.read_decibels()
     vis = want > -120.0
     np.testing.assert_allclose(db[vis], want[vis], rtol=0, atol=1e-4)

@@ -153,14 +153,40 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_cpu_tensors_take_the_twin_and_count_no_launch():
-    before = exact_cuda.launches
+    before = (exact_cuda.launches_gen, exact_cuda.launches_gen_df)
     x = torch.from_numpy(
         np.random.default_rng(2).standard_normal((2, 2, 2048))
         .astype(np.float32))
     mag, nz = exact_cuda.rfft_pair_mag(x)
     ref, nz_ref = exact_cuda.rfft_pair_mag_ref(x)
     assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
-    assert exact_cuda.launches == before
+    assert (exact_cuda.launches_gen, exact_cuda.launches_gen_df) == before
+
+
+@pytest.mark.parametrize("tier", ["f32", "df"])
+@pytest.mark.parametrize("n", [1024, 2048, 4096])
+def test_k1_sizes_route_to_k1_gen(n, tier, monkeypatch):
+    """N1 in {8, 16, 32} (N = 1024, 2048, 4096) reach ``rfft_pair_mag_gen``
+    at both twiddle tiers: K1-gen (or K1-df) is the only kernel of K1's
+    body."""
+    monkeypatch.delenv("WAVEFORM_TPU_STAGE1_SPLIT", raising=False)
+    monkeypatch.setenv("WAVEFORM_TPU_KERNEL_TWIDDLE", tier)
+    calls = []
+    gen = exact_cuda.rfft_pair_mag_gen
+
+    def record(x, window=None, twiddle=None):
+        calls.append((x.shape[-1], twiddle))
+        return gen(x, window, twiddle)
+
+    monkeypatch.setattr(exact_cuda, "rfft_pair_mag_gen", record)
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (1, 2, n)).astype(np.float32))
+    mag, nz = exact_cuda.rfft_pair_mag(x)
+    assert calls == [(n, tier)]
+    twin = (exact_cuda.rfft_pair_mag_df_ref if tier == "df"
+            else exact_cuda.rfft_pair_mag_ref)
+    ref, nz_ref = twin(x)
+    assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
 
 
 def test_df32_primitives_are_error_free():

@@ -81,9 +81,9 @@ def _both(x, hi, lo):
 
 
 def _launches():
-    return (exact_cuda.launches, exact_cuda.launches3,
-            exact_cuda.launches_cfft, exact_cuda.launches_gen,
-            exact_cuda.launches_gen_df, exact_cuda.launches3_df)
+    return (exact_cuda.launches3, exact_cuda.launches_cfft,
+            exact_cuda.launches_gen, exact_cuda.launches_gen_df,
+            exact_cuda.launches3_df)
 
 
 @pytest.mark.parametrize("mode,on", [(None, True), ("auto", True),

@@ -1,4 +1,4 @@
-// Shared device code of the exact FFT kernels (exact_mag.cu, exact_mag_gen.cu,
+// Shared device code of the exact FFT kernels (exact_mag_gen.cu,
 // exact_mag3.cu, exact_cfft.cu).
 //
 // Every rounding is spelled out with __fmul_rn/__fadd_rn/__fsub_rn, and the
@@ -7,23 +7,23 @@
 // kernels/exact_cuda.py give the same bits.
 //
 // The df tier's pieces (slice_serial, recombine_df, df_mul, twiddle_df_v,
-// stage2_slice_df, mag_df) serve the complex kernel exact_cfft.cu and the df
-// instances of exact_mag_gen.cu and exact_mag3.cu; they are the arithmetic of
-// kernels/exactfft.py's _slice_df, _digit_gemm and df_mul, and of the df
-// branches of exact_pallas.py's _real_mag_tail and _tail_stage2.
+// stage2_slice_df_into, mag_df) serve the complex kernel exact_cfft.cu and
+// the df instances of exact_mag_gen.cu and exact_mag3.cu; they are the
+// arithmetic of kernels/exactfft.py's _slice_df, _digit_gemm and df_mul, and
+// of the df branches of exact_pallas.py's _real_mag_tail and _tail_stage2.
 //
-// Stage 2 (stage2_slice or stage2_slice_df, then stage2_mag) is the kept-half
-// DFT over j2 that the real-split kernels end with: per (stream, channel, k1)
-// row of 256 values [br | bi], one pow2 scale from the hi words, the digit
-// slice (f32 tier: the fast fixed-point extract of f32 values; df tier: the
-// serial slice of (hi, lo)), 10 exact int8 digit-pair products against the
-// 128 KB of f2 digits, then the f32 tier's ((w0 + w1) + w2) + w3, a clamp to
-// +-2^63 and sqrt(cr^2 + ci^2), or the df tier's TwoSum recombination, the
-// clamp of the hi words and mag_df.  stage2_mag runs the digit products as
-// __dp4a (K1, f32 tier only); stage2_mag_mma runs them on the int8 tensor
-// cores (mma.sync: K2, K2-df, K1-gen, K1-df; their stage 1 runs
-// digit_wgmma) and gives the same class sums, since int32 sums of int8
-// products are exact in any order.
+// Stage 2 is a DFT over j2 of rows of 256 values [br | bi]: per row one
+// pow2 scale from the hi words, the digit slice (f32 tier: the fast
+// fixed-point extract of f32 values, stage2_slice_into; df tier: the serial
+// slice of (hi, lo), stage2_slice_df_into), then 10 exact int8 digit-pair
+// products on the int8 tensor cores (stage2_mma, mma.sync).  The real-split
+// kernels (K2, K2-df, K1-gen, K1-df) keep the half k2 < 64 and end in
+// stage2_mag_mma: the f32 tier's ((w0 + w1) + w2) + w3, a clamp to +-2^63
+// and sqrt(cr^2 + ci^2), or the df tier's TwoSum recombination, the clamp of
+// the hi words and mag_df.  K3 (exact_cfft.cu) keeps every k2 and stores
+// the TwoSum recombination as df32.  Every stage 1 runs digit_wgmma.  The
+// int32 class sums of int8 products are exact in any order, so every bit
+// equals the twins'.
 
 #pragma once
 
@@ -258,18 +258,6 @@ __device__ __forceinline__ void stage2_slice_into(Row row, float* row_scale,
   }
 }
 
-// Stage-2 slice in place: each row's words [plane][kWords2] overwrite its
-// f32 values.
-template <int kRows>
-__device__ __forceinline__ void stage2_slice(float (*rows)[kRow2],
-                                             float* row_scale) {
-  stage2_slice_into<kRows>(
-      [rows](int r) -> const float* { return rows[r]; }, row_scale,
-      [rows](int r, int k, int w) -> int& {
-        return reinterpret_cast<int*>(rows[r])[k * kWords2 + w];
-      });
-}
-
 // The df tier's stage-2 slice into any word layout, one warp per row: flat
 // rows R = row_of(r), r < kRows, of the (hi, lo) planes `rows` (hi at rows
 // + R*kRow2, lo `plane` floats further) each get one pow2 scale from their
@@ -321,76 +309,7 @@ __device__ __forceinline__ void stage2_slice_df_into(
   }
 }
 
-// The df tier's stage-2 slice of the flat rows row0 .. row0 + kRows - 1
-// into words[r][plane][kWords2].
-template <int kRows>
-__device__ __forceinline__ void stage2_slice_df(const float* __restrict__ rows,
-                                                size_t plane, int row0,
-                                                int total,
-                                                int (*words)[kRow2],
-                                                float* row_scale) {
-  stage2_slice_df_into<kRows>(
-      rows, plane, [row0](int r) { return row0 + r; }, total, row_scale,
-      [words](int r, int k, int w) -> int& {
-        return words[r][k * kWords2 + w];
-      });
-}
-
-// Stage 2 proper on __dp4a over kRows sliced rows, at the f32 tier (K1):
-// thread (k2, row group) runs the re and im columns of its k2 together, the
-// f2 digit words (f2w [4][64][128] packed int8x4 along the [br | bi] row)
-// streaming from L2.  emit(r, k2, m) receives the magnitude of row r at
-// kept bin k2.
-template <int kRows, class Emit>
-__device__ __forceinline__ void stage2_mag(const float (*rows)[kRow2],
-                                           const float* row_scale,
-                                           const int* __restrict__ f2w,
-                                           Emit emit) {
-  constexpr int kRowsPerGroup = kRows / (kThreads / kKeep);
-  constexpr int kTile = kRowsPerGroup < 8 ? kRowsPerGroup : 8;
-  const int k2 = threadIdx.x & (kKeep - 1);
-  const int group = threadIdx.x / kKeep;
-  for (int r0 = group * kRowsPerGroup; r0 < (group + 1) * kRowsPerGroup;
-       r0 += kTile) {
-    int acc[kTile][2][kDigits];
-#pragma unroll
-    for (int r = 0; r < kTile; ++r)
-#pragma unroll
-      for (int k = 0; k < kDigits; ++k) acc[r][0][k] = acc[r][1][k] = 0;
-    for (int kc = 0; kc < kWords2; ++kc) {
-      int fr[kDigits], fi[kDigits];
-#pragma unroll
-      for (int p = 0; p < kDigits; ++p) {
-        fr[p] = __ldg(f2w + (p * kWords2 + kc) * kLanes + k2);
-        fi[p] = __ldg(f2w + (p * kWords2 + kc) * kLanes + kKeep + k2);
-      }
-#pragma unroll
-      for (int r = 0; r < kTile; ++r) {
-        const int* words = reinterpret_cast<const int*>(rows[r0 + r]);
-        int dw[kDigits];
-#pragma unroll
-        for (int p = 0; p < kDigits; ++p) dw[p] = words[p * kWords2 + kc];
-#pragma unroll
-        for (int t = 0; t < kDigits; ++t) {
-#pragma unroll
-          for (int i = 0; i <= t; ++i) {
-            acc[r][0][t] = __dp4a(dw[t - i], fr[i], acc[r][0][t]);
-            acc[r][1][t] = __dp4a(dw[t - i], fi[i], acc[r][1][t]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kTile; ++r) {
-      const float s2 = row_scale[r0 + r];
-      const float cr = clamp63(recombine(acc[r][0], s2));
-      const float ci = clamp63(recombine(acc[r][1], s2));
-      emit(r0 + r, k2, sqrtf(fadd(fmul(cr, cr), fmul(ci, ci))));
-    }
-  }
-}
-
-// ---- the int8 tensor cores (K2, K2-df, K1-gen, K1-df) ---------------------
+// ---- the int8 tensor cores -------------------------------------------------
 //
 // wgmma m64n32k32 s8 x s8 -> s32 runs one warpgroup (4 warps) over 64 rows
 // (M) x 32 columns (N) x 32 int8 of the contraction (k).  A comes from
@@ -527,23 +446,24 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Stage 2 proper on the tensor cores (mma.sync) over kRows sliced rows
-// (kRows % 32 == 0, rows kStride words apart, kStride % 32 == 4 so the A
-// loads are free of bank conflicts): warp w owns the 8 re columns k2 =
-// 8w..8w+7 and the 8 im columns of the same k2 (N tiles w and w + 8), so
-// each thread holds re and im of its (row, k2) and takes the magnitude in
-// registers.  A = the rows' data digit words from shared memory; B = the f2
-// digits f2b [4][8 k-steps][16 N tiles][32 lanes][2] (exact_cuda._frag_b2:
-// one 8-byte __ldg per lane is one B fragment).  Class t sums the products
-// data digit t - i by f2 digit i, as stage2_mag does.  emit(r, k2, m) as in
-// stage2_mag.  The block's kThreads threads call it.
-template <int kRows, int kStride, bool kDf, class Emit>
-__device__ __forceinline__ void stage2_mag_mma(const int (*words)[kStride],
-                                               const float* row_scale,
-                                               const int* __restrict__ f2b,
-                                               Emit emit) {
+// Stage 2's digit products on the tensor cores (mma.sync) over kRows sliced
+// rows (kRows % 32 == 0, rows kStride words apart, kStride % 32 == 4 so the
+// A loads are free of bank conflicts), against the f2 digits in B-fragment
+// order f2b [4][8 k-steps][kTiles N tiles][32 lanes][2] (exact_cuda._frag_b2:
+// one 8-byte __ldg per lane is one B fragment), whose first kTiles / 2 N
+// tiles are re columns and the rest the im columns of the same k2: warp w
+// runs N tiles tile0 + w (re columns k2 = 8*(tile0 + w) .. + 7) and
+// tile0 + w + kTiles / 2 (im, the same k2), so each thread holds re and im
+// of its (row, k2).  A = the rows' data digit words from shared memory.
+// Class t sums the products data digit t - i by f2 digit i.  sums(r, k2,
+// cre, cim) receives the int32 class sums of row r at re and im column k2.
+// The block's kThreads threads call it.
+template <int kRows, int kStride, int kTiles, class Sums>
+__device__ __forceinline__ void stage2_mma(const int (*words)[kStride],
+                                           const int* __restrict__ f2b,
+                                           int tile0, Sums sums) {
   static_assert(kThreads == 256 && kRows % 32 == 0 && kStride % 32 == 4,
-                "stage2_mag_mma: 8 warps, 32-row passes, padded rows");
+                "stage2_mma: 8 warps, 32-row passes, padded rows");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gl = lane >> 2, tl = lane & 3;
@@ -564,8 +484,9 @@ __device__ __forceinline__ void stage2_mag_mma(const int (*words)[kStride],
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int p = 0; p < kDigits; ++p) {
-          const int2 v =
-              __ldg(bsrc + ((p * (kWords2 / 8) + ks) * 16 + warp + 8 * h) * 32);
+          const int2 v = __ldg(bsrc + ((p * (kWords2 / 8) + ks) * kTiles +
+                                       tile0 + warp + kTiles / 2 * h) *
+                                          32);
           bf[h][p][0] = static_cast<uint32_t>(v.x);
           bf[h][p][1] = static_cast<uint32_t>(v.y);
         }
@@ -594,14 +515,31 @@ __device__ __forceinline__ void stage2_mag_mma(const int (*words)[kStride],
     for (int m = 0; m < 2; ++m)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {       // c reg: row half q / 2, column q % 2
-        const int r = m0 + 16 * m + gl + 8 * (q >> 1);
-        const int k2 = 8 * warp + 2 * tl + (q & 1);
         int cre[kDigits], cim[kDigits];
 #pragma unroll
         for (int t = 0; t < kDigits; ++t) {
           cre[t] = acc[m][0][t][q];
           cim[t] = acc[m][1][t][q];
         }
+        sums(m0 + 16 * m + gl + 8 * (q >> 1),
+             8 * (tile0 + warp) + 2 * tl + (q & 1), cre, cim);
+      }
+  }
+}
+
+// The real-split kernels' stage 2 (K2, K2-df, K1-gen, K1-df): stage2_mma
+// over the kept half (f2b with 16 N tiles: k2 < 64, re then im), then the
+// magnitude of each (row r, kept bin k2), clamped as the tier does, handed
+// to emit(r, k2, m).
+template <int kRows, int kStride, bool kDf, class Emit>
+__device__ __forceinline__ void stage2_mag_mma(const int (*words)[kStride],
+                                               const float* row_scale,
+                                               const int* __restrict__ f2b,
+                                               Emit emit) {
+  stage2_mma<kRows, kStride, 2 * kKeep / 8>(
+      words, f2b, 0,
+      [&](int r, int k2, const int (&cre)[kDigits],
+          const int (&cim)[kDigits]) {
         const float s2 = row_scale[r];
         if constexpr (kDf) {
           float crh, crl, cih, cil;
@@ -613,8 +551,7 @@ __device__ __forceinline__ void stage2_mag_mma(const int (*words)[kStride],
           const float ci = clamp63(recombine(cim, s2));
           emit(r, k2, sqrtf(fadd(fmul(cr, cr), fmul(ci, ci))));
         }
-      }
-  }
+      });
 }
 
 }  // namespace wf

@@ -25,7 +25,7 @@
 //     mag[s,c,k1(pos) + N1*k2] = sqrt(cr^2 + ci^2), components clamped to 2^63
 //                 (df: the hi words, then mag_df)
 //
-// Rounding: as exact_mag.cu (-fmad=false, every rounding spelled out), so the
+// Rounding: -fmad=false and every rounding spelled out, so the
 // plain PyTorch twins rfft_pair_mag3_ref and rfft_pair_mag3_df_ref in
 // kernels/exact_cuda.py give the same bits.
 //
@@ -48,7 +48,7 @@
 // at (N, S) = (65536, 32), on wgmma ~81 us (NVIDIA H100 80GB HBM3, 700 W;
 // chip_smoke.py's stage timing).
 //
-// N=65536 does not fit exact_mag.cu's one-block-per-stream design (one
+// N=65536 does not fit a one-block-per-stream design (one
 // channel's df32 column set is 512 KB, c02 and c13 are 512 KB each, a block
 // has 227 KB of shared memory), so this kernel runs in two launches:
 //

@@ -1,14 +1,11 @@
 // Exact |rFFT| of channel pairs at every 2-factor size: K1-gen and K1-df.
 //
 // Replaces waveform_tpu/kernels/exact_pallas.py:525 (_kernel_real_mag) for
-// sm_90a at both twiddle tiers.  K1-gen is the f32 tier (fast parallel
-// slice) at N1 = N/128 outside {8, 16, 32}: every N1 % 8 == 0 up to 256
-// (N <= 32768), where exact_mag.cu's design (one block per stream, one whole
-// column per thread in registers, F1's digits resident in shared memory)
-// does not fit.  K1-df is the df tier (twiddle == "df": _slice4(exact=True),
-// _digit_stage's TwoSum, the Dekker twiddle, _tail_stage2(exact=True)) at
-// every N1 % 8 == 0 up to 256, K1's three sizes included.  Both compute,
-// with bins in natural order:
+// sm_90a at both twiddle tiers, at every N1 = N/128 with N1 % 8 == 0 up to
+// 256 (N <= 32768).  K1-gen is the f32 tier (fast parallel slice); K1-df is
+// the df tier (twiddle == "df": _slice4(exact=True), _digit_stage's TwoSum,
+// the Dekker twiddle, _tail_stage2(exact=True)).  Both compute, with bins
+// in natural order:
 //
 //   for each stream s and channel c, N = 128*N1, j = 128*j1 + j2:
 //     nz[s,c]   = count of raw samples != 0 (before the window)
@@ -24,10 +21,9 @@
 //     mag[s,c,k1 + N1*k2] = sqrt(cr^2 + ci^2), components clamped to 2^63
 //                 (df: the hi words, then mag_df)
 //
-// Rounding: as exact_mag.cu (-fmad=false, every rounding spelled out in
-// exact_common.cuh), so the plain PyTorch twins rfft_pair_mag_ref and
-// rfft_pair_mag_df_ref in kernels/exact_cuda.py give the same bits, and at
-// the f32 tier so does exact_mag.cu at N1 in {8, 16, 32}.
+// Rounding: -fmad=false and every rounding spelled out (exact_common.cuh),
+// so the plain PyTorch twins rfft_pair_mag_ref and rfft_pair_mag_df_ref in
+// kernels/exact_cuda.py give the same bits.
 //
 // Bound on this card: int8 multiply-accumulates, 10 digit pairs of the
 // 4-term split per product: per stream 5120*N1^2 in stage 1 (two channels,

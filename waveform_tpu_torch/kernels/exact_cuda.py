@@ -7,21 +7,20 @@ routing predicates (:func:`stage1_split`, :func:`supports`,
 (``_kernel_real_mag``, 2-factor stage 1) and K2 (``_kernel_real_mag3``,
 3-factor stage 1: a df32 radix-4 butterfly, then two twiddle-folded DFT_a
 digit GEMMs) at both twiddle tiers, and the complex df32 kernel K3
-(``_kernel``).  K1's body runs as two kernels at the f32 tier: K1
-(``csrc/exact_mag.cu``, one block per stream) at N1 in {8, 16, 32}, and
-K1-gen (``csrc/exact_mag_gen.cu``, two launches) at every other
-N1 % 8 == 0 up to 256; at the df tier K1-df (the df instance of K1-gen)
-serves every N1.  K2 and K2-df share ``csrc/exact_mag3.cu``.  Entry points:
+(``_kernel``).  K1's body is K1-gen (``csrc/exact_mag_gen.cu``, two
+launches) at every N1 % 8 == 0 up to 256, and its df instance K1-df at the
+df tier.  K2 and K2-df share ``csrc/exact_mag3.cu``.  Every kernel runs
+its digit GEMMs on the int8 tensor cores.  Entry points:
 :func:`rfft_pair_mag` (routed by :func:`stage1_split` and
 :func:`twiddle_tier` as the JAX package routes) and
 :func:`cfft_exact_kernel` (K3).
 
-* a CUDA tensor launches the hand-written kernel, ``csrc/exact_mag.cu``
-  (K1), ``csrc/exact_mag_gen.cu`` (K1-gen, K1-df), ``csrc/exact_mag3.cu``
-  (K2, K2-df) or ``csrc/exact_cfft.cu`` (K3), built with ``nvcc`` at first
-  use into ``build/waveform_tpu_torch/`` and bound with ``ctypes``; a build
-  or launch failure raises;
-* a CPU tensor runs the twin, :func:`rfft_pair_mag_ref` (K1 and K1-gen),
+* a CUDA tensor launches the hand-written kernel,
+  ``csrc/exact_mag_gen.cu`` (K1-gen, K1-df), ``csrc/exact_mag3.cu`` (K2,
+  K2-df) or ``csrc/exact_cfft.cu`` (K3), built with ``nvcc`` at first use
+  into ``build/waveform_tpu_torch/`` and bound with ``ctypes``; a build or
+  launch failure raises;
+* a CPU tensor runs the twin, :func:`rfft_pair_mag_ref` (K1-gen),
   :func:`rfft_pair_mag_df_ref` (K1-df), :func:`rfft_pair_mag3_ref`,
   :func:`rfft_pair_mag3_df_ref` or :func:`cfft_exact_ref`: the same
   arithmetic in torch ops (digit products in float64, exact because every
@@ -36,13 +35,13 @@ planes with the first 6 bits deep, digit pairs with i + j <= 3 kept
 (j1 = jq·a + jp, k1 = kq + 4·kp) and produces its rows chunk-major
 (pos = kq·a + kp).
 
-Scale rule: K1 and K1-gen take one pow2 scale per (stream, j2) column
+Scale rule: K1-gen takes one pow2 scale per (stream, j2) column
 over both channels; K2 one per (stream, channel, j2) column, for
 U02 = [u0; u2] and U13 = [u1; u3] separately, as ``_kernel_real_mag3``
 does; K3 one per (stream, j2) column over [x_r; x_i] in stage 1 and one
 per (stream, k1) row over [b_r | b_i] in stage 2.  The df tier keeps each
-body's rule.  Twiddle tiers (``_twiddle_choice``): at the f32 tier K1's
-body and K2 slice with the fast fixed-point extract, sum their digit
+body's rule.  Twiddle tiers (``_twiddle_choice``): at the f32 tier K1-gen
+and K2 slice with the fast fixed-point extract, sum their digit
 classes in plain f32, multiply the twiddle with single roundings and
 square in f32; at the df tier they slice serially, recombine with TwoSum,
 multiply the twiddle as Dekker df32 products and take ``_tail_stage2``'s
@@ -69,12 +68,12 @@ from .exactfft import (_CLAMP, DIGIT_BITS, FIRST_SHIFT, N_DIGITS,
                        two_sum)
 
 LANES = 128                     # N2: the stage-2 transform length
-SIZES = (1024, 2048, 4096)      # N1 = 8, 16, 32: what K1 is built for
 SIZES3 = (8192, 16384, 32768, 65536)   # the K2 sizes the JAX plan ships
 MAX_N2 = 32768                  # K1-gen and K3 serve N1 % 8 == 0 up to here
 MAX_N3 = 65536                  # K2 serves N1 % 32 == 0 up to here
 K2_CONSTS = ("c02f", "c13f", "f2b")   # K2's constants, in its C order
 K1GEN_CONSTS = ("f1f", "f2b")         # K1-gen's and K1-df's
+K3_CONSTS = ("f1f", "f2b", "tw")      # K3's
 
 # fixed-point geometry of the parallel digit extraction: i = rint(r·2^27)
 # splits into 4 offset-binary base-128 fields
@@ -82,10 +81,9 @@ _SLICE_TOP = FIRST_SHIFT + (N_DIGITS - 1) * DIGIT_BITS            # 27
 _SLICE_BIAS = sum(64 << (_SLICE_TOP - FIRST_SHIFT - DIGIT_BITS * k)
                   for k in range(N_DIGITS))
 
-# counts of kernel launches (not of twin calls), K1, K2, K3, K1-gen,
-# K1-df and K2-df apart: a run reads them to show that its main path went
-# through the kernel it expects
-launches = 0
+# counts of kernel launches (not of twin calls), K2, K3, K1-gen, K1-df and
+# K2-df apart: a run reads them to show that its main path went through
+# the kernel it expects
 launches3 = 0
 launches_cfft = 0
 launches_gen = 0
@@ -103,8 +101,7 @@ def stage1_split(n: int) -> int:
     """``exact_pallas._stage1_split(n)`` without the v5e plan table (which
     never applies on this card): ``WAVEFORM_TPU_STAGE1_SPLIT`` in
     {"2", "3"} (read at call time) wins, else 3 from N = 32768 up and 2
-    below.  Split 2 is K1's body (K1 at N1 in {8, 16, 32}, K1-gen at the
-    other N1), split 3 K2's."""
+    below.  Split 2 is K1's body (K1-gen), split 3 K2's."""
     mode = os.environ.get("WAVEFORM_TPU_STAGE1_SPLIT", "auto")
     if mode in ("2", "3"):
         return int(mode)
@@ -267,18 +264,16 @@ def _kernel_plan_real3(n: int):
 @functools.lru_cache(maxsize=16)
 def _consts(n: int, device: torch.device):
     """K1's plan as tensors on ``device``: the digit planes as float64
-    matrices (``f1``, ``f2``) for the twin's exact products, and packed
-    four int8 digits to an int32 word along each GEMM's contraction axis
-    (``f1w`` [4, 2n1, n1/4] over j1, ``f2w`` [4, 2n2/4, n2] over the
-    [br | bi] row), the layout K1's ``__dp4a`` reads.  For K1-gen's
-    tensor cores ``f1f`` (:func:`_frag_a1`) and ``f2b`` (:func:`_frag_b2`),
-    the same digit words in the fragment order of stage 1's A and stage
-    2's B operands.  The twiddle as in :func:`_twiddle_consts`."""
+    matrices (``f1``, ``f2``) for the twin's exact products, and for
+    K1-gen's tensor cores ``f1f`` (:func:`_frag_a1`) and ``f2b``
+    (:func:`_frag_b2`), the digit words in the fragment order of stage 1's
+    A and stage 2's B operands.  The twiddle as in
+    :func:`_twiddle_consts`."""
     _, _, f1d, f2d, *tw = _kernel_plan_real(n)
     f2 = _f2_consts(f2d)
-    host = {"f1": f1d.astype(np.float64), "f1w": _words(f1d),
-            "f1f": _frag_a1(f1d), "f2b": _frag_b2(f2["f2w"]),
-            **_twiddle_consts(*tw), **f2}
+    host = {"f1": f1d.astype(np.float64), "f1f": _frag_a1(f1d),
+            "f2": f2["f2"], "f2b": _frag_b2(f2["f2w"]),
+            **_twiddle_consts(*tw)}
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
@@ -344,13 +339,15 @@ def _frag_a3(planes: np.ndarray) -> np.ndarray:
 
 
 def _frag_b2(f2w: np.ndarray) -> np.ndarray:
-    """The stage-2 digit words ``f2w`` [4, 64, 128] (int8x4 along the
-    [br | bi] contraction, one column per kept re/im bin) in B-fragment
-    order [4, 8 k-steps, 16 N tiles, 32, 2] int32 (lane 4g + t holds
-    column 8j + g of N tile j at k-words t and t + 4 of its k-step)."""
+    """The stage-2 digit words ``f2w`` [4, 64, M] (int8x4 along the
+    [br | bi] contraction, one column per output: M = 128 kept re/im bins
+    for the real-split kernels, 256 for K3) in B-fragment order
+    [4, 8 k-steps, M/8 N tiles, 32, 2] int32 (lane 4g + t holds column
+    8j + g of N tile j at k-words t and t + 4 of its k-step)."""
     word = (np.arange(8)[:, None, None] * 8 + _LANE_T[None, :, None]
             + 4 * np.arange(2))                              # [8, 32, 2]
-    col = np.arange(16)[:, None] * 8 + _LANE_G[None, :]      # [16, 32]
+    col = (np.arange(f2w.shape[2] // 8)[:, None] * 8
+           + _LANE_G[None, :])                               # [M/8, 32]
     return np.ascontiguousarray(f2w[:, word[:, None], col[None, :, :, None]])
 
 
@@ -404,12 +401,16 @@ def _kernel_plan_cfft(n: int):
 @functools.lru_cache(maxsize=16)
 def _consts_cfft(n: int, device: torch.device):
     """K3's plan as tensors on ``device``: ``f1``/``f2`` float64 for the
-    twin, ``f1w`` [4, 2n1, n1/2] and ``f2w`` [4, 64, 256] packed int8x4
-    along each contraction for the kernel, and ``tw`` [4, n1, 128] =
-    (twr_hi, twr_lo, twi_hi, twi_lo)."""
-    _, _, f1d, f2d, *tw = _kernel_plan_cfft(n)
-    host = {"f1": f1d.astype(np.float64), "f1w": _words(f1d),
-            "tw": np.stack(tw), **_f2_consts(f2d)}
+    twin; for the kernel's tensor cores ``f1f`` [4, n1/8, k, 32, 4]
+    (:func:`_frag_a`, k = 2n1/32 rounded up: M tile T holds the A_r rows
+    k1 = 8T + g and the A_i rows n1 + 8T + g of F1b) and ``f2b``
+    [4, 8, 32, 32, 2] (:func:`_frag_b2`, all 256 columns of F2b); and
+    ``tw`` [4, n1, 128] = (twr_hi, twr_lo, twi_hi, twi_lo)."""
+    n1, _, f1d, f2d, *tw = _kernel_plan_cfft(n)
+    f2 = _f2_consts(f2d)
+    host = {"f1": f1d.astype(np.float64),
+            "f1f": _frag_a(f1d, 8 * np.arange(n1 // 8), n1),
+            "f2": f2["f2"], "f2b": _frag_b2(f2["f2w"]), "tw": np.stack(tw)}
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
@@ -587,7 +588,7 @@ def _pair_mag3(x: torch.Tensor, window, df: bool):
 
 
 def rfft_pair_mag_ref(x: torch.Tensor, window=None):
-    """Plain PyTorch twin of K1 and K1-gen (the f32 tier): ``x`` [S, 2, N]
+    """Plain PyTorch twin of K1-gen (the f32 tier): ``x`` [S, 2, N]
     f32 -> ``(mag [S, 2, N/2] f32, nzcount [S, 2] f32)``, bins in natural
     order.
 
@@ -721,10 +722,6 @@ def build() -> ctypes.CDLL:
         build_info["log"] = "".join(logs)
     build_info["library"] = str(out)
     lib = ctypes.CDLL(str(out))
-    lib.wf_exact_mag.restype = ctypes.c_int
-    lib.wf_exact_mag.argtypes = ([ctypes.c_void_p] * 9
-                                 + [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p])
     lib.wf_exact_mag3.restype = ctypes.c_int
     lib.wf_exact_mag3.argtypes = ([ctypes.c_void_p] * 12
                                   + [ctypes.c_int, ctypes.c_int,
@@ -740,11 +737,14 @@ def build() -> ctypes.CDLL:
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.wf_exact_mag3_df.restype = ctypes.c_int
     lib.wf_exact_mag3_df.argtypes = lib.wf_exact_mag3.argtypes
-    # one stage alone (chip_smoke times the stages apart)
-    for fn, whole in ((lib.wf_exact_mag3_stage, lib.wf_exact_mag3),
-                      (lib.wf_exact_mag_gen_stage, lib.wf_exact_mag_gen)):
+    # one stage alone (chip_smoke times the stages apart): (stage, df, ...)
+    # for the pair kernels, (stage, ...) for K3
+    for fn, whole, ints in ((lib.wf_exact_mag3_stage, lib.wf_exact_mag3, 2),
+                            (lib.wf_exact_mag_gen_stage, lib.wf_exact_mag_gen,
+                             2),
+                            (lib.wf_exact_cfft_stage, lib.wf_exact_cfft, 1)):
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int] + whole.argtypes
+        fn.argtypes = [ctypes.c_int] * ints + whole.argtypes
     _lib = lib
     return lib
 
@@ -807,13 +807,11 @@ def rfft_pair_mag(x: torch.Tensor, window=None):
     order.  ``window`` is a (w_hi, w_lo) df32 pair of [N] f32 tensors on
     ``x``'s device, or None for no window.  ``N`` must be one that
     :func:`supports` admits; :func:`stage1_split` picks the body and
-    :func:`twiddle_tier` its tier: split 2 runs K1 here at N1 in
-    {8, 16, 32} under f32, and :func:`rfft_pair_mag_gen` (K1-gen, or K1-df
-    at every N1 under df) otherwise; split 3 runs :func:`rfft_pair_mag3`
-    (K2, or K2-df under df).  A CUDA tensor launches the kernel, a CPU
-    tensor takes its twin.
+    :func:`twiddle_tier` its tier: split 2 runs :func:`rfft_pair_mag_gen`
+    (K1-gen, or K1-df under df), split 3 :func:`rfft_pair_mag3` (K2, or
+    K2-df under df).  A CUDA tensor launches the kernel, a CPU tensor
+    takes its twin.
     """
-    global launches
     _check_pair(x)
     n = x.shape[-1]
     if not supports(n):
@@ -824,26 +822,7 @@ def rfft_pair_mag(x: torch.Tensor, window=None):
     tier = twiddle_tier()
     if stage1_split(n) == 3:
         return rfft_pair_mag3(x, window, twiddle=tier)
-    if tier == "df" or n not in SIZES:
-        return rfft_pair_mag_gen(x, window, twiddle=tier)
-    w_hi, w_lo = _checked_window(x, window)
-    if x.device.type == "cpu":
-        return rfft_pair_mag_ref(x, (w_hi, w_lo))
-    lib = build()
-    S = x.shape[0]
-    mag = torch.empty((S, 2, n // 2), dtype=torch.float32, device=x.device)
-    nz = torch.empty((S, 2), dtype=torch.float32, device=x.device)
-    c = _consts(n, x.device)
-    with torch.cuda.device(x.device):
-        err = lib.wf_exact_mag(
-            x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
-            c["f1w"].data_ptr(), c["f2w"].data_ptr(), c["twr"].data_ptr(),
-            c["twi"].data_ptr(), mag.data_ptr(), nz.data_ptr(), S, n,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"exact_mag kernel launch failed: cudaError {err}")
-    launches += 1
-    return mag, nz
+    return rfft_pair_mag_gen(x, window, twiddle=tier)
 
 
 def _launch_two_stage(fn, x, w_hi, w_lo, consts, c, df: bool):
@@ -873,9 +852,9 @@ def _launch_two_stage(fn, x, w_hi, w_lo, consts, c, df: bool):
 
 def rfft_pair_mag_gen(x: torch.Tensor, window=None,
                       twiddle: str | None = None):
-    """K1's body directly, at any N = 128·N1 with N1 % 8 == 0 up to 32768:
-    K1-gen under the f32 tier (K1's sizes included, which
-    :func:`rfft_pair_mag` sends to K1), K1-df under df.  ``twiddle`` names
+    """K1's body directly, at any N = 128·N1 with N1 % 8 == 0 up to 32768
+    (N = 32768 included, which :func:`rfft_pair_mag` sends to K2): K1-gen
+    under the f32 tier, K1-df under df.  ``twiddle`` names
     the tier; None reads :func:`twiddle_tier`.  The contract of
     :func:`rfft_pair_mag`; a CPU tensor takes :func:`rfft_pair_mag_ref` or
     :func:`rfft_pair_mag_df_ref`.
@@ -966,9 +945,10 @@ def cfft_exact_kernel(re, im):
     out = torch.empty((4, S, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.wf_exact_cfft(
-            *(p.data_ptr() for p in flat), c["f1w"].data_ptr(),
-            c["f2w"].data_ptr(), c["tw"].data_ptr(), rows.data_ptr(),
-            out.data_ptr(), S, n, torch.cuda.current_stream(dev).cuda_stream)
+            *(p.data_ptr() for p in flat),
+            *(c[k].data_ptr() for k in K3_CONSTS), rows.data_ptr(),
+            out.data_ptr(), S, n,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"exact_cfft kernel launch failed: cudaError {err}")
     launches_cfft += 1
