@@ -101,6 +101,28 @@ Phases, one line each; any failure raises and the script exits non-zero:
    in turns with K1-df at (16384, 256); K2-df's two launches timed apart
    as in phase 8, and K1-df's at (4096, 256) and (16384, 256); and the
    full df tick at both slices.
+19. graph  — the device half of every tick is a captured CUDA graph
+   (``runtime/graphs.py``), so every phase above ran graph ticks; here
+   each slice path (the headline K1-gen, N=65536 K2, both df tiers, path
+   a's K3, path c's lowering) runs a graph engine beside an engine whose
+   ticks run the same device function eagerly: bit for bit in 8 ticks'
+   pixels and state; the kernels a replay launches counted from the
+   capture and from the profiler's kernel names, which must agree; eager
+   and graph ticks (feed_batch + tick) in turns on CUDA events; the
+   device busy time and share of 5 profiled ticks of each
+   (``runtime/profiler.py``); and 60 synchronized graph ticks on the host
+   clock: the FrameProfiler's p50/p99 and the tick's host pieces;
+20. microbatch — k=4 at the headline: each flush (one graph of four
+   packed ticks) bit for bit with four single ticks, four K1-gen launches
+   a flush; a frame's time at k=1 and k=4 in turns; the k that
+   ``microbatch="auto"`` resolves to on this card;
+21. tick_many — T=8 bulk ticks at the headline: 8 K1-gen launches, the
+   CPU port's tick_many on 4 of the streams within 1e-4 dB;
+22. meter  — ``MeterServingEngine`` at S=256: graph tick bit for bit with
+   its eager tick, the CPU port within 1e-4 dB, the tick time;
+23. checkpoint — the headline engine's state saved on the card, loaded
+   into a card engine and (4 rows, ``keep``) a CPU port engine bit for
+   bit, both ticked on within 1e-4 dB.
 
 Every phase's seconds are printed before the kernels' JSON record and the
 result line, which are the last two lines.  Each kernel's record carries
@@ -754,6 +776,162 @@ def print_k2_extras(exact_cuda, card: str, dev, phase: str, df: bool,
                  ((65536, 32), (16384, 256)))
 
 
+def eager_tick(eng, now: int):
+    """One tick of ``eng`` with its device function run eagerly (every
+    torch op launched from the host, as the first tick's warm-up runs it):
+    the reference and the "before" of the graph tick."""
+    eng._flip ^= 1
+    eng._bind_buf(eng._flip)
+    uniform = eng._stage(now, 1.0 / eng.cfg.fps)
+    eng._upload(eng._host[eng._flip], eng._dev_in, eng._events, eng._flip)
+    return eng._graph_fn(("tick", uniform))()
+
+
+# the stage-1 kernel of each launch counter's wrapper (one a launch), and
+# whether it is the df instance (a kernel template argument <true>)
+STAGE1 = {"launches_gen": ("exact_mag_gen_stage1", False),
+          "launches_gen_df": ("exact_mag_gen_stage1", True),
+          "launches3": ("exact_mag3_stage1", False),
+          "launches3_df": ("exact_mag3_stage1", True),
+          "launches_cfft": ("exact_cfft_stage1", None)}
+
+
+def profiled(profiler, one_tick, n: int = 5):
+    """``n`` ticks under ``profiler.trace``: (device summary, device ops a
+    tick, {counter: our stage-1 kernels a tick}) read from the trace's
+    device kernels by name."""
+    torch.cuda.synchronize()
+    with profiler.trace() as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            one_tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summ = profiler.device_summary(prof, wall)
+    ours = {}
+    for counter, (stem, df) in STAGE1.items():
+        k = sum(c for name, (c, _) in summ["kernels"].items()
+                if stem in name and (df is None or ("<true>" in name) == df))
+        if k:
+            ours[counter] = k / n
+    ops = sum(c for c, _ in summ["kernels"].values()) / n
+    return summ, ops, ours
+
+
+def phase_graph(wt, ServingEngine, profiler, exact_cuda, rng, cell):
+    """One slice path as a graph tick against its eager tick: bit for bit
+    in 8 ticks' pixels and the final state; the kernels a replay launches,
+    from the capture and from the profiler's kernel names (which must
+    agree, one stage-1 kernel a launch); eager and graph ticks in turns
+    (feed_batch + tick, CUDA events); the device busy share of 5 profiled
+    ticks of each.  Returns (graph ms, eager ms, busy shares, device ops a
+    tick, kernels a replay)."""
+    label, settings, channels, envs, S, counter = cell
+    with contextlib.ExitStack() as stack:
+        for k, v in envs.items():
+            stack.enter_context(env(k, v))
+        cfg = wt.resolve(wt.Settings(width=800, window=wt.FFTWindow.HANN,
+                                     interp_mode=wt.InterpMode.LANCZOS,
+                                     **settings), wt.AudioInfo(SR, channels))
+        graph = ServingEngine(cfg, S, device="cuda")
+        eager = ServingEngine(cfg, S, device="cuda")
+        pk = [feed_signal(rng, S, k, channels) for k in range(8)]
+        now = time.monotonic_ns()
+        for x in pk:
+            now += 16_666_667
+            graph.feed_batch(x, now, now_ns=now)
+            eager.feed_batch(x, now, now_ns=now)
+            check(same_bits(graph.tick(now_ns=now), eager_tick(eager, now)),
+                  f"graph {label}: graph tick vs eager tick not bit for bit")
+        torch.cuda.synchronize()
+        for a, b in ((graph.state.tsmooth, eager.state.tsmooth),
+                     (graph.state.decibels, eager.state.decibels),
+                     (graph.state.last_silent, eager.state.last_silent),
+                     (graph.ring.buf, eager.ring.buf)):
+            check(torch.equal(a, b), f"graph {label}: state differs")
+        want = {counter: 1} if counter else {}
+        per_replay = graph.kernels_per_replay
+        check(per_replay == {("tick", True): want},
+              f"graph {label}: kernels a replay {per_replay}, want {want}")
+        clock = [now, 0]
+
+        def ticker(eng, run):
+            def one_tick():
+                clock[0] += 16_666_667
+                clock[1] += 1
+                eng.feed_batch(pk[clock[1] % 8], clock[0], now_ns=clock[0])
+                run(eng, clock[0])
+            return one_tick
+
+        g_tick = ticker(graph, lambda e, t: e.tick(now_ns=t))
+        e_tick = ticker(eager, eager_tick)
+        turns = [cuda_median_ms(f, reps=20, warmup=3)
+                 for f in (e_tick, g_tick, g_tick, e_tick)]
+        before = {c: getattr(exact_cuda, c) for c in COUNTERS}
+        g_sum, g_ops, g_ours = profiled(profiler, g_tick)
+        moved = {c: (getattr(exact_cuda, c) - n) / 5
+                 for c, n in before.items() if getattr(exact_cuda, c) != n}
+        check(g_ours == want and moved == want,
+              f"graph {label}: profiled kernels a replay {g_ours}, counters "
+              f"{moved}, want {want}")
+        e_sum, e_ops, e_ours = profiled(profiler, e_tick)
+        check(e_ours == want, f"graph {label}: eager kernels {e_ours}")
+        host = host_split(profiler, graph, g_tick)
+    return (turns, (g_sum["busy_share"], e_sum["busy_share"]),
+            (g_sum["busy_us"] / 5, e_sum["busy_us"] / 5), (g_ops, e_ops),
+            host)
+
+
+# the engine methods a graph tick's host time is split over (HOST_PIECES
+# order), besides the rest of tick() and the wait for the device after it
+HOST_PIECES = ("feed_batch", "_bind_buf", "_assemble", "_upload", "_call",
+               "_fresh")
+
+
+def host_split(profiler, eng, one_tick, n: int = 60):
+    """``n`` ticks of ``one_tick`` (feed_batch + tick of ``eng``), each
+    ended by a synchronize, on the host clock: the FrameProfiler's p50 and
+    p99 (ms) and {piece: median µs} of the tick's host pieces — each method
+    of ``HOST_PIECES`` (``_call`` is the replay's enqueue), the rest of
+    ``tick`` and the wait for the device after ``tick`` returned."""
+    acc = {name: [] for name in HOST_PIECES}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            acc[name].append(time.perf_counter() - t)
+            return out
+        return run
+
+    tick = eng.tick
+    for name in HOST_PIECES:
+        setattr(eng, name, timed(name, getattr(eng, name)))
+    frames = profiler.FrameProfiler(eng.S, eng.cfg.fft_size)
+    rest, wait = [], []
+    try:
+        for _ in range(n):
+            stamps = []
+            eng.tick = lambda **k: (stamps.append(time.perf_counter()),
+                                    tick(**k),
+                                    stamps.append(time.perf_counter()))[1]
+            with frames.tick():
+                one_tick()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+            inside = sum(acc[p][-1] for p in HOST_PIECES[1:])
+            rest.append(stamps[1] - stamps[0] - inside)
+            wait.append(t3 - stamps[1])
+    finally:
+        for name in (*HOST_PIECES, "tick"):
+            delattr(eng, name)
+    med = {name: statistics.median(v) * 1e6 for name, v in acc.items()}
+    med["rest of tick"] = statistics.median(rest) * 1e6
+    med["device wait"] = statistics.median(wait) * 1e6
+    st = frames.stats()
+    return st["p50_ms"], st["p99_ms"], med
+
+
 def kernel_label(fn: str) -> str:
     """A mangled kernel name as name<template arguments>."""
     m = re.search(r"_cu_[0-9a-f]{8}\d+(exact_[a-z0-9_]+?)(I.*?E)?E", fn)
@@ -1218,6 +1396,194 @@ def main() -> None:
                   f"df {td_ms * 1e3:.1f} us at S={eng_d.S} N={n_d} = "
                   f"{eng_d.S / (td_ms * 1e-3):,.0f} frames/s", flush=True)
     secs["times_df"] = time.perf_counter() - t0
+
+    # 19. graph: each slice path's graph tick against its eager tick ------
+    t0 = time.perf_counter()
+    from waveform_tpu_torch.runtime import profiler
+    from waveform_tpu_torch.runtime.meter_serving import MeterServingEngine
+    from waveform_tpu_torch.runtime.serving import link_rtt
+    df_env = {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"}
+    large = dict(fft_size=65536, enable_large_fft=True)
+    for cell in (("slice", dict(fft_size=4096), 2, {}, S, "launches_gen"),
+                 ("slice3", large, 2, {}, S3, "launches3"),
+                 ("slice_df", dict(fft_size=4096), 2, df_env, S,
+                  "launches_gen_df"),
+                 ("slice3_df", large, 2, df_env, S3, "launches3_df"),
+                 ("path a", dict(fft_size=4096), 2,
+                  {"WAVEFORM_TPU_EXACT_FUSED": "never"}, S, "launches_cfft"),
+                 ("path c", dict(auto_fft_size=True), 2, {}, S, None)):
+        turns, busy, busy_us, ops, host = phase_graph(
+            wt, ServingEngine, profiler, exact_cuda, rng, cell)
+        g_ms, e_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        print(f"graph [{card}]: {cell[0]} S={cell[4]}: graph tick = eager "
+              f"tick bit for bit (8 ticks, pixels and state); tick "
+              f"(feed_batch + tick) eager {turns[0] * 1e3:.1f} / "
+              f"{turns[3] * 1e3:.1f} us, graph {turns[1] * 1e3:.1f} / "
+              f"{turns[2] * 1e3:.1f} us (in turns, {e_ms / g_ms:.2f}x); "
+              f"device busy {busy_us[1]:.1f} us a tick eager, "
+              f"{busy_us[0]:.1f} us graph: {busy[1] * 100:.1f}% / "
+              f"{busy[0] * 100:.1f}% of the profiled ticks, "
+              f"{busy_us[1] / (e_ms * 10):.1f}% / "
+              f"{busy_us[0] / (g_ms * 10):.1f}% of the unprofiled ones; "
+              f"device ops a tick {ops[1]:.1f} eager, {ops[0]:.1f} graph; "
+              f"kernels a replay {cell[5] or 'none'} "
+              f"{1 if cell[5] else 0} (capture and profiler agree); graph "
+              f"tick host pieces (median of 60, synchronized): "
+              + ", ".join(f"{k} {v:.1f} us" for k, v in host[2].items())
+              + f"; FrameProfiler p50 {host[0]:.3f} ms, p99 {host[1]:.3f} ms",
+              flush=True)
+    secs["graph"] = time.perf_counter() - t0
+
+    # 20. microbatch: k=4 flushes at the headline ---------------------------
+    t0 = time.perf_counter()
+    one = ServingEngine(cfg, S, device="cuda")
+    mb = ServingEngine(cfg, S, microbatch=4, device="cuda")
+    now = time.monotonic_ns()
+    singles = []
+    for k, x in enumerate(packets):
+        now += 16_666_667
+        for e in (one, mb):
+            e.feed_batch(x, now, now_ns=now)
+        singles.append(one.tick(now_ns=now))
+        mb.tick(now_ns=now)
+        if k % 4 == 3:
+            check(all(same_bits(mb.last_batch_pixels[i], singles[k - 3 + i])
+                      for i in range(4)),
+                  "microbatch: flush vs single ticks not bit for bit")
+    check(mb.kernels_per_replay[("mb", 4, True)] == {"launches_gen": 4},
+          f"microbatch: kernels a flush {mb.kernels_per_replay}")
+    clock = [now, 0]
+
+    def mb_ticks(eng, n):
+        def run():
+            for _ in range(n):
+                clock[0] += 16_666_667
+                clock[1] += 1
+                eng.feed_batch(packets[clock[1] % ticks], clock[0],
+                               now_ns=clock[0])
+                eng.tick(now_ns=clock[0])
+        return run
+
+    mb_t = [cuda_median_ms(f, reps=10, warmup=2) / 4
+            for f in (mb_ticks(one, 4), mb_ticks(mb, 4), mb_ticks(mb, 4),
+                      mb_ticks(one, 4))]
+    auto = ServingEngine(cfg, S, microbatch="auto", device="cuda")
+    for k in range(64):
+        if not auto._mb_auto and auto._mb_fill == 0:
+            break
+        clock[0] += 16_666_667
+        auto.feed_batch(packets[k % ticks], clock[0], now_ns=clock[0])
+        auto.tick(now_ns=clock[0])
+    check(not auto._mb_auto, "microbatch: auto did not resolve")
+    secs["microbatch"] = time.perf_counter() - t0
+    print(f"microbatch [{card}]: k=4 S={S} N=4096: each flush = 4 single "
+          f"ticks bit for bit, 4 K1-gen launches a flush replay; a frame "
+          f"(feed_batch + tick, 4-tick groups) k=1 {mb_t[0] * 1e3:.1f} / "
+          f"{mb_t[3] * 1e3:.1f} us, k=4 {mb_t[1] * 1e3:.1f} / "
+          f"{mb_t[2] * 1e3:.1f} us (in turns); \"auto\" picks k="
+          f"{auto.microbatch} (probe tick {auto._probe_tick * 1e3:.3f} ms, "
+          f"link_rtt {link_rtt(dev) * 1e3:.3f} ms)", flush=True)
+    del one, mb, auto
+
+    # 21. tick_many: T=8 bulk ticks at the headline ----------------------
+    t0 = time.perf_counter()
+    T = 8
+    bulk_in = np.stack(packets[:T])                    # [T, S, 2, HOP]
+    bulk = ServingEngine(cfg, S, device="cuda")
+    cpu_b = ServingEngine(cfg, 4, device="cpu")
+    rows = [0, 1, 2, S - 1]
+    for name in COUNTERS:
+        setattr(exact_cuda, name, 0)
+    pxs = bulk.tick_many(bulk_in)
+    torch.cuda.synchronize()
+    counts_b = tuple(getattr(exact_cuda, name) for name in COUNTERS)
+    check(counts_b == only("launches_gen", T),
+          f"tick_many: launches {counts_b}")
+    px_cpu = cpu_b.tick_many(bulk_in[:, rows]).numpy()
+    px_b = pxs.cpu().numpy()[:, rows]
+    vis = px_cpu > -120.0
+    e_b = float(np.abs(px_b[vis] - px_cpu[vis]).max())
+    check(pxs.shape == (T, S, 1, 800) and np.isfinite(px_b).all()
+          and e_b < 1e-4, f"tick_many: card vs CPU port {e_b} dB")
+    check(np.array_equal(bulk.last_silent[rows], cpu_b.last_silent),
+          "tick_many: latches")
+    tm_ms = cuda_median_ms(lambda: bulk.tick_many(bulk_in), reps=5,
+                           warmup=1) / T
+    secs["tick_many"] = time.perf_counter() - t0
+    print(f"tick_many [{card}]: T={T} S={S} N=4096: {T} K1-gen launches "
+          f"(warm-up, capture, {T - 1} replays), pixels {tuple(pxs.shape)}, "
+          f"card vs CPU port (4 streams) {e_b:.2e} dB; {tm_ms * 1e3:.1f} us "
+          f"a tick (upload included)", flush=True)
+    del bulk, cpu_b
+
+    # 22. meter: MeterServingEngine at S=256 --------------------------------
+    t0 = time.perf_counter()
+    mcfg = wt.resolve(wt.Settings(display_mode=wt.DisplayMode.METER),
+                      wt.AudioInfo(SR, 2))
+    mg = MeterServingEngine(mcfg, S, device="cuda")
+    me = MeterServingEngine(mcfg, S, device="cuda")
+    mc = MeterServingEngine(mcfg, 4, device="cpu")
+    now = time.monotonic_ns()
+    for x in packets:
+        now += 16_666_667
+        for e in (mg, me):
+            e.feed_batch(x, now, now_ns=now)
+        mc.feed_batch(x[rows], now, now_ns=now)
+        check(same_bits(mg.tick(now_ns=now), eager_tick(me, now)),
+              "meter: graph tick vs eager tick not bit for bit")
+        mc.tick(now_ns=now)
+    got_m = mg.meter_values.cpu().numpy()
+    want_m = mc.meter_values.numpy()
+    e_m = float(np.abs(got_m[rows[:-1]] - want_m[:-1]).max())
+    check(e_m < 1e-4 and (got_m[-1] == np.float32(wt.DB_MIN)).all()
+          and np.array_equal(mg.last_silent[rows], mc.last_silent),
+          f"meter: card vs CPU port {e_m} dB")
+    check(mg.kernels_per_replay == {("tick", True): {}}, "meter replays")
+    clock = [now, 0]
+    m_ms = cuda_median_ms(mb_ticks(mg, 1), reps=20, warmup=3)
+    secs["meter"] = time.perf_counter() - t0
+    print(f"meter [{card}]: S={S} M={mcfg.fft_size}: graph tick = eager "
+          f"tick bit for bit ({ticks} ticks), card vs CPU port (4 streams) "
+          f"{e_m:.2e} dB, silent stream at DB_MIN; tick (feed_batch + tick) "
+          f"{m_ms * 1e3:.1f} us", flush=True)
+    del mg, me, mc
+
+    # 23. checkpoint: save on the card, load into a CPU port engine -------
+    t0 = time.perf_counter()
+    import tempfile
+    card_e = ServingEngine(cfg, S, device="cuda")
+    now = time.monotonic_ns()
+    for x in packets:
+        now += 16_666_667
+        card_e.feed_batch(x, now, now_ns=now)
+        card_e.tick(now_ns=now)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        card_e.save_state(path)
+        resumed = ServingEngine(cfg, S, device="cuda")
+        cpu_r = ServingEngine(cfg, 4, device="cpu")
+        resumed.load_state(path)
+        cpu_r.load_state(path, keep=rows)
+    check(np.array_equal(cpu_r.read_decibels(), card_e.read_decibels()[rows])
+          and np.array_equal(resumed.read_decibels(), card_e.read_decibels()),
+          "checkpoint: loaded state differs")
+    for x in packets[:3]:
+        now += 16_666_667
+        resumed.feed_batch(x, now, now_ns=now)
+        cpu_r.feed_batch(x[rows], now, now_ns=now)
+        resumed.tick(now_ns=now)
+        cpu_r.tick(now_ns=now)
+    db_r, db_c = resumed.read_decibels()[rows], cpu_r.read_decibels()
+    vis = db_c > -120.0
+    e_r = float(np.abs(db_r[vis] - db_c[vis]).max())
+    check(e_r < 1e-4 and np.array_equal(resumed.last_silent[rows],
+                                        cpu_r.last_silent),
+          f"checkpoint: card vs CPU after resume {e_r} dB")
+    secs["checkpoint"] = time.perf_counter() - t0
+    print(f"checkpoint: S={S} N=4096 saved on the card, loaded into a card "
+          f"engine and (keep={rows}) a CPU port engine bit for bit, 3 ticks "
+          f"on: card vs CPU {e_r:.2e} dB", flush=True)
+    del card_e, resumed, cpu_r
 
     jax_mods =[m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]

@@ -20,6 +20,7 @@ from waveform_tpu_torch import (
     resolve,
 )
 from waveform_tpu_torch.kernels import exact_cuda
+from waveform_tpu_torch.runtime.graphs import COUNTERS
 from waveform_tpu_torch.runtime.serving import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -452,3 +453,194 @@ def test_df_engine_on_card_matches_cpu_port(dev, monkeypatch):
     np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
     assert card.last_silent[-1]
     assert np.isfinite(card.read_pixels()).all()
+
+
+# --- the captured graph tick ----------------------------------------------
+
+def _eager_tick(eng, now):
+    """One tick of ``eng`` with its device function run eagerly, as the
+    first tick's warm-up runs it: the reference for the graph tick."""
+    eng._flip ^= 1
+    eng._bind_buf(eng._flip)
+    uniform = eng._stage(now, 1.0 / eng.cfg.fps)
+    eng._upload(eng._host[eng._flip], eng._dev_in, eng._events, eng._flip)
+    return eng._graph_fn(("tick", uniform))()
+
+
+def _packets(rng, S, channels, per_stream, k):
+    """A tick's packets: [S, channels, 800] noise with a tone (per stream
+    when ``per_stream``, with uneven sizes: the per-stream count form),
+    the last stream silent."""
+    t = (np.arange(800) + 800 * k) / 48000
+    x = (0.3 * rng.standard_normal((S, channels, 800))
+         + 0.2 * np.sin(2 * np.pi * 440 * t)).astype(np.float32)
+    x[-1] = 0.0
+    if not per_stream:
+        return x
+    return [x[s, :, :800 - 40 * s] for s in range(S)]
+
+
+def _feed(eng, x, now):
+    if isinstance(x, list):
+        for s, xs in enumerate(x):
+            eng.feed(s, xs, now, now_ns=now)
+    else:
+        eng.feed_batch(x, now, now_ns=now)
+
+
+GRAPH_PATHS = {
+    # path: (settings, channels, environment, kernels a replay)
+    "k1_gen": (dict(fft_size=4096), 2, {}, {"launches_gen": 1}),
+    "k1_gen_per_stream": (dict(fft_size=4096, normalize_volume=True), 2, {},
+                          {"launches_gen": 1}),
+    "k1_df": (dict(fft_size=4096), 2, {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"},
+              {"launches_gen_df": 1}),
+    "k2": (dict(fft_size=32768, enable_large_fft=True), 2, {},
+           {"launches3": 1}),
+    "k2_df": (dict(fft_size=32768, enable_large_fft=True), 2,
+              {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"}, {"launches3_df": 1}),
+    "k3": (dict(fft_size=1024), 2, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
+           {"launches_cfft": 1}),
+    "k3_mono": (dict(fft_size=1024), 1, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
+                {"launches_cfft": 1}),
+    "lowering": (dict(auto_fft_size=True), 2, {}, {}),
+}
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graph_tick_matches_eager_bitwise(path, dev, monkeypatch):
+    """The graph tick against the eager packed tick on the same packets,
+    bit for bit in every tick's pixels and in the final state, on every
+    kernel path and the lowering (path c, N=800); each replay launches
+    its path's kernel once, counted from the capture."""
+    settings, channels, envs, want = GRAPH_PATHS[path]
+    for k, v in envs.items():
+        monkeypatch.setenv(k, v)
+    cfg = resolve(Settings(width=400, window=FFTWindow.HANN,
+                           interp_mode=InterpMode.LANCZOS, **settings),
+                  AudioInfo(48000, channels))
+    S = 4
+    graph = ServingEngine(cfg, S, device=dev)
+    eager = ServingEngine(cfg, S, device=dev)
+    rng = np.random.default_rng(8)
+    per_stream = path.endswith("per_stream")
+    for k in range(5):
+        x = _packets(rng, S, channels, per_stream, k)
+        now = 10_000_000_000 + k * 16_666_667
+        _feed(graph, x, now)
+        _feed(eager, x, now)
+        before = {c: getattr(exact_cuda, c) for c in COUNTERS}
+        px = graph.tick(now_ns=now)
+        moved = {c: getattr(exact_cuda, c) - n for c, n in before.items()
+                 if getattr(exact_cuda, c) != n}
+        assert moved == want, (k, moved)
+        assert torch.equal(px, _eager_tick(eager, now)), k
+    for a, b in ((graph.state.tsmooth, eager.state.tsmooth),
+                 (graph.state.decibels, eager.state.decibels),
+                 (graph.state.last_silent, eager.state.last_silent),
+                 (graph.ring.buf, eager.ring.buf)):
+        assert torch.equal(a, b)
+    replays = graph.kernels_per_replay
+    assert ("tick", not per_stream) in replays
+    assert set(replays) <= {("tick", True), ("tick", False)}
+    assert all(launches == want for launches in replays.values())
+
+
+def test_graph_pixels_survive_the_next_tick(dev):
+    """The pixels a tick returned are their own tensor: unchanged by the
+    replays after it (the graph's output buffer is rewritten)."""
+    cfg = resolve(Settings(fft_size=4096, width=800), AudioInfo(48000, 2))
+    eng = ServingEngine(cfg, 3, device=dev)
+    rng = np.random.default_rng(9)
+    kept = []
+    for k in range(5):
+        now = 10_000_000_000 + k * 16_666_667
+        eng.feed_batch(_packets(rng, 3, 2, False, k), now, now_ns=now)
+        px = eng.tick(now_ns=now)
+        kept.append((px, px.clone()))
+    assert not torch.equal(kept[2][0], kept[3][0])
+    for px, copy in kept:
+        assert torch.equal(px, copy)
+
+
+def test_graph_routing_pinned_at_capture(dev, monkeypatch):
+    """The routing variables are read when the graph is captured (the
+    first tick), as ``jit`` reads them at trace: ``EXACT_FUSED=never`` set
+    for the later ticks changes nothing for this engine (still K1-gen, the
+    bits of an engine that never saw it); a new engine built under it runs
+    K3."""
+    cfg = resolve(Settings(fft_size=4096, width=400), AudioInfo(48000, 2))
+    eng = ServingEngine(cfg, 3, device=dev)
+    ref = ServingEngine(cfg, 3, device=dev)
+    rng = np.random.default_rng(10)
+    for k in range(4):
+        x = _packets(rng, 3, 2, False, k)
+        now = 10_000_000_000 + k * 16_666_667
+        for e in (eng, ref):
+            e.feed_batch(x, now, now_ns=now)
+        if k >= 2:
+            monkeypatch.setenv("WAVEFORM_TPU_EXACT_FUSED", "never")
+        before = _counts()
+        px = eng.tick(now_ns=now)
+        assert _counts() == (before[0], before[1], before[2] + 1)
+        monkeypatch.delenv("WAVEFORM_TPU_EXACT_FUSED", raising=False)
+        assert torch.equal(px, ref.tick(now_ns=now))
+    monkeypatch.setenv("WAVEFORM_TPU_EXACT_FUSED", "never")
+    fresh = ServingEngine(cfg, 3, device=dev)
+    fresh.feed_batch(x, now, now_ns=now)
+    before = _counts()
+    fresh.tick(now_ns=now)
+    assert _counts() == (before[0], before[1] + 1, before[2])
+
+
+def test_microbatch_flush_matches_single_ticks(dev):
+    """microbatch=4 on the card: each flush (one graph of four packed
+    ticks) gives the four single ticks' pixels bit for bit, in four
+    distinct frames."""
+    cfg = resolve(Settings(fft_size=4096, width=800, window=FFTWindow.HANN),
+                  AudioInfo(48000, 2))
+    S = 4
+    one = ServingEngine(cfg, S, device=dev)
+    mb = ServingEngine(cfg, S, microbatch=4, device=dev)
+    rng = np.random.default_rng(11)
+    singles = []
+    for k in range(8):
+        x = _packets(rng, S, 2, False, k)
+        now = 10_000_000_000 + k * 16_666_667
+        for e in (one, mb):
+            e.feed_batch(x, now, now_ns=now)
+        singles.append(one.tick(now_ns=now))
+        mb.tick(now_ns=now, dt=None)
+        if k % 4 == 3:
+            batch = mb.last_batch_pixels
+            for i in range(4):
+                assert torch.equal(batch[i], singles[k - 3 + i]), (k, i)
+    assert mb.kernels_per_replay[("mb", 4, True)] == {"launches_gen": 4}
+
+
+def test_meter_graph_matches_eager(dev):
+    """The meter engine's graph tick against its eager tick, bit for bit,
+    through a hidden stream and a capture gap (ring zeroed once)."""
+    from waveform_tpu_torch import DisplayMode
+    from waveform_tpu_torch.runtime.meter_serving import MeterServingEngine
+
+    cfg = resolve(Settings(display_mode=DisplayMode.METER, meter_buf=100),
+                  AudioInfo(48000, 2))
+    S = 4
+    graph = MeterServingEngine(cfg, S, device=dev)
+    eager = MeterServingEngine(cfg, S, device=dev)
+    rng = np.random.default_rng(12)
+    for k in range(8):
+        now = 10_000_000_000 + k * 16_666_667 + (600_000_000 if k > 5 else 0)
+        if k <= 5:
+            x = _packets(rng, S, 2, False, k)
+            for e in (graph, eager):
+                e.feed_batch(x, now, now_ns=now)
+                e.set_show(1, k < 3)
+        px = graph.tick(now_ns=now)
+        assert torch.equal(px, _eager_tick(eager, now)), k
+        assert torch.equal(graph.ring.buf, eager.ring.buf)
+    assert (graph.meter_values == DB_MIN).all()
+    # the live streams' rings zeroed at the timeout; the hidden stream had
+    # latched already, so it froze with its ring (the early return)
+    assert not graph.ring.buf[[0, 2]].any() and graph.ring.buf[1].any()

@@ -14,8 +14,9 @@ import pytest
 import torch
 
 import waveform_tpu_torch as wt
-from waveform_tpu_torch.dsp import devring, spectrum
+from waveform_tpu_torch.dsp import devring, meter, spectrum
 from waveform_tpu_torch.rebin import apply
+from waveform_tpu_torch.runtime.meter_serving import MeterServingEngine
 
 S, C, L = 2, 2, 64
 
@@ -23,6 +24,11 @@ S, C, L = 2, 2, 64
 def _cfg():
     return wt.resolve(wt.Settings(fft_size=1024, width=200,
                                   window=wt.FFTWindow.HANN),
+                      wt.AudioInfo(48000, C))
+
+
+def _meter_cfg():
+    return wt.resolve(wt.Settings(display_mode=wt.DisplayMode.METER),
                       wt.AudioInfo(48000, C))
 
 
@@ -53,6 +59,9 @@ BUILDERS = {
     "ring_from_numpy": lambda cfg: devring.ring_from_numpy(
         np.zeros((S, C, L))),
     "make_rebin_fn": lambda cfg: apply.make_rebin_fn(cfg),
+    "init_meter_state": lambda cfg: meter.init_meter_state(_meter_cfg(), S),
+    "MeterServingEngine": lambda cfg: MeterServingEngine(
+        _meter_cfg(), S).state,
 }
 
 

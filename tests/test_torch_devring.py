@@ -33,6 +33,26 @@ def test_scalar_push_matches_jax(count, flat):
 
 
 @pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("count", [0, 1, 13, H, H + 5])
+def test_device_count_push_matches_jax(count, flat):
+    """The uniform push with its count as a 0-d tensor on the ring's device
+    (the form a captured graph replays): the JAX scalar push's window,
+    clamped to H on the device, and the host-int push's bits."""
+    rng = np.random.default_rng(count + 50 + 100 * flat)
+    ref, ring = _rings(rng, flat)
+    host = tring.ring_from_numpy(ring.buf.numpy(), device="cpu")
+    new = rng.standard_normal((S, C, H)).astype(np.float32)
+    buf0 = ring.buf
+    out = tring.push(ring, torch.from_numpy(new),
+                     torch.tensor(count, dtype=torch.int64))
+    want = jring.push(ref, jnp.asarray(new), jnp.int32(count)).view3
+    assert out is ring and ring.buf is buf0
+    np.testing.assert_array_equal(ring.buf.numpy(), np.asarray(want))
+    tring.push(host, torch.from_numpy(new), count)
+    assert torch.equal(ring.buf, host.buf)
+
+
+@pytest.mark.parametrize("flat", [False, True])
 def test_per_stream_push_matches_jax(flat):
     rng = np.random.default_rng(7)
     ref, ring = _rings(rng, flat)

@@ -47,21 +47,29 @@ def push(ring: DeviceRing, new: torch.Tensor,
     """Advance each stream's window by ``counts[s]`` samples, in place.
 
     * ``new``    [S, C, H] f32 — fresh samples, left-aligned, zero-padded
-    * ``counts`` a Python int advancing every stream alike (the lockstep
-      steady state: one shift of the whole batch), or an [S] integer
-      tensor on the ring's device (a per-stream gather)
+    * ``counts`` advancing every stream alike (the lockstep steady state:
+      one shift of the whole batch) as a Python int, or as a 0-d integer
+      tensor on the ring's device (the JAX ring's traced scalar
+      ``dynamic_slice``: the shift is read on the device, so a captured
+      CUDA graph replays it with whatever count was written before the
+      replay); or an [S] integer tensor on the ring's device (a per-stream
+      gather)
 
     window'[s] = (window[s] ++ new[s])[counts[s] : counts[s] + L], with
     counts clamped to [0, H] as the JAX ring's dynamic slice clamps them.
-    ``ring.buf`` is overwritten and the same ring is returned.
+    ``ring.buf`` is overwritten and the same ring is returned (the JAX
+    ring returns a new array; the port updates in place).
     """
     buf = ring.buf
     L, H = buf.shape[-1], new.shape[-1]
     full = torch.cat([buf, new.to(torch.float32)], dim=-1)     # [S, C, L+H]
-    if isinstance(counts, torch.Tensor) and counts.dim() > 0:
+    if isinstance(counts, torch.Tensor):
         start = counts.to(torch.int64).clamp(0, H)
-        idx = start[:, None, None] + torch.arange(L, device=buf.device)
-        buf.copy_(torch.gather(full, -1, idx.expand(buf.shape)))
+        idx = start[..., None] + torch.arange(L, device=buf.device)
+        if counts.dim() == 0:
+            buf.copy_(full.index_select(-1, idx))
+        else:
+            buf.copy_(torch.gather(full, -1, idx[:, None].expand(buf.shape)))
     else:
         c = min(max(int(counts), 0), H)
         buf.copy_(full[..., c:c + L])

@@ -134,6 +134,24 @@ def gravity_coefficient(cfg: ResolvedConfig, dt: float) -> float:
     return float(np.float32(cfg.gravity))
 
 
+def gravity_pair(cfg: ResolvedConfig, dt: float) -> np.ndarray:
+    """(g, 1 − g) as a [2] f32 host array, the values the step computes
+    from ``dt`` on the host (:func:`gravity_coefficient`).  Written into a
+    device tensor before each replay, they are the ``dt`` a captured tick
+    reads (the JAX package's ``DeviceScalarCache`` of ``dt``)."""
+    g = np.float32(gravity_coefficient(cfg, dt))
+    return np.array([g, np.float32(1.0) - g], np.float32)
+
+
+def gravity_terms(cfg: ResolvedConfig, dt: float | torch.Tensor):
+    """The EMA's (g, 1 − g) for a step's ``dt``: from a float as host f32
+    values, from a [2] :func:`gravity_pair` tensor as its 0-d elements."""
+    if isinstance(dt, torch.Tensor):
+        return dt[0], dt[1]
+    g, g2 = gravity_pair(cfg, dt)
+    return float(g), float(g2)
+
+
 def window_pair(cfg: ResolvedConfig, device: torch.device | str = "cuda"):
     """The config's window as a df32 (hi, lo) pair of [N] tensors on
     ``device`` (as :func:`init_state` places them), or None for no window —
@@ -194,7 +212,9 @@ def make_spectrum_step(cfg: ResolvedConfig,
     run=None) -> SpectrumState``:
 
     * ``samples``   [S, C, N] f32 — assembled frames
-    * ``dt``        seconds since the last tick (Python float)
+    * ``dt``        seconds since the last tick (Python float), or its
+      :func:`gravity_pair` as a [2] f32 tensor on the step's device (the
+      form a captured CUDA graph reads; the same bits)
     * ``active``    [S] bool — show && capture-fresh
     * ``input_rms`` [S] f32 — volume-normalization RMS (0 if unused)
     * ``valid``     [S, C] bool — channels whose ring held data (default all)
@@ -224,16 +244,15 @@ def make_spectrum_step(cfg: ResolvedConfig,
             cfg.cutoff_high, cfg.rolloff_q,
             cfg.rolloff_rate).astype(np.float32)).to(device)
 
-    def step(samples: torch.Tensor, state: SpectrumState, dt: float,
-             active: torch.Tensor, input_rms: torch.Tensor,
-             valid: torch.Tensor | None = None,
+    def step(samples: torch.Tensor, state: SpectrumState,
+             dt: float | torch.Tensor, active: torch.Tensor,
+             input_rms: torch.Tensor, valid: torch.Tensor | None = None,
              run: torch.Tensor | None = None) -> SpectrumState:
         samples = samples.to(torch.float32)
         if valid is None:
             valid = torch.ones(samples.shape[:2], dtype=torch.bool,
                                device=samples.device)
-        g = gravity_coefficient(cfg, dt)
-        g2 = float(np.float32(1.0) - np.float32(g))
+        g, g2 = gravity_terms(cfg, dt)
 
         if backend == "exact":
             mag, nz_k = rfft_mag_exact(samples, window)
