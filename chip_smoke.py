@@ -122,7 +122,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    its eager tick, the CPU port within 1e-4 dB, the tick time;
 23. checkpoint — the headline engine's state saved on the card, loaded
    into a card engine and (4 rows, ``keep``) a CPU port engine bit for
-   bit, both ticked on within 1e-4 dB.
+   bit, both ticked on within 1e-4 dB;
+24. waveform — ``DeviceWaveformEngine`` (torch ops, no exact kernel) at
+   the JAX bench's waveform configuration (W=800, 150 ms window, S=256)
+   with per-stream packets (a stream lagging 50 ms, a silent one): the
+   graph tick bit for bit with the eager tick over 16 ticks (display,
+   latch, ring), the CPU port on 4 of the streams within 1e-4 dB (DB_MIN
+   and latch exact), k=8 microbatch flushes bit for bit with single
+   ticks; eager and graph ticks in turns, device busy and ops a tick,
+   p50/p99 and the host pieces, a frame at k=8 against k=1, the k
+   ``"auto"`` picks; then the same at W=3840 with volume normalization
+   (the RMS ring), with the RMS window and the per-stream ring push each
+   timed in turns with its other form on the device clock;
+25. engine — ``WaveformEngine`` (S host ``StreamSource``s, one device
+   step): spectrum mode at the headline, 8 ticks, one K1-gen launch a
+   tick and no other kernel, the silent stream latched at DB_MIN, the
+   accuracy gate against the float64 oracle, the tick time; meter and
+   waveform modes at S=256 against the CPU port.
 
 Every phase's seconds are printed before the kernels' JSON record and the
 result line, which are the last two lines.  Each kernel's record carries
@@ -932,6 +948,392 @@ def host_split(profiler, eng, one_tick, n: int = 60):
     return st["p50_ms"], st["p99_ms"], med
 
 
+WF_LAG = 1                # the waveform stream whose timestamps lag 50 ms
+WF_ROWS = [0, WF_LAG, 2]  # the card streams the CPU port also runs (+ last)
+
+
+def wf_packets(rng, S: int, ticks: int) -> list:
+    """``ticks`` packets [S, 2, HOP] of seeded noise, distinct per stream;
+    the last stream silent."""
+    out = []
+    for _ in range(ticks):
+        x = (0.3 * rng.standard_normal((S, 2, HOP))).astype(np.float32)
+        x[-1] = 0.0
+        out.append(x)
+    return out
+
+
+def wf_feed(eng, x: np.ndarray, now: int) -> None:
+    """Per-stream feeds of the packet rows ``x``: the ``WF_LAG`` stream
+    (the CPU engine's row 1 too) stamped 50 ms behind the clock."""
+    for s in range(x.shape[0]):
+        eng.feed(s, x[s], now - (50_000_000 if s == WF_LAG else 0),
+                 now_ns=now)
+
+
+def wf_vs_cpu(wt, card_out: np.ndarray, cpu_out: np.ndarray) -> float:
+    """Max |card - CPU port| dB over the CPU rows' display, where the CPU
+    reads above DB_MIN; DB_MIN itself must match exactly."""
+    want = cpu_out
+    got = card_out[WF_ROWS + [-1]]
+    floor = want == np.float32(wt.DB_MIN)
+    check(np.array_equal(got[floor], want[floor]), "waveform: DB_MIN "
+          "pixels differ between the card and the CPU port")
+    return float(np.abs(got[~floor] - want[~floor]).max())
+
+
+def wf_eager_vs_graph(wt, DeviceWaveformEngine, cfg, S: int, pk, now: int,
+                      label: str, cpu=None, mb=None):
+    """A graph engine and an eager engine (and optionally a CPU port engine
+    on ``WF_ROWS`` + the last stream, and a microbatch engine) fed ``pk``
+    per stream: the graph tick equals the eager tick bit for bit each tick
+    (display, latch, ring, RMS ring); card vs CPU within 1e-4 dB each tick,
+    DB_MIN and latch exact; each microbatch flush equals its single ticks
+    bit for bit.  Returns (graph, eager, worst card-vs-CPU dB, clock)."""
+    graph = DeviceWaveformEngine(cfg, S, device="cuda")
+    eager = DeviceWaveformEngine(cfg, S, device="cuda")
+    singles, worst = [], 0.0
+    for k, x in enumerate(pk):
+        now += 16_666_667
+        for e in (graph, eager) + ((mb,) if mb is not None else ()):
+            wf_feed(e, x, now)
+        out = graph.tick(now_ns=now)
+        check(same_bits(out, eager_tick(eager, now)),
+              f"waveform {label}: graph tick vs eager tick (tick {k})")
+        states = [(graph.latch, eager.latch), (graph.ring.buf, eager.ring.buf),
+                  (graph.buf, eager.buf)]
+        if graph.rms_ring is not None:
+            states.append((graph.rms_ring.buf, eager.rms_ring.buf))
+        check(all(torch.equal(a, b) for a, b in states),
+              f"waveform {label}: graph state vs eager state (tick {k})")
+        if cpu is not None:
+            wf_feed(cpu, x[WF_ROWS + [-1]], now)
+            c_out = cpu.tick(now_ns=now).numpy()
+            worst = max(worst, wf_vs_cpu(wt, out.cpu().numpy(), c_out))
+            check(np.array_equal(graph.last_silent[WF_ROWS + [-1]],
+                                 cpu.last_silent), "waveform: latch vs CPU")
+        if mb is not None:
+            singles.append(out)
+            mb.tick(now_ns=now)
+            if mb._mb_fill == 0:
+                k0 = len(singles) - mb.microbatch
+                check(all(same_bits(mb.last_batch_pixels[i], singles[k0 + i])
+                          for i in range(mb.microbatch)),
+                      f"waveform {label}: microbatch flush vs single ticks")
+    check(worst <= 1e-4, f"waveform {label}: card vs CPU port {worst} dB")
+    return graph, eager, worst, now
+
+
+def wf_times(profiler, graph, eager, pk, now: int):
+    """Eager and graph ticks (feed_batch + tick) in turns, medians of 20;
+    5 profiled ticks of each (device busy, ops a tick; the waveform step
+    launches no exact kernel); 60 synchronized graph ticks (p50/p99 and
+    the host pieces)."""
+    clock = [now, 0]
+
+    def ticker(eng, run):
+        def one_tick():
+            clock[0] += 16_666_667
+            clock[1] += 1
+            eng.feed_batch(pk[clock[1] % len(pk)], clock[0], now_ns=clock[0])
+            run(eng, clock[0])
+        return one_tick
+
+    g_tick = ticker(graph, lambda e, t: e.tick(now_ns=t))
+    e_tick = ticker(eager, eager_tick)
+    turns = [cuda_median_ms(f, reps=20, warmup=3)
+             for f in (e_tick, g_tick, g_tick, e_tick)]
+    g_sum, g_ops, g_ours = profiled(profiler, g_tick)
+    e_sum, e_ops, e_ours = profiled(profiler, e_tick)
+    check(not g_ours and not e_ours,
+          f"waveform: exact kernels in the waveform tick {g_ours} {e_ours}")
+    host = host_split(profiler, graph, g_tick)
+    return turns, (g_sum, e_sum), (g_ops, e_ops), host, clock[0]
+
+
+def top_ops(summ: dict, ticks: int = 5, n: int = 5) -> str:
+    """The ``n`` device operations of a profiled window that took the most
+    time, by short name (template and argument lists cut), in µs and
+    launches a tick."""
+    by = {}
+    for name, (c, us) in summ["kernels"].items():
+        name = re.sub(r"^void |at::native::|\(anonymous namespace\)::", "",
+                      name)
+        short = re.split(r"[<(]", name)[0].strip()
+        what = [m.group(0) for pat in (r"\w+_kernel_cuda", r"\w+Functor")
+                if (m := re.search(pat, name[len(short):]))]
+        if "elementwise" in short and what:
+            short = f"{short}<{what[0]}>"
+        short = short[:60]
+        k, t = by.get(short, (0, 0.0))
+        by[short] = (k + c, t + us)
+    top = sorted(by.items(), key=lambda kv: -kv[1][1])[:n]
+    return ", ".join(f"{k} {t / ticks:.1f} us x{c / ticks:.0f}"
+                     for k, (c, t) in top)
+
+
+def wf_line(card: str, label: str, turns, sums, ops, host) -> str:
+    g_ms, e_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    g_us, e_us = sums[0]["busy_us"] / 5, sums[1]["busy_us"] / 5
+    return (f"waveform [{card}]: {label}: tick (feed_batch + tick) eager "
+            f"{turns[0] * 1e3:.1f} / {turns[3] * 1e3:.1f} us, graph "
+            f"{turns[1] * 1e3:.1f} / {turns[2] * 1e3:.1f} us (in turns, "
+            f"{e_ms / g_ms:.2f}x); device busy {e_us:.1f} us a tick eager, "
+            f"{g_us:.1f} us graph: {sums[1]['busy_share'] * 100:.1f}% / "
+            f"{sums[0]['busy_share'] * 100:.1f}% of the profiled ticks, "
+            f"{e_us / (e_ms * 10):.1f}% / {g_us / (g_ms * 10):.1f}% of the "
+            f"unprofiled ones; device ops a tick {ops[1]:.1f} eager, "
+            f"{ops[0]:.1f} graph; the graph tick's top device ops: "
+            + top_ops(sums[0]) + "; graph tick host pieces (median of 60, "
+            "synchronized): "
+            + ", ".join(f"{k} {v:.1f} us" for k, v in host[2].items())
+            + f"; FrameProfiler p50 {host[0]:.3f} ms, p99 {host[1]:.3f} ms")
+
+
+def wf_index_forms(rms_window_sum, push, graph, dev) -> str:
+    """The normalized engine's two per-stream row pickers on the device
+    clock at its own shapes, each in turns with its other form (bit for
+    bit): the RMS window sum over the RMS ring (the port's sliding-view
+    pick, against the [S, size] int64-index gather), and the per-stream
+    ring push into the ring (the port's [S, L] int64-index gather,
+    against the sliding-view pick; both write the ring)."""
+    from waveform_tpu_torch.dsp.devring import DeviceRing
+    S, size = graph.S, graph.cfg.input_rms_size
+    rows = graph.rms_ring.buf[:, 0].clone()
+    rng = np.random.default_rng(SEED + 21)
+    reserve = torch.from_numpy(rng.integers(0, graph._reserve_limit + 1, S)
+                               ).to(dev)
+    streams = torch.arange(S, device=dev)
+
+    def window_index():
+        Lr = rows.shape[-1]
+        start = (Lr - reserve - size).clamp(0, Lr - size)
+        idx = start[:, None] + torch.arange(size, device=dev)
+        return rows.gather(-1, idx).sum(-1)
+
+    check(same_bits(rms_window_sum(rows, reserve, size), window_index()),
+          "waveform: RMS window forms differ")
+    ring = DeviceRing(buf=graph.ring.buf.clone())
+    ring2 = DeviceRing(buf=graph.ring.buf.clone())
+    new = torch.randn((S, graph.C, graph.H), device=dev)
+    counts = torch.from_numpy(rng.integers(0, graph.H + 1, S)).to(dev)
+
+    def push_view():
+        buf = ring2.buf
+        full = torch.cat([buf, new], dim=-1)
+        buf.copy_(full.unfold(-1, buf.shape[-1], 1)[streams, :, counts])
+
+    push(ring, new, counts)
+    push_view()
+    check(same_bits(ring.buf, ring2.buf), "waveform: push forms differ")
+    w = [cuda_median_ms(f, busy_ahead=True) for f in (
+        window_index, lambda: rms_window_sum(rows, reserve, size),
+        lambda: rms_window_sum(rows, reserve, size), window_index)]
+    p = [cuda_median_ms(f, busy_ahead=True) for f in (
+        lambda: push(ring, new, counts), push_view, push_view,
+        lambda: push(ring, new, counts))]
+    return (f"RMS window (S={S}, {rows.shape[-1]} squares, {size} summed) "
+            f"{w[1] * 1e3:.1f} / {w[2] * 1e3:.1f} us against "
+            f"{w[0] * 1e3:.1f} / {w[3] * 1e3:.1f} us for the [S, {size}] "
+            f"int64-index form; per-stream ring push "
+            f"({tuple(ring.buf.shape)}, the [S, L] int64-index gather) "
+            f"{p[0] * 1e3:.1f} / {p[3] * 1e3:.1f} us against "
+            f"{p[1] * 1e3:.1f} / {p[2] * 1e3:.1f} us for the sliding-view "
+            "pick (device clock, in turns, bit for bit)")
+
+
+def phase_waveform(wt, profiler, card: str, dev) -> None:
+    """``DeviceWaveformEngine`` at the JAX bench's waveform configuration
+    (``waveform_tpu/bench.py:382-392``: W=800, 150 ms window, S=256) and
+    with volume normalization at W=3840, the widest display the config
+    allows (the JAX bench's host-assembly target, ``bench.py:410-413``,
+    names W=4096)."""
+    from waveform_tpu_torch.dsp.devring import push
+    from waveform_tpu_torch.runtime.waveform_device import (
+        DeviceWaveformEngine,
+        rms_window_sum,
+    )
+    S = 256
+    rng = np.random.default_rng(SEED + 20)
+    cfg = wt.resolve(wt.Settings(display_mode=wt.DisplayMode.WAVEFORM,
+                                 temporal_smoothing=wt.TSmoothingMode.NONE),
+                     wt.AudioInfo(SR, 2))
+    pk = wf_packets(rng, S, 16)
+    cpu = DeviceWaveformEngine(cfg, len(WF_ROWS) + 1, device="cpu")
+    mb = DeviceWaveformEngine(cfg, S, microbatch=8, device="cuda")
+    graph, eager, e_cpu, now = wf_eager_vs_graph(
+        wt, DeviceWaveformEngine, cfg, S, pk, time.monotonic_ns(), "W=800",
+        cpu=cpu, mb=mb)
+    # the silent stream displays DB_MIN, and DB_MIN != 0 keeps its latch
+    # off (the host scroller's and the reference's silence scan)
+    check(not graph.last_silent[-1]
+          and (graph.render_values()[-1] == np.float32(wt.DB_MIN)).all(),
+          "waveform: the silent stream is not at DB_MIN")
+    check(graph.kernels_per_replay == {("tick", False): {}},
+          f"waveform: replays {graph.kernels_per_replay}")
+    ring_mb = graph.ring.buf.numel() * 4 / 1e6
+    up_mb = graph._stride * 4 / 1e6
+    print(f"waveform [{card}]: W={graph.W} S={graph.S} (L={graph.L}, "
+          f"H={graph.H}, waveform_samples={cfg.waveform_samples}; ring "
+          f"{ring_mb:.1f} MB, upload {up_mb:.1f} MB = {graph.packed_width} "
+          f"floats a row): graph tick = eager tick bit for bit over "
+          f"{len(pk)} ticks (display, latch, ring); card vs CPU port "
+          f"({len(WF_ROWS) + 1} streams: the 50 ms lag stream, the silent "
+          f"one) {e_cpu:.2e} dB, DB_MIN and latch exact; k=8 flushes = "
+          f"single ticks bit for bit", flush=True)
+    turns, sums, ops, host, now = wf_times(profiler, graph, eager, pk, now)
+    print(wf_line(card, f"W={graph.W} S={graph.S}", turns, sums, ops, host),
+          flush=True)
+    clock = [now, 0]
+
+    def group(eng, n):
+        def run():
+            for _ in range(n):
+                clock[0] += 16_666_667
+                clock[1] += 1
+                eng.feed_batch(pk[clock[1] % len(pk)], clock[0],
+                               now_ns=clock[0])
+                eng.tick(now_ns=clock[0])
+        return run
+
+    mb_t = [cuda_median_ms(f, reps=10, warmup=2) / 8
+            for f in (group(graph, 8), group(mb, 8), group(mb, 8),
+                      group(graph, 8))]
+    auto = DeviceWaveformEngine(cfg, S, microbatch="auto", device="cuda")
+    for k in range(64):
+        if not auto._mb_auto and auto._mb_fill == 0:
+            break
+        clock[0] += 16_666_667
+        auto.feed_batch(pk[k % len(pk)], clock[0], now_ns=clock[0])
+        auto.tick(now_ns=clock[0])
+    check(not auto._mb_auto, "waveform: auto did not resolve")
+    print(f"waveform [{card}]: microbatch W={graph.W} S={graph.S}: a frame "
+          f"(feed_batch + tick, 8-tick groups) k=1 {mb_t[0] * 1e3:.1f} / "
+          f"{mb_t[3] * 1e3:.1f} us, k=8 {mb_t[1] * 1e3:.1f} / "
+          f"{mb_t[2] * 1e3:.1f} us (in turns); \"auto\" picks k="
+          f"{auto.microbatch} (probe tick {auto._probe_tick * 1e3:.3f} ms)",
+          flush=True)
+    del graph, eager, mb, auto, cpu
+
+    # the host-assembly target's W=4096 is past the width property's range
+    # (32-3840, core/properties.py): resolve clamps it to 3840
+    cfg4 = wt.resolve(wt.Settings(display_mode=wt.DisplayMode.WAVEFORM,
+                                  temporal_smoothing=wt.TSmoothingMode.NONE,
+                                  width=3840, normalize_volume=True),
+                      wt.AudioInfo(SR, 2))
+    cpu4 = DeviceWaveformEngine(cfg4, len(WF_ROWS) + 1, device="cpu")
+    graph, eager, e_cpu4, now = wf_eager_vs_graph(
+        wt, DeviceWaveformEngine, cfg4, S, pk[:8], time.monotonic_ns(),
+        "W=3840", cpu=cpu4)
+    rms_mb = graph.rms_ring.buf.numel() * 4 / 1e6
+    print(f"waveform [{card}]: W={graph.W} S={graph.S} normalize_volume (RMS "
+          f"ring {rms_mb:.1f} MB, upload {graph._stride * 4 / 1e6:.1f} MB): "
+          f"graph = eager bit for bit over 8 ticks (display, latch, ring, "
+          f"RMS ring); card vs CPU port {e_cpu4:.2e} dB; "
+          + wf_index_forms(rms_window_sum, push, graph, dev), flush=True)
+    turns, sums, ops, host, _ = wf_times(profiler, graph, eager, pk, now)
+    print(wf_line(card, f"W={graph.W} S={graph.S} normalize_volume", turns,
+                  sums, ops, host), flush=True)
+
+
+def phase_engine(wt, exact_cuda, card: str) -> None:
+    """``WaveformEngine`` (S ``StreamSource``s on the host, one device
+    step): spectrum mode at the headline, 8 ticks, one K1-gen launch a
+    tick and no other kernel, the oracle gate; meter and waveform modes
+    against the CPU port."""
+    from waveform_tpu_torch.runtime.engine import WaveformEngine
+    S = 256
+    rng = np.random.default_rng(SEED + 22)
+    cfg = wt.resolve(wt.Settings(fft_size=4096, width=800,
+                                 window=wt.FFTWindow.HANN,
+                                 interp_mode=wt.InterpMode.LANCZOS),
+                     wt.AudioInfo(SR, 2))
+    eng = WaveformEngine(cfg, S, device="cuda")
+    pk = [feed_signal(rng, S, k) for k in range(8)]
+    now = time.monotonic_ns()
+    for name in COUNTERS:
+        setattr(exact_cuda, name, 0)
+    for x in pk:
+        now += 16_666_667
+        for s in range(eng.S):
+            eng.feed(s, x[s], now, now_ns=now)
+        db = eng.tick(now_ns=now)
+    torch.cuda.synchronize()
+    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
+    check(counts == only("launches_gen", len(pk)),
+          f"engine: spectrum launches {counts}")
+    db = db.cpu().numpy()
+    check(np.isfinite(db).all() and (db[-1] == np.float32(wt.DB_MIN)).all()
+          and bool(eng.last_silent[-1]), "engine: the silent stream")
+    px = eng.render_values()
+    check(px.shape == (eng.S, 1, 800) and np.isfinite(px).all(),
+          "engine: pixels")
+    clock = [now]
+
+    def one_tick(e, x):
+        clock[0] += 16_666_667
+        for s in range(e.S):
+            e.feed(s, x[s], clock[0], now_ns=clock[0])
+        e.tick(now_ns=clock[0])
+
+    t_spec = cuda_median_ms(lambda: one_tick(eng, pk[0]), reps=5, warmup=1)
+
+    gcfg = wt.resolve(wt.Settings(fft_size=4096, width=800,
+                                  window=wt.FFTWindow.HANN,
+                                  temporal_smoothing=wt.TSmoothingMode.NONE),
+                      wt.AudioInfo(SR, 2))
+    geng = WaveformEngine(gcfg, 2, device="cuda")
+    for k in range(6):
+        now += 16_666_667
+        for s in range(2):
+            geng.feed(s, rng.uniform(-0.5, 0.5, (2, HOP)).astype(np.float32),
+                      now, now_ns=now)
+        got = geng.tick(now_ns=now)[0].cpu().numpy()
+    src = geng.sources[0]
+    window = np.stack([r.peek_front(gcfg.fft_size) for r in src.rings]
+                      ).astype(np.float64)
+    want, _ = wt.oracle.spectrum_frame(window, None, gcfg, dt=1 / 60)
+    vis = want > -120.0
+    gate = float(np.abs(got[vis] - want[vis]).max())
+    check(gate < 1e-4, f"engine: accuracy gate {gate} dB")
+    print(f"engine [{card}]: spectrum N=4096 S={eng.S}: {len(pk)} ticks, "
+          f"launches {dict(zip(COUNTERS, counts))} (one K1-gen a tick, no "
+          f"other kernel), the silent stream at DB_MIN and latched, pixels "
+          f"{px.shape}; oracle gate {gate:.2e} dB; tick (S feeds + tick, "
+          f"median of 5) {t_spec:.2f} ms", flush=True)
+
+    for mode in (wt.DisplayMode.METER, wt.DisplayMode.WAVEFORM):
+        mcfg = wt.resolve(wt.Settings(display_mode=mode),
+                          wt.AudioInfo(SR, 2))
+        card_e = WaveformEngine(mcfg, S, device="cuda")
+        rows = [0, 1, 2, card_e.S - 1]
+        cpu_e = WaveformEngine(mcfg, len(rows), device="cpu")
+        for k in range(4):
+            x = pk[k]
+            now += 16_666_667
+            for s in range(card_e.S):
+                card_e.feed(s, x[s], now, now_ns=now)
+            for i, s in enumerate(rows):
+                cpu_e.feed(i, x[s], now, now_ns=now)
+            got = np.asarray(card_e.tick(now_ns=now).cpu()
+                             if mode == wt.DisplayMode.METER
+                             else card_e.tick(now_ns=now))[rows]
+            want = np.asarray(cpu_e.tick(now_ns=now))
+        floor = want == np.float32(wt.DB_MIN)
+        err = float(np.abs(got[~floor] - want[~floor]).max())
+        check(err <= 1e-4 and np.array_equal(got[floor], want[floor])
+              and np.array_equal(card_e.last_silent[rows],
+                                 cpu_e.last_silent),
+              f"engine: {mode.value} card vs CPU port {err} dB")
+        t_mode = cuda_median_ms(lambda: one_tick(card_e, pk[0]), reps=5,
+                                warmup=1)
+        print(f"engine [{card}]: {mode.value} S={card_e.S}: 4 ticks, card "
+              f"vs CPU port ({len(rows)} streams) {err:.2e} dB, DB_MIN and "
+              f"latch exact; tick (S feeds + tick, median of 5) "
+              f"{t_mode:.2f} ms",
+              flush=True)
+
+
 def kernel_label(fn: str) -> str:
     """A mangled kernel name as name<template arguments>."""
     m = re.search(r"_cu_[0-9a-f]{8}\d+(exact_[a-z0-9_]+?)(I.*?E)?E", fn)
@@ -1584,6 +1986,16 @@ def main() -> None:
           f"engine and (keep={rows}) a CPU port engine bit for bit, 3 ticks "
           f"on: card vs CPU {e_r:.2e} dB", flush=True)
     del card_e, resumed, cpu_r
+
+    # 24. waveform: DeviceWaveformEngine at S=256 ---------------------------
+    t0 = time.perf_counter()
+    phase_waveform(wt, profiler, card, dev)
+    secs["waveform"] = time.perf_counter() - t0
+
+    # 25. engine: WaveformEngine in its three modes ------------------------
+    t0 = time.perf_counter()
+    phase_engine(wt, exact_cuda, card)
+    secs["engine"] = time.perf_counter() - t0
 
     jax_mods =[m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]

@@ -644,3 +644,131 @@ def test_meter_graph_matches_eager(dev):
     # the live streams' rings zeroed at the timeout; the hidden stream had
     # latched already, so it froze with its ring (the early return)
     assert not graph.ring.buf[[0, 2]].any() and graph.ring.buf[1].any()
+
+
+# --- the waveform family ----------------------------------------------------
+
+def _wf_cfg(**kw):
+    from waveform_tpu_torch import DisplayMode, TSmoothingMode
+    return resolve(Settings(display_mode=DisplayMode.WAVEFORM,
+                            temporal_smoothing=TSmoothingMode.NONE, **kw),
+                   AudioInfo(48000, 2))
+
+
+def _wf_feed(engines, rng, S, now):
+    """One tick's per-stream packets: noise, stream 1 stamped 50 ms behind
+    the clock, the last stream silent."""
+    for s in range(S):
+        x = (0.3 * rng.standard_normal((2, 480))).astype(np.float32)
+        if s == S - 1:
+            x[:] = 0.0
+        for e in engines:
+            e.feed(s, x, now - (50_000_000 if s == 1 else 0), now_ns=now)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_waveform_graph_matches_eager_bitwise(normalize, dev):
+    """The waveform graph tick against its eager tick on the same packets:
+    the display, latch, ring (and RMS ring) bit for bit every tick; a
+    replay launches no exact kernel."""
+    from waveform_tpu_torch.runtime.waveform_device import (
+        DeviceWaveformEngine,
+    )
+    cfg = _wf_cfg(width=320, meter_buf=100, normalize_volume=normalize,
+                  audio_sync_offset=40 if normalize else 0)
+    S = 4
+    graph = DeviceWaveformEngine(cfg, S, device=dev)
+    eager = DeviceWaveformEngine(cfg, S, device=dev)
+    rng = np.random.default_rng(13)
+    now = 10_000_000_000
+    for k in range(12):
+        _wf_feed((graph, eager), rng, S, now)
+        now += 10_000_000
+        assert torch.equal(graph.tick(now_ns=now), _eager_tick(eager, now)), k
+        assert torch.equal(graph.latch, eager.latch)
+        assert torch.equal(graph.ring.buf, eager.ring.buf)
+        if normalize:
+            assert torch.equal(graph.rms_ring.buf, eager.rms_ring.buf)
+    assert graph.kernels_per_replay == {("tick", False): {}}
+
+
+def test_waveform_microbatch_matches_single_ticks(dev):
+    """microbatch=4 on the card: each flush (one graph of four packed
+    ticks) gives the four single ticks' displays bit for bit."""
+    from waveform_tpu_torch.runtime.waveform_device import (
+        DeviceWaveformEngine,
+    )
+    cfg = _wf_cfg(width=320, meter_buf=100)
+    S = 4
+    one = DeviceWaveformEngine(cfg, S, device=dev)
+    mb = DeviceWaveformEngine(cfg, S, microbatch=4, device=dev)
+    rng = np.random.default_rng(14)
+    now = 10_000_000_000
+    singles = []
+    for k in range(8):
+        _wf_feed((one, mb), rng, S, now)
+        now += 10_000_000
+        singles.append(one.tick(now_ns=now))
+        mb.tick(now_ns=now)
+        if k % 4 == 3:
+            for i in range(4):
+                assert torch.equal(mb.last_batch_pixels[i],
+                                   singles[k - 3 + i]), (k, i)
+    assert torch.equal(mb.buf, one.buf) and torch.equal(mb.latch, one.latch)
+
+
+def test_waveform_resized_on_card(dev):
+    """resized(keep) on the card: the carried rows and the new engine's
+    graph ticks stay within 1e-4 dB of the CPU port resized the same way,
+    DB_MIN and the latch exact."""
+    from waveform_tpu_torch.runtime.waveform_device import (
+        DeviceWaveformEngine,
+    )
+    cfg = _wf_cfg(width=256, meter_buf=100, normalize_volume=True)
+    card = DeviceWaveformEngine(cfg, 3, device=dev)
+    cpu = DeviceWaveformEngine(cfg, 3, device="cpu")
+    rng = np.random.default_rng(15)
+    now = 10_000_000_000
+    for S, ticks in ((3, 10), (4, 10)):
+        if S == 4:
+            card = card.resized(4, keep=[2, 0])
+            cpu = cpu.resized(4, keep=[2, 0])
+        for _ in range(ticks):
+            _wf_feed((card, cpu), rng, S, now)
+            now += 10_000_000
+            got = card.tick(now_ns=now).cpu().numpy()
+            want = cpu.tick(now_ns=now).numpy()
+            floor = want == np.float32(DB_MIN)
+            np.testing.assert_array_equal(got[floor], want[floor])
+            np.testing.assert_allclose(got[~floor], want[~floor], rtol=0,
+                                       atol=1e-4)
+            np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
+
+
+def test_engine_spectrum_launches_k1_gen_once_a_tick(dev):
+    """WaveformEngine's spectrum mode at N=4096 on the card: one K1-gen
+    launch a tick (warm-up, capture, replays) and no other kernel, within
+    1e-4 dB of the CPU port."""
+    from waveform_tpu_torch.runtime.engine import WaveformEngine
+    cfg = resolve(Settings(fft_size=4096, width=400, window=FFTWindow.HANN),
+                  AudioInfo(48000, 2))
+    S = 3
+    card = WaveformEngine(cfg, S, device=dev)
+    cpu = WaveformEngine(cfg, S, device="cpu")
+    rng = np.random.default_rng(16)
+    for k in range(5):
+        x = _packets(rng, S, 2, False, k)
+        now = 10_000_000_000 + k * 16_666_667
+        for s in range(S):
+            for e in (card, cpu):
+                e.feed(s, x[s], now, now_ns=now)
+        before = {c: getattr(exact_cuda, c) for c in COUNTERS}
+        got = card.tick(now_ns=now).cpu().numpy()
+        moved = {c: getattr(exact_cuda, c) - n for c, n in before.items()
+                 if getattr(exact_cuda, c) != n}
+        assert moved == {"launches_gen": 1}, (k, moved)
+        want = cpu.tick(now_ns=now).numpy()
+        vis = want > -120.0
+        np.testing.assert_allclose(got[vis], want[vis], rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
+    assert (got[-1] == np.float32(DB_MIN)).all() and card.last_silent[-1]

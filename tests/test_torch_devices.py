@@ -16,7 +16,9 @@ import torch
 import waveform_tpu_torch as wt
 from waveform_tpu_torch.dsp import devring, meter, spectrum
 from waveform_tpu_torch.rebin import apply
+from waveform_tpu_torch.runtime.engine import WaveformEngine
 from waveform_tpu_torch.runtime.meter_serving import MeterServingEngine
+from waveform_tpu_torch.runtime.waveform_device import DeviceWaveformEngine
 
 S, C, L = 2, 2, 64
 
@@ -29,6 +31,12 @@ def _cfg():
 
 def _meter_cfg():
     return wt.resolve(wt.Settings(display_mode=wt.DisplayMode.METER),
+                      wt.AudioInfo(48000, C))
+
+
+def _waveform_cfg():
+    return wt.resolve(wt.Settings(display_mode=wt.DisplayMode.WAVEFORM,
+                                  width=200),
                       wt.AudioInfo(48000, C))
 
 
@@ -62,6 +70,10 @@ BUILDERS = {
     "init_meter_state": lambda cfg: meter.init_meter_state(_meter_cfg(), S),
     "MeterServingEngine": lambda cfg: MeterServingEngine(
         _meter_cfg(), S).state,
+    "DeviceWaveformEngine": lambda cfg: (
+        lambda e: (e.ring, e.buf, e.latch))(
+            DeviceWaveformEngine(_waveform_cfg(), S)),
+    "WaveformEngine": lambda cfg: WaveformEngine(cfg, S).state,
 }
 
 

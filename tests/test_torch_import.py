@@ -7,10 +7,13 @@ subprocess can show that the port's own import graph leaves both out.  The
 probe blocks ``jax``, ``jaxlib``, ``flax`` and ``waveform_tpu`` (the JAX
 package: the exact name and its submodules), imports every module of the
 port's serving path (the graph tick, the meter engine, checkpoints, the
-profiler included), then resolves a config with the port's own
-``resolve`` and runs CPU ticks through the port's native assembler: a
-microbatch flush, ``tick_many``, a checkpoint saved and loaded into a
-resized engine, and one ``MeterServingEngine`` tick.
+profiler, the waveform family's host copies and engines included), then
+resolves a config with the port's own ``resolve`` and runs CPU ticks
+through the port's native assembler: a microbatch flush, ``tick_many``, a
+checkpoint saved and loaded into a resized engine, one
+``MeterServingEngine`` tick, ``DeviceWaveformEngine`` ticks (one a k=2
+microbatch flush) and a resize, and a ``WaveformEngine`` tick in each of
+its three modes.
 """
 
 import subprocess
@@ -49,6 +52,10 @@ _PROBE = textwrap.dedent("""
     import waveform_tpu_torch.runtime.meter_serving
     import waveform_tpu_torch.runtime.profiler
     import waveform_tpu_torch.runtime.serving
+    import waveform_tpu_torch.runtime.source
+    import waveform_tpu_torch.runtime.waveform_host
+    import waveform_tpu_torch.runtime.waveform_device
+    import waveform_tpu_torch.runtime.engine
     import waveform_tpu_torch.utils.checkpoint
 
     import os
@@ -78,6 +85,27 @@ _PROBE = textwrap.dedent("""
     meter = MeterServingEngine(mcfg, 2, device="cpu")
     meter.feed_batch(x.astype(np.float32), 10**10, now_ns=10**10)
     assert tuple(meter.tick(now_ns=10**10).shape) == (2, 1, 2)
+
+    from waveform_tpu_torch.runtime.engine import WaveformEngine
+    from waveform_tpu_torch.runtime.waveform_device import (
+        DeviceWaveformEngine)
+    wcfg = wt.resolve(wt.Settings(display_mode=wt.DisplayMode.WAVEFORM,
+                                  width=128), wt.AudioInfo(48000, 2))
+    weng = DeviceWaveformEngine(wcfg, 2, use_native=True, microbatch=2,
+                                device="cpu")
+    assert type(weng._native).__module__ == "waveform_tpu_torch.native"
+    for k in range(2):
+        now = 10**10 + k * 10**7
+        weng.feed_batch(x[..., :480].astype(np.float32), now, now_ns=now)
+        disp = weng.tick(now_ns=now)
+    assert tuple(disp.shape) == (2, 1, 128) and bool(disp.isfinite().all())
+    assert weng.resized(3, keep=[1]).render_values().shape == (3, 1, 128)
+    for mcfg_ in (cfg, mcfg, wcfg):
+        e = WaveformEngine(mcfg_, 2, device="cpu")
+        for s in range(2):
+            e.feed(s, x[s].astype(np.float32), 10**10, now_ns=10**10)
+        e.tick(now_ns=10**10)
+        assert e.render_values().shape[0] == 2
 
     loaded = sorted(k for k in sys.modules if blocked(k))
     assert not loaded, loaded

@@ -55,10 +55,6 @@ from ..dsp.spectrum import (
 from ..rebin.apply import make_rebin_fn
 from .graphs import GraphTick
 
-# the scalars behind the packed rows of an upload: (g, 1 - g) of the
-# tick's dt (dsp/spectrum.gravity_pair), then the uniform count
-_TAIL = 3
-
 
 def link_rtt(device: torch.device | str = "cuda") -> float:
     """Median round trip of a minimal dispatch on ``device`` — the
@@ -281,9 +277,201 @@ class AutoMicrobatchMixin:
         return getattr(self, "_mb_completion", None)
 
 
-class ServingEngine(AutoMicrobatchMixin):
+class PackedTickEngine(AutoMicrobatchMixin):
+    """The device-side plumbing of the packed-row engines
+    (:class:`ServingEngine` and its meter subclass,
+    ``runtime/waveform_device.DeviceWaveformEngine``): one packed upload a
+    tick, double-buffered in (pinned, on CUDA) host memory and fenced by
+    CUDA events; the device half of each tick kind a
+    :class:`~.graphs.GraphTick`; the microbatch flush, k packed ticks in
+    one graph.
+
+    A subclass sets ``cfg``, ``S`` and ``device`` and provides
+    ``packed_width``, ``_TAIL`` (floats of scalars behind the rows),
+    ``_bind_external(view)`` (point its assembly views at one tick's
+    upload), ``_stage(now_ns, dt_f)`` (assemble the bound upload; returns
+    whether every stream advances alike) and ``_packed(flat, uniform)``
+    (the device tick on one uploaded ``flat``; returns its output)."""
+
+    _TAIL = 0
+
+    def _init_microbatch(self, microbatch: int | str) -> None:
+        """microbatch > 1: ticks accumulate k assembled frames and run them
+        as ONE captured flush every k-th tick (see :meth:`_tick`); "auto"
+        probes the device and chooses k (AutoMicrobatchMixin)."""
+        self._mb_auto = microbatch == "auto"
+        self._mb_req = microbatch
+        self._probe_ticks: list[float] = []
+        self._mb = 1 if self._mb_auto else max(int(microbatch), 1)
+        self._mb_fill = 0
+        self._mb_uniform: list[bool] = []
+        self._mb_bufs = None
+        self._mb_dev = None
+        self._mb_events: list = [None, None]
+        self._mb_flip = 0
+        self._last_batch = None
+
+    def _init_uploads(self) -> None:
+        """One packed upload per tick, double-buffered in (pinned, on CUDA)
+        host memory: the upload is asynchronous, so it reads the host
+        buffer after tick() returns; a tick rewrites a buffer only after
+        the event recorded behind its last upload has completed."""
+        self._ticks: dict = {}       # (kind, ...) -> GraphTick
+        self._host = [self._host_buffer(1) for _ in range(2)]
+        self._events: list = [None, None]
+        self._flip = 0
+        self._dev_in = torch.empty(self._stride, dtype=torch.float32,
+                                   device=self.device)
+        self._bind_buf(0)
+        self._last_pixels = None
+
+    @property
+    def _stride(self) -> int:
+        """Floats of one tick's upload: the packed rows, then _TAIL."""
+        return self.S * self.packed_width + self._TAIL
+
+    def _host_buffer(self, k: int) -> torch.Tensor:
+        """A zeroed host buffer for ``k`` ticks' uploads (pinned on CUDA,
+        so the copy is asynchronous)."""
+        return torch.zeros(k * self._stride, dtype=torch.float32,
+                           pin_memory=self.device.type == "cuda")
+
+    def _bind_buf(self, i: int) -> None:
+        """Point the assembly views at host buffer ``i``, first waiting for
+        the upload that last read it."""
+        ev = self._events[i]
+        if ev is not None:
+            ev.synchronize()
+            self._events[i] = None
+        self._bind_external(self._host[i].numpy())
+
+    def _upload(self, host: torch.Tensor, dev: torch.Tensor,
+                events: list, i: int) -> None:
+        """Copy ``host`` into ``dev`` on the current stream; on CUDA record
+        the event that frees ``host`` for reuse in ``events[i]``."""
+        dev.copy_(host, non_blocking=True)
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            events[i] = ev
+
+    def _graph_fn(self, key):
+        """The device function of one tick kind, over fixed tensors: a
+        single tick ("tick", uniform) or a microbatch flush ("mb", k,
+        uniform)."""
+        kind, *rest = key
+        if kind == "tick":
+            (uniform,) = rest
+            dev_in = self._dev_in
+            return lambda: self._packed(dev_in, uniform)
+        k, uniform = rest
+        dev_in, R = self._mb_dev, self._stride
+        return lambda: torch.stack([
+            self._packed(dev_in[i * R:(i + 1) * R], uniform)
+            for i in range(k)])
+
+    def _call(self, key):
+        """Run tick kind ``key``: replay its graph (capturing it at its
+        first call, after an eager warm-up), or on the CPU run it eagerly.
+        Returns the raw output (on CUDA the graph's own buffer)."""
+        t = self._ticks.get(key)
+        if t is None:
+            t = self._ticks[key] = GraphTick(self._graph_fn(key), self.device)
+        return t()
+
+    def _fresh(self, out: torch.Tensor) -> torch.Tensor:
+        """A tick's output as its own tensor: a graph's output buffer is
+        rewritten by the next replay, the pixels handed out are not."""
+        return out.clone() if self.device.type == "cuda" else out
+
+    @property
+    def kernels_per_replay(self) -> dict:
+        """{tick kind: {exact_cuda counter: kernels one replay launches}}
+        of every graph captured so far (empty on the CPU)."""
+        return {key: dict(t.launches) for key, t in self._ticks.items()
+                if t.graph is not None}
+
+    # ------------------------------------------------------------------
+
+    def _tick(self, now_ns: int, dt_f):
+        """One frame: a probe or validation tick while "auto" decides, an
+        accumulating tick under microbatch k > 1, else a single tick."""
+        if self._mb_auto:   # probe (k=1) or validation (candidate k) phase
+            return self._tick_probe(now_ns, dt_f)
+        if self._mb > 1:
+            return self._tick_microbatch(now_ns, dt_f)
+        return self._tick_one(now_ns, dt_f)
+
+    def _tick_one(self, now_ns: int, dt_f):
+        """Assemble, upload and run one tick; returns its output, a tensor
+        of its own."""
+        self._flip ^= 1
+        self._bind_buf(self._flip)
+        uniform = self._stage(now_ns, dt_f)
+        self._upload(self._host[self._flip], self._dev_in, self._events,
+                     self._flip)
+        pixels = self._fresh(self._call(("tick", uniform)))
+        self._last_pixels = pixels
+        return pixels
+
+    def _tick_microbatch(self, now_ns: int, dt_f):
+        """Accumulate one assembled frame; flush k frames as one graph.
+        Each accumulated tick keeps its own slot (its rows and scalars),
+        so the flush gives k single ticks' outputs exactly."""
+        k = self._mb
+        if self._mb_bufs is None:
+            self._mb_bufs = [self._host_buffer(k) for _ in range(2)]
+            self._mb_dev = torch.empty(k * self._stride, dtype=torch.float32,
+                                       device=self.device)
+        if self._mb_fill == 0:
+            self._mb_flip ^= 1
+            ev = self._mb_events[self._mb_flip]
+            if ev is not None:
+                ev.synchronize()
+                self._mb_events[self._mb_flip] = None
+            self._mb_uniform = []
+        R = self._stride
+        host = self._mb_bufs[self._mb_flip]
+        self._bind_external(host.numpy()[self._mb_fill * R:
+                                         (self._mb_fill + 1) * R])
+        self._mb_uniform.append(self._stage(now_ns, dt_f))
+        self._mb_fill += 1
+        if self._mb_fill < k:
+            return self._last_pixels
+        self._mb_fill = 0
+        self._upload(host, self._mb_dev, self._mb_events, self._mb_flip)
+        pxs = self._fresh(self._call(("mb", k, all(self._mb_uniform))))
+        self._last_batch = pxs
+        self._last_pixels = pxs[-1]
+        return self._last_pixels
+
+    @property
+    def last_batch_pixels(self):
+        """Device outputs of the last microbatch flush: [k, ...]."""
+        return self._last_batch
+
+    # -- auto microbatch policy: shared machinery (AutoMicrobatchMixin) --
+
+    def _mb_plain_tick(self, now_ns: int, dt_f):
+        return self._tick_one(now_ns, dt_f)
+
+    def _mb_flush_tick(self, now_ns: int, dt_f):
+        return self._tick_microbatch(now_ns, dt_f)
+
+    def _reset_mb_extra(self) -> None:
+        self._mb_uniform = []
+        self._mb_dev = None
+        # the flush graphs read the dropped device buffer
+        self._ticks = {key: t for key, t in self._ticks.items()
+                       if key[0] != "mb"}
+
+
+class ServingEngine(PackedTickEngine):
     """Batched device-resident spectrum serving for S streams."""
 
+    # the scalars behind the packed rows of an upload: (g, 1 - g) of the
+    # tick's dt (dsp/spectrum.gravity_pair), then the uniform count
+    _TAIL = 3
     # the meter subclass (runtime/meter_serving.py) packs (counts, fresh,
     # show) meta columns instead of (counts, show&&fresh, rms)
     _split_meta = False
@@ -315,20 +503,7 @@ class ServingEngine(AutoMicrobatchMixin):
         self.C = max(cfg.capture_channels, 1)
         # kept for resized(): rebuild with identical construction choices
         self._use_native_req = use_native
-        # microbatch > 1: ticks accumulate k assembled frames and run them
-        # as ONE captured flush every k-th tick (see :meth:`tick`); "auto"
-        # probes the device and chooses k (AutoMicrobatchMixin)
-        self._mb_auto = microbatch == "auto"
-        self._mb_req = microbatch
-        self._probe_ticks: list[float] = []
-        self._mb = 1 if self._mb_auto else max(int(microbatch), 1)
-        self._mb_fill = 0
-        self._mb_uniform: list[bool] = []
-        self._mb_bufs = None
-        self._mb_dev = None
-        self._mb_events: list = [None, None]
-        self._mb_flip = 0
-        self._last_batch = None
+        self._init_microbatch(microbatch)
         # hop budget: max new samples consumed per stream per tick; default
         # 2 video frames of audio so jitter doesn't stall the window
         self.H = hop_budget or (2 * int(cfg.audio.samples_per_sec / cfg.fps)
@@ -356,21 +531,9 @@ class ServingEngine(AutoMicrobatchMixin):
 
         self._init_device_state()
         self._build_device_programs()
-        self._ticks: dict = {}       # (kind, ...) -> GraphTick
         self._bulk: dict = {}        # tick_many hop -> its input buffers
-
-        # One packed upload per tick, double-buffered in (pinned, on CUDA)
-        # host memory: the upload is asynchronous, so it reads the host
-        # buffer after tick() returns; a tick rewrites a buffer only after
-        # the event recorded behind its last upload has completed.
-        self._host = [self._host_buffer(1) for _ in range(2)]
-        self._events: list = [None, None]
-        self._flip = 0
-        self._dev_in = torch.empty(self._stride, dtype=torch.float32,
-                                   device=self.device)
-        self._bind_buf(0)
+        self._init_uploads()
         assert np.shares_memory(self._push_buf, self._in_buf)
-        self._last_pixels = None
 
     # -- mode hooks (runtime/meter_serving.py overrides them) --------------
 
@@ -453,26 +616,6 @@ class ServingEngine(AutoMicrobatchMixin):
         RMS squares only under volume normalization, 3 meta columns."""
         return self.C * self.H + (self.H if self._normalize else 0) + 3
 
-    @property
-    def _stride(self) -> int:
-        """Floats of one tick's upload: the packed rows, then _TAIL."""
-        return self.S * self.packed_width + _TAIL
-
-    def _host_buffer(self, k: int) -> torch.Tensor:
-        """A zeroed host buffer for ``k`` ticks' uploads (pinned on CUDA,
-        so the copy is asynchronous)."""
-        return torch.zeros(k * self._stride, dtype=torch.float32,
-                           pin_memory=self.device.type == "cuda")
-
-    def _bind_buf(self, i: int) -> None:
-        """Point the assembly views at host buffer ``i``, first waiting for
-        the upload that last read it."""
-        ev = self._events[i]
-        if ev is not None:
-            ev.synchronize()
-            self._events[i] = None
-        self._bind_external(self._host[i].numpy())
-
     def _bind_external(self, view: np.ndarray) -> None:
         """Point the assembly views at one tick's upload ``view`` (flat
         float32, ``_stride`` long): the packed rows, then the scalars."""
@@ -496,57 +639,17 @@ class ServingEngine(AutoMicrobatchMixin):
             flat[:S * W].view(S, W), self.ring, self.state, tail[:2],
             self.rms_ring, tail[2].to(torch.int64) if uniform else None)
 
-    def _upload(self, host: torch.Tensor, dev: torch.Tensor,
-                events: list, i: int) -> None:
-        """Copy ``host`` into ``dev`` on the current stream; on CUDA record
-        the event that frees ``host`` for reuse in ``events[i]``."""
-        dev.copy_(host, non_blocking=True)
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
-            events[i] = ev
-
     def _graph_fn(self, key):
-        """The device function of one tick kind, over fixed tensors: a
-        single tick ("tick", uniform), a microbatch flush ("mb", k,
-        uniform), or a tick_many step ("bulk", hop, uniform)."""
+        """The base's tick kinds, and a tick_many step ("bulk", hop,
+        uniform)."""
         kind, *rest = key
-        if kind == "tick":
-            (uniform,) = rest
-            dev_in = self._dev_in
-            return lambda: self._packed(dev_in, uniform)
-        if kind == "mb":
-            k, uniform = rest
-            dev_in, R = self._mb_dev, self._stride
-            return lambda: torch.stack([
-                self._packed(dev_in[i * R:(i + 1) * R], uniform)
-                for i in range(k)])
+        if kind != "bulk":
+            return super()._graph_fn(key)
         hop, uniform = rest
         b = self._bulk[hop]
         return lambda: self._bulk_tick(
             b["new"], b["ucount"] if uniform else b["counts"], self.ring,
             self.state, b["scalars"], b["active"], b["rms"], self.rms_ring)
-
-    def _call(self, key):
-        """Run tick kind ``key``: replay its graph (capturing it at its
-        first call, after an eager warm-up), or on the CPU run it eagerly.
-        Returns the raw output (on CUDA the graph's own buffer)."""
-        t = self._ticks.get(key)
-        if t is None:
-            t = self._ticks[key] = GraphTick(self._graph_fn(key), self.device)
-        return t()
-
-    def _fresh(self, out: torch.Tensor) -> torch.Tensor:
-        """A tick's output as its own tensor: a graph's output buffer is
-        rewritten by the next replay, the pixels handed out are not."""
-        return out.clone() if self.device.type == "cuda" else out
-
-    @property
-    def kernels_per_replay(self) -> dict:
-        """{tick kind: {exact_cuda counter: kernels one replay launches}}
-        of every graph captured so far (empty on the CPU)."""
-        return {key: dict(t.launches) for key, t in self._ticks.items()
-                if t.graph is not None}
 
     # ------------------------------------------------------------------
 
@@ -765,70 +868,7 @@ class ServingEngine(AutoMicrobatchMixin):
         carries all k)."""
         now_ns = time.monotonic_ns() if now_ns is None else now_ns
         dt_f = (1.0 / self.cfg.fps) if dt is None else float(dt)
-        if self._mb_auto:   # probe (k=1) or validation (candidate k) phase
-            return self._tick_probe(now_ns, dt_f)
-        if self._mb > 1:
-            return self._tick_microbatch(now_ns, dt_f)
-        self._flip ^= 1
-        self._bind_buf(self._flip)
-        uniform = self._stage(now_ns, dt_f)
-        self._upload(self._host[self._flip], self._dev_in, self._events,
-                     self._flip)
-        pixels = self._fresh(self._call(("tick", uniform)))
-        self._last_pixels = pixels
-        return pixels
-
-    def _tick_microbatch(self, now_ns: int, dt_f: float):
-        """Accumulate one assembled frame; flush k frames as one graph.
-        Each accumulated tick keeps its own dt (its slot's scalars), so
-        gravity/EMA trails match k microbatch=1 ticks fed the same
-        per-frame dts exactly."""
-        k = self._mb
-        if self._mb_bufs is None:
-            self._mb_bufs = [self._host_buffer(k) for _ in range(2)]
-            self._mb_dev = torch.empty(k * self._stride, dtype=torch.float32,
-                                       device=self.device)
-        if self._mb_fill == 0:
-            self._mb_flip ^= 1
-            ev = self._mb_events[self._mb_flip]
-            if ev is not None:
-                ev.synchronize()
-                self._mb_events[self._mb_flip] = None
-            self._mb_uniform = []
-        R = self._stride
-        host = self._mb_bufs[self._mb_flip]
-        self._bind_external(host.numpy()[self._mb_fill * R:
-                                         (self._mb_fill + 1) * R])
-        self._mb_uniform.append(self._stage(now_ns, dt_f))
-        self._mb_fill += 1
-        if self._mb_fill < k:
-            return self._last_pixels
-        self._mb_fill = 0
-        self._upload(host, self._mb_dev, self._mb_events, self._mb_flip)
-        pxs = self._fresh(self._call(("mb", k, all(self._mb_uniform))))
-        self._last_batch = pxs
-        self._last_pixels = pxs[-1]
-        return self._last_pixels
-
-    @property
-    def last_batch_pixels(self):
-        """Device pixels of the last microbatch flush: [k, S, D, P]."""
-        return self._last_batch
-
-    # -- auto microbatch policy: shared machinery (AutoMicrobatchMixin) --
-
-    def _mb_plain_tick(self, now_ns: int, dt_f):
-        return self.tick(now_ns=now_ns, dt=dt_f)
-
-    def _mb_flush_tick(self, now_ns: int, dt_f):
-        return self._tick_microbatch(now_ns, dt_f)
-
-    def _reset_mb_extra(self) -> None:
-        self._mb_uniform = []
-        self._mb_dev = None
-        # the flush graphs read the dropped device buffer
-        self._ticks = {key: t for key, t in self._ticks.items()
-                       if key[0] != "mb"}
+        return self._tick(now_ns, dt_f)
 
     # ------------------------------------------------------------------
 
