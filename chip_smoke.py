@@ -138,7 +138,29 @@ Phases, one line each; any failure raises and the script exits non-zero:
    step): spectrum mode at the headline, 8 ticks, one K1-gen launch a
    tick and no other kernel, the silent stream latched at DB_MIN, the
    accuracy gate against the float64 oracle, the tick time; meter and
-   waveform modes at S=256 against the CPU port.
+   waveform modes at S=256 against the CPU port;
+26. multi — ``MultiEngine``: a scene of 304 streams, 16 a group — 16
+   spectrum looks at N=4096 (the JAX 16-group test's pattern), a meter,
+   two waveform looks at W=800 — in two upload cohorts, 30 ticks of
+   per-stream noise and tone: 16 K1-gen launches a tick and no other
+   kernel, every group bit for bit with its standalone card engine, two
+   groups against the CPU port's scene, one group through the float64
+   oracle gate; one host-to-device copy a cohort a tick (the profiler);
+   ``render_frames`` of all 304 (time, peak memory, against the CPU
+   port's frames); the scene tick against the same groups ticked solo,
+   in turns; device busy share, p50/p99 over 60 synchronized ticks and
+   the host pieces; live ``add_stream``, ``remove_stream`` and
+   ``update_stream``, each recapturing only the edited groups with every
+   other stream's values carried bit for bit; device memory over 20
+   add/remove cycles;
+27. bus — ``OutputBus``: one stereo bus, 500 consumers over 12 looks (8
+   spectrum, 2 meters, 2 waveforms), 24 ticks: 8 K1-gen launches a tick,
+   each spectrum look within 1e-3 dB of a standalone card
+   ``ServingEngine(cfg, 1)``, every look against the CPU port's bus, one
+   upload a tick; the tick's time, busy share and p50/p99; a frame of
+   each mode; then a live N=65536 subscriber: the grown ring's tail is
+   the old ring, every look's state carried bit for bit, 8 K1-gen + 1 K2
+   launches a tick.
 
 Every phase's seconds are printed before the kernels' JSON record and the
 result line, which are the last two lines.  Each kernel's record carries
@@ -1334,6 +1356,538 @@ def phase_engine(wt, exact_cuda, card: str) -> None:
               flush=True)
 
 
+# --- 26. multi and 27. bus: the scene layer -------------------------------
+
+SCENE_S = 16          # streams a scene group
+SCENE_TICKS = 30
+SCENE_CPU = (0, 9)    # the spectrum groups the CPU port's scene also runs
+BUS_TICKS = 24        # fills the N=16384 window (20.5 hops of 800)
+
+
+def scene_cfgs(wt) -> list:
+    """The scene: 16 spectrum groups at N=4096, each a distinct config
+    after the JAX 16-group test's pattern (``tests/test_serving.py:
+    285-318``) at the headline size — Hann or Blackman alternating, a
+    Gaussian filter on groups 8-15, cutoff_high = 17000 - 100 g — one
+    meter group at the default 150 ms and two waveform groups at W=800
+    (meter_buf 150 and 300 ms: one packed width, one cohort); all stereo
+    48 kHz, 60 fps, 800 x 225 px."""
+    audio = wt.AudioInfo(SR, 2)
+    cfgs = [wt.resolve(wt.Settings(
+        fft_size=4096,
+        window=(wt.FFTWindow.HANN, wt.FFTWindow.BLACKMAN)[g % 2],
+        filter_mode=(wt.FilterMode.NONE, wt.FilterMode.GAUSS)[g // 8],
+        cutoff_high=17000 - 100 * g), audio) for g in range(16)]
+    cfgs.append(wt.resolve(wt.Settings(display_mode=wt.DisplayMode.METER),
+                           audio))
+    cfgs += [wt.resolve(wt.Settings(display_mode=wt.DisplayMode.WAVEFORM,
+                                    meter_buf=ms), audio) for ms in (150, 300)]
+    return cfgs
+
+
+def noise_tone(rng, shape, k: int) -> np.ndarray:
+    """A 440 Hz tone at 0.3 plus seeded noise at 0.3, ``shape`` [..., HOP]
+    (noise-dominated, as the bench gate's input)."""
+    t = (np.arange(HOP) + k * HOP) / SR
+    return (0.3 * np.sin(2 * np.pi * 440.0 * t)
+            + 0.3 * rng.standard_normal(shape)).astype(np.float32)
+
+
+def db_vs(wt, got: np.ndarray, want: np.ndarray, what: str) -> float:
+    """Max |got - want| dB on bins where ``want`` is above -120 dBFS;
+    DB_MIN must match exactly."""
+    floor = want == np.float32(wt.DB_MIN)
+    check(got.shape == want.shape and np.array_equal(got[floor], want[floor]),
+          f"{what}: DB_MIN bins differ")
+    vis = want > -120.0
+    return float(np.abs(got[vis] - want[vis]).max()) if vis.any() else 0.0
+
+
+def engine_state(eng) -> list:
+    """The device tensors a packed engine carries from tick to tick."""
+    if hasattr(eng, "state"):
+        st = eng.state
+        return [eng.ring.buf] + [getattr(st, f) for f in vars(st)]
+    return [eng.ring.buf, eng.buf, eng.latch]
+
+
+def timed_methods(engines, names, acc):
+    """Wrap each of ``names`` on every engine to add its host seconds to
+    ``acc[name][-1]``; returns a function that takes the wrappers off."""
+    def wrap(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            acc[name][-1] += time.perf_counter() - t
+            return out
+        return run
+
+    for e in engines:
+        for name in names:
+            setattr(e, name, wrap(name, getattr(e, name)))
+    return lambda: [delattr(e, name) for e in engines for name in names]
+
+
+def h2d_copies(step, n: int = 5) -> int:
+    """The host-to-device copies the device ran in ``n`` calls of
+    ``step``, counted from a profiler trace's events (a copy within one of
+    the trace's microseconds counts all the same).  The profiler traces
+    one call first and drops it: without that warm-up the first activity
+    records of a trace can be lost (one copy in five went missing so)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    counted = []
+
+    def ready(prof):          # the active window's trace, as it completes
+        counted.append(sum(
+            1 for ev in prof.events()
+            if getattr(ev, "device_type", None)
+            == torch.autograd.DeviceType.CUDA and "HtoD" in ev.name))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n),
+                 on_trace_ready=ready) as prof:
+        for _ in range(n + 1):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    check(len(counted) == 1, f"the profiler gave {len(counted)} traces")
+    return counted[0]
+
+
+def graphs_of(scene) -> dict:
+    """{cfg: (engine, {tick kind: GraphTick})} of a scene."""
+    return {cfg: (e, dict(e._ticks)) for cfg, e in scene._engines.items()}
+
+
+def recaptured(before: dict, scene) -> list:
+    """The groups whose engine or any captured tick is new since
+    ``before`` (:func:`graphs_of`)."""
+    out = []
+    for cfg, (e, ticks) in graphs_of(scene).items():
+        old = before.get(cfg)
+        if old is None or old[0] is not e or any(
+                old[1].get(k) is not t for k, t in ticks.items()):
+            out.append(cfg)
+    return out
+
+
+def phase_multi(wt, exact_cuda, profiler, card: str) -> None:
+    """``MultiEngine``: the full scene of :func:`scene_cfgs`, 16 streams a
+    group (304 streams, 19 groups, two upload cohorts)."""
+    import gc
+
+    from waveform_tpu_torch.runtime.meter_serving import MeterServingEngine
+    from waveform_tpu_torch.runtime.multi import MultiEngine
+    from waveform_tpu_torch.runtime.serving import ServingEngine
+    from waveform_tpu_torch.runtime.waveform_device import (
+        DeviceWaveformEngine,
+    )
+
+    def make(cfg, n):
+        if cfg.spectrum_mode:
+            return ServingEngine(cfg, n, device="cuda")
+        if cfg.meter_mode:
+            return MeterServingEngine(cfg, n, device="cuda")
+        return DeviceWaveformEngine(cfg, n, device="cuda")
+
+    cfgs, S = scene_cfgs(wt), SCENE_S
+    G = len(cfgs)
+    scene = MultiEngine(device="cuda")
+    sids = [[scene.add_stream(c) for _ in range(S)] for c in cfgs]
+    solo = [make(c, S) for c in cfgs]
+    cpu = MultiEngine(device="cpu")
+    cpu_ids = {(g, r): cpu.add_stream(cfgs[g]) for g in SCENE_CPU
+               for r in range(2)}
+    rng = np.random.default_rng(SEED + 30)
+    pk = [noise_tone(rng, (G * S, 2, HOP), k) for k in range(SCENE_TICKS)]
+
+    def feed_scene(x, now):
+        for g, row in enumerate(sids):
+            for r, sid in enumerate(row):
+                scene.feed(sid, x[g * S + r], now, now_ns=now)
+
+    def feed_solo(x, now):
+        for g, e in enumerate(solo):
+            for r in range(S):
+                e.feed(r, x[g * S + r], now, now_ns=now)
+
+    now0 = time.monotonic_ns()
+    for name in COUNTERS:
+        setattr(exact_cuda, name, 0)
+    eng0 = None
+    for k, x in enumerate(pk):
+        now = now0 + (k + 1) * 16_666_667
+        feed_scene(x, now)
+        if k == SCENE_TICKS - 1:      # the oracle gate's EMA input
+            eng0 = scene._engines[cfgs[0]]
+            ts_prev = eng0.state.tsmooth[0].cpu().numpy().copy()
+        scene.tick(now_ns=now)
+    torch.cuda.synchronize()
+    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
+    check(counts == only("launches_gen", 16 * SCENE_TICKS),
+          f"multi: launches {counts} in {SCENE_TICKS} scene ticks, want 16 "
+          "K1-gen a tick and no other kernel")
+    check(len(scene._cohorts) == 2 and not scene._solo
+          and [len(c["engines"]) for c in scene._cohorts] == [17, 2],
+          f"multi: cohorts {[len(c['engines']) for c in scene._cohorts]}")
+    window = eng0.ring.buf[0].cpu().numpy().astype(np.float64)
+    want, _ = wt.oracle.spectrum_frame(window, ts_prev, cfgs[0], dt=1 / 60)
+    gate = db_vs(wt, scene.read_decibels(sids[0][0]), want.astype(np.float32),
+                 "multi: oracle")
+    check(gate < 1e-4, f"multi: oracle gate {gate} dB")
+    for k, x in enumerate(pk):
+        now = now0 + (k + 1) * 16_666_667
+        feed_solo(x, now)
+        for e in solo:
+            e.tick(now_ns=now)
+        for (g, r), sid in cpu_ids.items():
+            cpu.feed(sid, x[g * S + r], now, now_ns=now)
+        cpu.tick(now_ns=now)
+    torch.cuda.synchronize()
+    for g, e in enumerate(solo):
+        mine = scene._engines[cfgs[g]]
+        check(all(torch.equal(a, b) for a, b in
+                  zip(engine_state(mine), engine_state(e))),
+              f"multi: group {g} differs from its standalone engine")
+    e_cpu = max(db_vs(wt, scene.read_decibels(sids[g][r]),
+                      cpu.read_decibels(sid), "multi: card vs CPU")
+                for (g, r), sid in cpu_ids.items())
+    check(e_cpu < 1e-4, f"multi: card vs CPU port {e_cpu} dB")
+    print(f"multi [{card}]: {G} groups x {S} streams = {G * S} (16 spectrum "
+          f"N=4096, 1 meter, 2 waveform W=800; cohorts of "
+          f"{[len(c['engines']) for c in scene._cohorts]} groups, "
+          f"{[c['used'] * 4 / 1e6 for c in scene._cohorts]} MB uploads): "
+          f"{SCENE_TICKS} ticks, launches {dict(zip(COUNTERS, counts))} (16 "
+          f"K1-gen a scene tick, no other kernel); every group = its "
+          f"standalone card engine bit for bit (state, ring, latch); groups "
+          f"{SCENE_CPU} vs the CPU port's scene {e_cpu:.2e} dB; oracle gate "
+          f"(group 0, stream 0) {gate:.2e} dB", flush=True)
+
+    scene.render_frames()                  # builds the 19 renderers
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frames = scene.render_frames()
+    t_render = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    cpu_frames = cpu.render_frames()
+    e_render = max(float(np.abs(frames[sids[g][r]] - cpu_frames[sid]).max())
+                   for (g, r), sid in cpu_ids.items())
+    check(len(frames) == G * S
+          and all(f.shape == (225, 800, 4) and np.isfinite(f).all()
+                  for f in frames.values()),
+          "multi: render_frames shapes or values")
+    check(e_render <= 1e-5, f"multi: frames vs the CPU port {e_render}")
+    print(f"multi [{card}]: render_frames of {len(frames)} streams "
+          f"({len(frames) * 225 * 800 * 16 / 1e6:.0f} MB of RGBA f32): "
+          f"{t_render * 1e3:.1f} ms (host clock, the copies to the host "
+          f"included), peak device memory {peak / 1e6:.1f} MB above the "
+          f"scene's {base / 1e6:.1f} MB; the CPU port's frames (4 streams) "
+          f"within {e_render:.2e}", flush=True)
+    del frames, cpu_frames
+
+    clocks = {"scene": [now0 + 40 * 16_666_667],
+              "solo": [now0 + 40 * 16_666_667]}
+
+    def scene_tick():
+        c = clocks["scene"]
+        c[0] += 16_666_667
+        feed_scene(pk[(c[0] // 16_666_667) % SCENE_TICKS], c[0])
+        scene.tick(now_ns=c[0])
+
+    def solo_tick():
+        c = clocks["solo"]
+        c[0] += 16_666_667
+        feed_solo(pk[(c[0] // 16_666_667) % SCENE_TICKS], c[0])
+        for e in solo:
+            e.tick(now_ns=c[0])
+
+    scene_tick()
+    solo_tick()
+    torch.cuda.synchronize()
+    with profiler.trace() as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            scene_tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summ = profiler.device_summary(prof, wall)
+    h2d = h2d_copies(scene_tick)
+    check(h2d == 5 * len(scene._cohorts),
+          f"multi: {h2d} host-to-device copies in 5 scene ticks, want one a "
+          f"cohort a tick ({len(scene._cohorts)} cohorts)")
+    ops = sum(c for c, _ in summ["kernels"].values()) / 5
+    turns = [cuda_median_ms(f, reps=10, warmup=2)
+             for f in (scene_tick, solo_tick, solo_tick, scene_tick)]
+    acc = {"_stage": [], "tick_from_cohort": []}
+    untime = timed_methods(list(scene._engines.values()), list(acc), acc)
+    frames_p = profiler.FrameProfiler(G * S, 4096)
+    feeds, ticks_h, waits = [], [], []
+    try:
+        for _ in range(60):
+            for v in acc.values():
+                v.append(0.0)
+            c = clocks["scene"]
+            c[0] += 16_666_667
+            with frames_p.tick():
+                t0 = time.perf_counter()
+                feed_scene(pk[(c[0] // 16_666_667) % SCENE_TICKS], c[0])
+                t1 = time.perf_counter()
+                scene.tick(now_ns=c[0])
+                t2 = time.perf_counter()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+            feeds.append(t1 - t0)
+            ticks_h.append(t2 - t1)
+            waits.append(t3 - t2)
+    finally:
+        untime()
+    st = frames_p.stats()
+    med = {k: statistics.median(v) * 1e6 for k, v in (
+        ("feeds", feeds), ("assembly (_stage)", acc["_stage"]),
+        ("replays (tick_from_cohort)", acc["tick_from_cohort"]),
+        ("tick()", ticks_h), ("device wait", waits))}
+    print(f"multi [{card}]: scene tick (304 feeds + tick, CUDA events, "
+          f"medians of 10, in turns) {turns[0]:.2f} / {turns[3]:.2f} ms "
+          f"against the same 19 engines ticked solo (own uploads) "
+          f"{turns[1]:.2f} / {turns[2]:.2f} ms; host-to-device copies a "
+          f"tick {h2d / 5:.0f} (one a cohort; 5 traced ticks after a "
+          f"dropped one); device busy "
+          f"{summ['busy_us'] / 5:.1f} us a tick, {summ['busy_share']:.1%} "
+          f"of the profiled ticks, "
+          f"{summ['busy_us'] / 5 / (turns[0] + turns[3]) * 2e-3:.1%} of the "
+          f"unprofiled; {ops:.0f} device ops a tick; top "
+          f"{top_ops(summ)}; 60 synchronized ticks p50 {st['p50_ms']:.3f} / "
+          f"p99 {st['p99_ms']:.3f} ms; host pieces (median us) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in med.items()), flush=True)
+
+
+    edits = []
+    clock = [clocks["scene"][0]]
+
+    def tick_scene():
+        clock[0] += 16_666_667
+        scene.tick(now_ns=clock[0])
+
+    tick_scene()
+    for label, edit, moved in (
+            ("add_stream (group 3)", lambda: scene.add_stream(cfgs[3]), None),
+            ("remove_stream (group 5, row 0)",
+             lambda: scene.remove_stream(sids[5][0]), sids[5][0]),
+            ("update_stream (group 7 row 1 -> meter)",
+             lambda: scene.update_stream(sids[7][1], cfgs[16]),
+             sids[7][1])):
+        before = graphs_of(scene)
+        vals = {sid: scene.read_decibels(sid) for row in sids for sid in row
+                if sid in scene._streams and sid != moved}
+        edit()
+        carried = all(np.array_equal(scene.read_decibels(sid), v)
+                      for sid, v in vals.items() if sid in scene._streams)
+        tick_scene()
+        again = recaptured(before, scene)
+        edits.append(f"{label}: {len(again)} group(s) recaptured")
+        want = {"add": {cfgs[3]}, "remove": {cfgs[5]},
+                "update": {cfgs[7], cfgs[16]}}[label.split("_")[0]]
+        check(set(again) == want and carried,
+              f"multi: {label} recaptured {len(again)} groups, carried "
+              f"{carried}")
+    mem = []
+    for _ in range(20):
+        sid = scene.add_stream(cfgs[2])
+        tick_scene()
+        scene.remove_stream(sid)
+        tick_scene()
+        torch.cuda.synchronize()
+        gc.collect()
+        mem.append(torch.cuda.memory_allocated())
+    check(abs(mem[-1] - mem[0]) <= 1 << 20,
+          f"multi: memory after 20 add/remove cycles {mem[-1]} against "
+          f"{mem[0]} after the first (every cycle: {mem})")
+    print(f"multi [{card}]: live edits, each the edited groups only "
+          f"recaptured, every other stream's values carried bit for bit: "
+          + "; ".join(edits) + f"; torch.cuda.memory_allocated after 1 / 20 "
+          f"add+remove cycles (gc.collect() first) {mem[0] / 1e6:.3f} / "
+          f"{mem[-1] / 1e6:.3f} MB (margin 1 MiB), max "
+          f"{max(mem) / 1e6:.3f} MB", flush=True)
+
+
+def bus_cfgs(wt) -> list:
+    """The bus docstring's example (``waveform_tpu/runtime/bus.py:10-15``)
+    as 12 distinct looks: 8 spectrum (six at N=4096 with distinct windows,
+    filters and slopes, one at 8192, one at 16384), 2 meters (RMS and
+    peak), 2 waveforms (W=800 and W=1920)."""
+    audio = wt.AudioInfo(SR, 2)
+
+    def r(**kw):
+        return wt.resolve(wt.Settings(**kw), audio)
+
+    W, F = wt.FFTWindow, wt.FilterMode
+    return [r(fft_size=4096),
+            r(fft_size=4096, window=W.BLACKMAN),
+            r(fft_size=4096, window=W.HAMMING, filter_mode=F.GAUSS),
+            r(fft_size=4096, window=W.BLACKMAN_HARRIS, slope=0.5),
+            r(fft_size=4096, slope=1.0, interp_mode=wt.InterpMode.LANCZOS),
+            r(fft_size=4096, window=W.BLACKMAN, filter_mode=F.GAUSS,
+              slope=0.25),
+            r(fft_size=8192),
+            r(fft_size=16384, enable_large_fft=True),
+            r(display_mode=wt.DisplayMode.METER, rms_mode=True),
+            r(display_mode=wt.DisplayMode.METER, rms_mode=False),
+            r(display_mode=wt.DisplayMode.WAVEFORM, width=800),
+            r(display_mode=wt.DisplayMode.WAVEFORM, width=1920)]
+
+
+def bus_state(bus) -> list:
+    """Every group's carried device tensors (the ring left out)."""
+    out = []
+    for g in bus._groups.values():
+        if g["mode"] == "waveform":
+            out += [g["buf"], g["latch"]]
+        else:
+            out += [getattr(g["state"], f) for f in vars(g["state"])]
+    return out
+
+
+def phase_bus(wt, exact_cuda, profiler, card: str) -> None:
+    """``OutputBus``: one stereo bus, 500 consumers over the 12 looks of
+    :func:`bus_cfgs`, then a live N=65536 subscriber."""
+    from waveform_tpu_torch.runtime.bus import OutputBus
+    from waveform_tpu_torch.runtime.serving import ServingEngine
+
+    cfgs = bus_cfgs(wt)
+    audio = wt.AudioInfo(SR, 2)
+    bus = OutputBus(audio, device="cuda")
+    hs = [bus.subscribe(cfgs[i % len(cfgs)]) for i in range(500)]
+    first = {c: hs[i] for i, c in enumerate(cfgs)}
+    cpu = OutputBus(audio, device="cpu")
+    cpu_h = {c: cpu.subscribe(c) for c in cfgs}
+    engines = {c: ServingEngine(c, 1, device="cuda") for c in cfgs
+               if c.spectrum_mode}
+    rng = np.random.default_rng(SEED + 31)
+    pk = [noise_tone(rng, (2, HOP), k) for k in range(BUS_TICKS + 80)]
+    now0 = time.monotonic_ns()
+    for name in COUNTERS:
+        setattr(exact_cuda, name, 0)
+    for k in range(BUS_TICKS):
+        now = now0 + (k + 1) * 16_666_667
+        bus.feed(pk[k], now, now_ns=now)
+        bus.tick(now_ns=now)
+    torch.cuda.synchronize()
+    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
+    check(counts == only("launches_gen", 8 * BUS_TICKS),
+          f"bus: launches {counts} in {BUS_TICKS} ticks, want 8 K1-gen a "
+          "tick and no other kernel")
+    for k in range(BUS_TICKS):
+        now = now0 + (k + 1) * 16_666_667
+        cpu.feed(pk[k], now, now_ns=now)
+        cpu.tick(now_ns=now)
+        for e in engines.values():
+            e.feed(0, pk[k], now, now_ns=now)
+            e.tick(now_ns=now)
+    torch.cuda.synchronize()
+    e_eng = max(float(np.abs(bus.read_decibels(first[c])
+                             - e.read_decibels()[0]).max())
+                for c, e in engines.items())
+    check(e_eng < 1e-3, f"bus: spectrum vs standalone engines {e_eng} dB")
+    e_cpu = max(db_vs(wt, bus.read_decibels(first[c]),
+                      cpu.read_decibels(cpu_h[c]), "bus: card vs CPU")
+                for c in cfgs)
+    check(e_cpu < 1e-4, f"bus: card vs CPU port {e_cpu} dB")
+    latches = [bool(bus._groups[c]["latch"]) == bool(cpu._groups[c]["latch"])
+               for c in cfgs if c.display_mode == wt.DisplayMode.WAVEFORM]
+    check(all(latches), "bus: waveform latches differ from the CPU port")
+    print(f"bus [{card}]: 500 consumers, {bus.num_groups} looks (8 spectrum "
+          f"N=4096 x6 / 8192 / 16384, 2 meters, 2 waveforms W=800 / 1920), "
+          f"one ring [1, 2, {bus.L}] ({bus.ring.buf.numel() * 4 / 1e6:.2f} "
+          f"MB), upload {bus._dev_in.numel() * 4 / 1e3:.1f} KB: {BUS_TICKS} "
+          f"ticks, launches {dict(zip(COUNTERS, counts))} (8 K1-gen a tick, "
+          f"no other kernel); spectrum looks vs standalone card "
+          f"ServingEngine(cfg, 1) max {e_eng:.2e} dB (bound 1e-3); every "
+          f"look vs the CPU port's bus {e_cpu:.2e} dB, DB_MIN and latches "
+          f"exact", flush=True)
+
+    clock = [now0 + (BUS_TICKS + 1) * 16_666_667, BUS_TICKS]
+
+    def bus_tick():
+        clock[0] += 16_666_667
+        clock[1] += 1
+        bus.feed(pk[clock[1] % len(pk)], clock[0], now_ns=clock[0])
+        bus.tick(now_ns=clock[0])
+
+    bus_tick()
+    torch.cuda.synchronize()
+    with profiler.trace() as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            bus_tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summ = profiler.device_summary(prof, wall)
+    h2d = h2d_copies(bus_tick)
+    check(h2d == 5, f"bus: {h2d} host-to-device copies in 5 ticks, want 5")
+    ops = sum(c for c, _ in summ["kernels"].values()) / 5
+    t_tick = cuda_median_ms(bus_tick, reps=20, warmup=3)
+    frames_p = profiler.FrameProfiler(500, 16384)
+    for _ in range(60):
+        with frames_p.tick():
+            bus_tick()
+            torch.cuda.synchronize()
+    st = frames_p.stats()
+    t_render = {}
+    for mode, c in (("spectrum", cfgs[0]), ("meter", cfgs[8]),
+                    ("waveform", cfgs[11])):
+        bus.render_frame(first[c])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = bus.render_frame(first[c])
+        t_render[mode] = (time.perf_counter() - t0) * 1e3
+        check(img.shape == (c.height, c.width, 4) and np.isfinite(img).all()
+              and img[..., 3].max() > 0.5, f"bus: {mode} frame")
+    print(f"bus [{card}]: tick (feed + tick, CUDA events, median of 20) "
+          f"{t_tick:.3f} ms, one replay; host-to-device copies a tick "
+          f"{h2d / 5:.0f}; device busy {summ['busy_us'] / 5:.1f} us a tick, "
+          f"{summ['busy_share']:.1%} of the profiled ticks, "
+          f"{summ['busy_us'] / 5e3 / t_tick:.1%} of the unprofiled; "
+          f"{ops:.0f} device ops a tick; top {top_ops(summ)}; 60 "
+          f"synchronized ticks p50 {st['p50_ms']:.3f} / p99 "
+          f"{st['p99_ms']:.3f} ms; render_frame (host clock, the copy "
+          f"included) " + ", ".join(f"{m} {t:.2f} ms"
+                                    for m, t in t_render.items()),
+          flush=True)
+
+    big = wt.resolve(wt.Settings(fft_size=65536, enable_large_fft=True),
+                     audio)
+    torch.cuda.synchronize()
+    old_L, old_ring = bus.L, bus.ring.buf.clone()
+    before = [t.clone() for t in bus_state(bus)]
+    hb = bus.subscribe(big)
+    check(bus.L == 65536 + bus.H
+          and torch.equal(bus.ring.buf[..., -old_L:], old_ring)
+          and not bus.ring.buf[..., :-old_L].any(),
+          "bus: the grown ring does not hold the old ring as its tail")
+    check(all(torch.equal(a, b) for a, b in zip(bus_state(bus), before)),
+          "bus: the groups' state changed across the subscribe")
+    for name in COUNTERS:
+        setattr(exact_cuda, name, 0)
+    for _ in range(3):
+        bus_tick()
+    torch.cuda.synchronize()
+    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
+    want = tuple({"launches_gen": 24, "launches3": 3}.get(c, 0)
+                 for c in COUNTERS)
+    check(counts == want, f"bus: launches after the N=65536 subscribe "
+          f"{counts}, want 8 K1-gen + 1 K2 a tick")
+    t_big = cuda_median_ms(bus_tick, reps=20, warmup=3)
+    check(np.isfinite(bus.read_decibels(hb)).all(), "bus: N=65536 look")
+    print(f"bus [{card}]: live subscribe of an N=65536 consumer: the ring "
+          f"grew {old_L} -> {bus.L} samples with the old ring as its tail, "
+          f"every look's state carried bit for bit; 3 ticks launch "
+          f"{dict(zip(COUNTERS, counts))} (8 K1-gen + 1 K2 a tick); tick "
+          f"{t_big:.3f} ms", flush=True)
+
+
 def kernel_label(fn: str) -> str:
     """A mangled kernel name as name<template arguments>."""
     m = re.search(r"_cu_[0-9a-f]{8}\d+(exact_[a-z0-9_]+?)(I.*?E)?E", fn)
@@ -1996,6 +2550,16 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_engine(wt, exact_cuda, card)
     secs["engine"] = time.perf_counter() - t0
+
+    # 26. multi: a MultiEngine scene of 304 streams -------------------------
+    t0 = time.perf_counter()
+    phase_multi(wt, exact_cuda, profiler, card)
+    secs["multi"] = time.perf_counter() - t0
+
+    # 27. bus: an OutputBus with 500 consumers -------------------------------
+    t0 = time.perf_counter()
+    phase_bus(wt, exact_cuda, profiler, card)
+    secs["bus"] = time.perf_counter() - t0
 
     jax_mods =[m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]

@@ -772,3 +772,279 @@ def test_engine_spectrum_launches_k1_gen_once_a_tick(dev):
         np.testing.assert_allclose(got[vis], want[vis], rtol=0, atol=1e-4)
         np.testing.assert_array_equal(card.last_silent, cpu.last_silent)
     assert (got[-1] == np.float32(DB_MIN)).all() and card.last_silent[-1]
+
+
+# --- the scene (MultiEngine), the bus and the renderer ----------------------
+
+def _scene_cfgs():
+    """Two spectrum looks and a meter (one cohort), two waveform looks (a
+    second cohort)."""
+    from waveform_tpu_torch import DisplayMode, TSmoothingMode
+    return [resolve(Settings(fft_size=4096, width=400), AudioInfo(48000, 2)),
+            resolve(Settings(fft_size=2048, width=400,
+                             window=FFTWindow.BLACKMAN), AudioInfo(48000, 2)),
+            resolve(Settings(display_mode=DisplayMode.METER),
+                    AudioInfo(48000, 2)),
+            _wf_cfg(width=320, meter_buf=150),
+            resolve(Settings(display_mode=DisplayMode.WAVEFORM, width=320,
+                             meter_buf=300,
+                             temporal_smoothing=TSmoothingMode.NONE),
+                    AudioInfo(48000, 2))]
+
+
+def _scene_make(cfg, n, device):
+    from waveform_tpu_torch.runtime.meter_serving import MeterServingEngine
+    from waveform_tpu_torch.runtime.waveform_device import (
+        DeviceWaveformEngine,
+    )
+    if cfg.spectrum_mode:
+        return ServingEngine(cfg, n, device=device)
+    if cfg.meter_mode:
+        return MeterServingEngine(cfg, n, device=device)
+    return DeviceWaveformEngine(cfg, n, device=device)
+
+
+def _scene_drive(scene, sids, rng, ticks, now, solo=None):
+    """Per-stream noise packets to ``sids`` [(group, row, handle)] of the
+    scene (and the standalone engines ``solo``), then a tick."""
+    for _ in range(ticks):
+        for g, r, sid in sids:
+            x = (0.3 * rng.standard_normal((2, 800))).astype(np.float32)
+            scene.feed(sid, x, now, now_ns=now)
+            if solo is not None:
+                solo[g].feed(r, x, now, now_ns=now)
+        now += 16_666_667
+        scene.tick(now_ns=now)
+        for e in solo or ():
+            e.tick(now_ns=now)
+    return now
+
+
+def _scene(dev, rows=(3, 2, 2, 2, 1)):
+    from waveform_tpu_torch.runtime.multi import MultiEngine
+    cfgs = _scene_cfgs()
+    scene = MultiEngine(device=dev)
+    sids = [(g, r, scene.add_stream(c)) for g, (c, n) in
+            enumerate(zip(cfgs, rows)) for r in range(n)]
+    return cfgs, scene, sids
+
+
+def test_scene_cohort_matches_solo_engines(dev):
+    """A scene on the card (two cohorts of captured member ticks) against
+    standalone card engines fed the same packets: every group's values and
+    latches bit for bit; one K1-gen launch a spectrum group a tick."""
+    cfgs, scene, sids = _scene(dev)
+    solo = [_scene_make(c, n, dev) for c, n in zip(cfgs, (3, 2, 2, 2, 1))]
+    rng = np.random.default_rng(17)
+    now = _scene_drive(scene, sids, rng, 3, 10_000_000_000, solo)
+    assert len(scene._cohorts) == 2 and not scene._solo
+    before = exact_cuda.launches_gen
+    _scene_drive(scene, sids, rng, 4, now, solo)
+    torch.cuda.synchronize()
+    assert exact_cuda.launches_gen - before == 2 * 4 * 2   # scene + solo
+    for cfg, e in zip(cfgs, solo):
+        got = scene._engines[cfg]
+        np.testing.assert_array_equal(got.last_silent, e.last_silent)
+        mine = (list(vars(got.state).values()) if hasattr(got, "state")
+                else [got.buf, got.latch])
+        theirs = (list(vars(e.state).values()) if hasattr(e, "state")
+                  else [e.buf, e.latch])
+        assert torch.equal(got.ring.buf, e.ring.buf)
+        assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+
+
+def test_scene_one_upload_a_cohort_tick(dev):
+    """A scene tick copies host to device once a cohort: the profiler
+    counts two host-to-device copies a tick for the two cohorts (it traces
+    one tick first and drops it: a trace's first activity records can be
+    lost)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    cfgs, scene, sids = _scene(dev)
+    rng = np.random.default_rng(18)
+    now = _scene_drive(scene, sids, rng, 3, 10_000_000_000)
+    torch.cuda.synchronize()
+    h2d = []
+
+    def ready(prof):          # the active window's trace, as it completes
+        h2d.append([ev.name for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and "HtoD" in ev.name])
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=4),
+                 on_trace_ready=ready) as prof:
+        for _ in range(5):
+            now = _scene_drive(scene, sids, rng, 1, now)
+            torch.cuda.synchronize()
+            prof.step()
+    assert len(h2d) == 1 and len(h2d[0]) == 2 * 4, h2d
+
+
+def test_scene_edit_recaptures_only_the_edited_groups(dev):
+    """Live add, remove and update on a card scene: the edited groups'
+    engines are new and capture anew; every other member keeps its
+    segment and its captured graph objects; the survivors' values carry
+    across bit for bit."""
+    cfgs, scene, sids = _scene(dev)
+    rng = np.random.default_rng(19)
+    now = _scene_drive(scene, sids, rng, 3, 10_000_000_000)
+
+    def graphs():
+        return {cfg: (e, e._row0, dict(e._ticks))
+                for cfg, e in scene._engines.items()}
+
+    for edit, edited in (
+            (lambda: scene.add_stream(cfgs[1]), {cfgs[1]}),
+            (lambda: scene.remove_stream(sids[0][2]), {cfgs[0]}),
+            (lambda: scene.update_stream(sids[-1][2], cfgs[3]),
+             {cfgs[3], cfgs[4]})):
+        before = graphs()
+        vals = {sid: scene.read_decibels(sid) for _, _, sid in sids
+                if sid in scene._streams}
+        edit()
+        for cfg, (eng, row0, ticks) in before.items():
+            if cfg in edited or cfg not in scene._engines:
+                continue
+            now_eng = scene._engines[cfg]
+            assert now_eng is eng and eng._row0 == row0
+            assert all(eng._ticks[k] is t for k, t in ticks.items()), cfg
+        for sid, v in vals.items():
+            if sid in scene._streams and sid != sids[-1][2]:
+                np.testing.assert_array_equal(scene.read_decibels(sid), v)
+        sids = [(g, r, s) for g, r, s in sids if s in scene._streams]
+        now = _scene_drive(scene, sids, rng, 2, now)
+
+
+def _bus_cfgs():
+    from waveform_tpu_torch import DisplayMode
+    return [resolve(Settings(fft_size=4096, width=400), AudioInfo(48000, 2)),
+            resolve(Settings(fft_size=8192, width=400,
+                             window=FFTWindow.BLACKMAN), AudioInfo(48000, 2)),
+            resolve(Settings(display_mode=DisplayMode.METER,
+                             rms_mode=False), AudioInfo(48000, 2)),
+            _wf_cfg(width=320, meter_buf=150)]
+
+
+def _bus_tick(buses, x, now, eager=None):
+    """Feed ``x`` to every bus and tick it; the ``eager`` bus runs its
+    device half eagerly (the reference for the graph)."""
+    for b in buses:
+        b.feed(x, now, now_ns=now)
+        if b is eager:
+            b._graph = b._device_tick
+        b.tick(now_ns=now)
+
+
+def _bus_state(bus):
+    out = [bus.ring.buf]
+    for g in bus._groups.values():
+        if g["mode"] == "waveform":
+            out += [g["buf"], g["latch"]]
+        else:
+            out += [getattr(g["state"], f) for f in g["state"].__dict__]
+    return out
+
+
+def test_bus_graph_matches_eager_bus(dev):
+    """The bus's graph tick (push + every group's step in one replay)
+    against the same bus ticked eagerly, through a live subscribe that
+    grows the ring: ring, every group's state, scroll buffer and latch bit
+    for bit each tick; a replay launches one K1-gen a spectrum group."""
+    from waveform_tpu_torch.runtime.bus import OutputBus
+    graph, eager = (OutputBus(AudioInfo(48000, 2), device=dev)
+                    for _ in range(2))
+    cfgs = _bus_cfgs()
+    for b in (graph, eager):
+        for c in cfgs[:3]:
+            b.subscribe(c)
+    rng = np.random.default_rng(20)
+    now = 10_000_000_000
+    for k in range(8):
+        if k == 4:
+            for b in (graph, eager):
+                b.subscribe(cfgs[3])      # the waveform window grows the ring
+        x = (0.3 * rng.standard_normal((2, 800))).astype(np.float32)
+        now += 16_666_667
+        _bus_tick((graph, eager), x, now, eager=eager)
+        for a, b in zip(_bus_state(graph), _bus_state(eager)):
+            assert torch.equal(a, b), k
+    assert graph._graph.launches == {"launches_gen": 2}
+
+
+def test_bus_ring_growth_keeps_history(dev):
+    """A live subscribe with a larger window grows the card ring: the old
+    ring is the grown ring's tail, zeros ahead of it, and the existing
+    groups' states carry across bit for bit; the new graph runs."""
+    from waveform_tpu_torch.runtime.bus import OutputBus
+    cfgs = _bus_cfgs()
+    bus = OutputBus(AudioInfo(48000, 2), device=dev)
+    hs = [bus.subscribe(c) for c in cfgs[:3]]
+    rng = np.random.default_rng(22)
+    now = 10_000_000_000
+    for _ in range(12):
+        now += 16_666_667
+        _bus_tick((bus,), (0.3 * rng.standard_normal((2, 800))).astype(
+            np.float32), now)
+    old_L, old_ring = bus.L, bus.ring.buf.clone()
+    before = [t.clone() for t in _bus_state(bus)[1:]]
+    big = resolve(Settings(fft_size=65536, enable_large_fft=True, width=400),
+                  AudioInfo(48000, 2))
+    hb = bus.subscribe(big)
+    assert bus.L == 65536 + bus.H > old_L
+    assert torch.equal(bus.ring.buf[..., -old_L:], old_ring)
+    assert not bus.ring.buf[..., :-old_L].any()
+    after = _bus_state(bus)[1:len(before) + 1]
+    assert all(torch.equal(a, b) for a, b in zip(after, before))
+    now += 16_666_667
+    _bus_tick((bus,), (0.3 * rng.standard_normal((2, 800))).astype(
+        np.float32), now)
+    torch.cuda.synchronize()
+    assert np.isfinite(bus.read_decibels(hb)).all()
+    assert all(np.isfinite(bus.read_pixels(h)).all() for h in hs)
+
+
+def test_render_frames_on_card_match_cpu(dev):
+    """``MultiEngine.render_frames`` on the card against the CPU port's
+    scene fed the same packets: every frame within 1e-5 (the card's
+    values within 1e-4 dB of the CPU's; the dense and gather rebins round
+    differently)."""
+    from waveform_tpu_torch.runtime.multi import MultiEngine
+    cfgs = _scene_cfgs()
+    card, cpu = MultiEngine(device=dev), MultiEngine(device="cpu")
+    sids = [(card.add_stream(c), cpu.add_stream(c)) for c in cfgs
+            for _ in range(2)]
+    rng = np.random.default_rng(23)
+    now = 10_000_000_000
+    for _ in range(6):
+        for sa, sb in sids:
+            x = (0.3 * rng.standard_normal((2, 800))).astype(np.float32)
+            card.feed(sa, x, now, now_ns=now)
+            cpu.feed(sb, x, now, now_ns=now)
+        now += 16_666_667
+        card.tick(now_ns=now)
+        cpu.tick(now_ns=now)
+    got, want = card.render_frames(), cpu.render_frames()
+    for sa, sb in sids:
+        assert got[sa].shape == want[sb].shape
+        np.testing.assert_allclose(got[sa], want[sb], rtol=0, atol=1e-5)
+
+
+def test_graph_captures_do_not_grow_device_memory(dev):
+    """Every capture runs on one side stream a device: the libraries keep
+    a workspace for each stream they run on (cuBLAS's as long as the
+    process), so 40 captures of a GEMM, each dropped after its replays,
+    leave device memory where the first left it."""
+    import gc
+
+    from waveform_tpu_torch.runtime.graphs import GraphTick
+    a = torch.randn(256, 256, device=dev)
+    mem = []
+    for _ in range(40):
+        t = GraphTick(lambda: a @ a, dev)
+        for _ in range(3):
+            t()
+        del t
+        torch.cuda.synchronize()
+        gc.collect()
+        mem.append(torch.cuda.memory_allocated(dev))
+    assert mem[-1] - mem[0] <= 1 << 20, mem

@@ -7,13 +7,16 @@ subprocess can show that the port's own import graph leaves both out.  The
 probe blocks ``jax``, ``jaxlib``, ``flax`` and ``waveform_tpu`` (the JAX
 package: the exact name and its submodules), imports every module of the
 port's serving path (the graph tick, the meter engine, checkpoints, the
-profiler, the waveform family's host copies and engines included), then
+profiler, the waveform family's host copies and engines, the scene, the
+bus and the renderer included), then
 resolves a config with the port's own ``resolve`` and runs CPU ticks
 through the port's native assembler: a microbatch flush, ``tick_many``, a
 checkpoint saved and loaded into a resized engine, one
 ``MeterServingEngine`` tick, ``DeviceWaveformEngine`` ticks (one a k=2
-microbatch flush) and a resize, and a ``WaveformEngine`` tick in each of
-its three modes.
+microbatch flush) and a resize, a ``WaveformEngine`` tick in each of
+its three modes, a ``MultiEngine`` scene tick (a cohort and a solo group)
+with its frames, and an ``OutputBus`` tick with a spectrum read and a
+meter frame.
 """
 
 import subprocess
@@ -56,6 +59,11 @@ _PROBE = textwrap.dedent("""
     import waveform_tpu_torch.runtime.waveform_host
     import waveform_tpu_torch.runtime.waveform_device
     import waveform_tpu_torch.runtime.engine
+    import waveform_tpu_torch.runtime.multi
+    import waveform_tpu_torch.runtime.bus
+    import waveform_tpu_torch.render.colors
+    import waveform_tpu_torch.render.image
+    import waveform_tpu_torch.render.raster
     import waveform_tpu_torch.utils.checkpoint
 
     import os
@@ -106,6 +114,23 @@ _PROBE = textwrap.dedent("""
             e.feed(s, x[s].astype(np.float32), 10**10, now_ns=10**10)
         e.tick(now_ns=10**10)
         assert e.render_values().shape[0] == 2
+
+    from waveform_tpu_torch.runtime.bus import OutputBus
+    from waveform_tpu_torch.runtime.multi import MultiEngine
+    scene = MultiEngine(device="cpu")
+    sids = [scene.add_stream(c) for c in (cfg, cfg, mcfg, wcfg)]
+    for s in sids:
+        scene.feed(s, x[0, :, :480].astype(np.float32), 10**10, now_ns=10**10)
+    scene.tick(now_ns=10**10)
+    assert len(scene._cohorts) == 1 and len(scene._solo) == 1
+    frames = scene.render_frames()
+    assert frames[sids[0]].shape == (cfg.height, cfg.width, 4)
+    bus = OutputBus(cfg.audio, device="cpu")
+    hs = [bus.subscribe(c) for c in (cfg, mcfg, wcfg)]
+    bus.feed(x[0, :, :800].astype(np.float32), 10**10, now_ns=10**10)
+    bus.tick(now_ns=10**10)
+    assert bus.read_pixels(hs[0]).shape == (1, 200)
+    assert bus.render_frame(hs[1]).shape == (mcfg.height, mcfg.width, 4)
 
     loaded = sorted(k for k in sys.modules if blocked(k))
     assert not loaded, loaded

@@ -36,6 +36,20 @@ COUNTERS = ("launches_gen", "launches_gen_df", "launches3", "launches3_df",
             "launches_cfft")
 
 
+# the side stream of every warm-up and capture on a device: the libraries
+# keep a workspace for each stream they run on (cuBLAS's lives as long as
+# the process), so a new stream per capture would grow device memory with
+# every graph a live scene captures
+_SIDE: dict = {}
+
+
+def _side_stream(dev: torch.device):
+    side = _SIDE.get(dev)
+    if side is None:
+        side = _SIDE[dev] = torch.cuda.Stream(dev)
+    return side
+
+
 def _counts() -> dict:
     return {c: getattr(exact_cuda, c) for c in COUNTERS}
 
@@ -70,7 +84,7 @@ class GraphTick:
     def _warm_and_capture(self):
         dev = self.device
         main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = _side_stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             out = self._fn()                  # the warm-up: a real tick

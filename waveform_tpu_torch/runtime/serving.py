@@ -13,7 +13,9 @@ On a CUDA device the device half of a tick is one captured CUDA graph
 (``runtime/graphs.py``), the counterpart of the JAX engine's jitted tick:
 one graph for each count form (every stream advancing alike, or a count
 per stream), one for each microbatch (k, form) flush, one for each
-``tick_many`` hop and form.  The ring, the state and the RMS ring are
+``tick_many`` hop and form, and in cohort mode (``bind_cohort``, for
+``runtime/multi.py``) one for each form of the tick on the engine's
+segment of a shared upload.  The ring, the state and the RMS ring are
 updated in place (JAX's arrays are immutable and its programs donate
 them; the port's tensors keep their addresses, which the graphs read).
 Everything a graph reads that changes from tick to tick is device data
@@ -145,6 +147,18 @@ class _PendingStream:
         self.capture_ts = 0
         self.audio_ts = 0
         self.show = True
+
+
+def upload(host: torch.Tensor, dev: torch.Tensor, events: list,
+           i: int) -> None:
+    """Copy ``host`` into ``dev`` on the current stream, asynchronously
+    from pinned memory; on CUDA record the event that frees ``host`` for
+    reuse in ``events[i]`` (wait on it before writing ``host`` again)."""
+    dev.copy_(host, non_blocking=True)
+    if dev.device.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev.device))
+        events[i] = ev
 
 
 def assign(dst, src) -> None:
@@ -284,7 +298,8 @@ class PackedTickEngine(AutoMicrobatchMixin):
     tick, double-buffered in (pinned, on CUDA) host memory and fenced by
     CUDA events; the device half of each tick kind a
     :class:`~.graphs.GraphTick`; the microbatch flush, k packed ticks in
-    one graph.
+    one graph; the cohort tick on a segment of a block that one copy
+    uploads for many engines (:meth:`bind_cohort`).
 
     A subclass sets ``cfg``, ``S`` and ``device`` and provides
     ``packed_width``, ``_TAIL`` (floats of scalars behind the rows),
@@ -324,6 +339,8 @@ class PackedTickEngine(AutoMicrobatchMixin):
                                    device=self.device)
         self._bind_buf(0)
         self._last_pixels = None
+        # cohort mode (bind_cohort): this engine's segment of a shared block
+        self._row0 = self._cohort_block = self._cohort_dev = None
 
     @property
     def _stride(self) -> int:
@@ -349,20 +366,17 @@ class PackedTickEngine(AutoMicrobatchMixin):
                 events: list, i: int) -> None:
         """Copy ``host`` into ``dev`` on the current stream; on CUDA record
         the event that frees ``host`` for reuse in ``events[i]``."""
-        dev.copy_(host, non_blocking=True)
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(self.device))
-            events[i] = ev
+        upload(host, dev, events, i)
 
     def _graph_fn(self, key):
         """The device function of one tick kind, over fixed tensors: a
-        single tick ("tick", uniform) or a microbatch flush ("mb", k,
-        uniform)."""
+        single tick ("tick", uniform), a tick on the engine's segment of
+        its cohort's block ("cohort", uniform) or a microbatch flush ("mb",
+        k, uniform)."""
         kind, *rest = key
-        if kind == "tick":
+        if kind in ("tick", "cohort"):
             (uniform,) = rest
-            dev_in = self._dev_in
+            dev_in = self._dev_in if kind == "tick" else self._cohort_dev
             return lambda: self._packed(dev_in, uniform)
         k, uniform = rest
         dev_in, R = self._mb_dev, self._stride
@@ -378,6 +392,12 @@ class PackedTickEngine(AutoMicrobatchMixin):
         if t is None:
             t = self._ticks[key] = GraphTick(self._graph_fn(key), self.device)
         return t()
+
+    def _drop_graphs(self, *kinds: str) -> None:
+        """Drop the captured graphs of the tick ``kinds`` (of every kind
+        when none is named) with the memory their captures hold."""
+        self._ticks = {key: t for key, t in self._ticks.items()
+                       if kinds and key[0] not in kinds}
 
     def _fresh(self, out: torch.Tensor) -> torch.Tensor:
         """A tick's output as its own tensor: a graph's output buffer is
@@ -450,6 +470,38 @@ class PackedTickEngine(AutoMicrobatchMixin):
         """Device outputs of the last microbatch flush: [k, ...]."""
         return self._last_batch
 
+    # -- cohort mode (runtime/multi.py): many engines, one upload --------
+
+    def bind_cohort(self, row0: int, block: torch.Tensor) -> None:
+        """Tick from a shared upload: this engine's ``_stride`` floats (its
+        packed rows, then its scalars) are ``block[row0:row0 + _stride]``
+        of a cohort's device block, which one copy fills for every engine
+        of the cohort (see ``runtime/multi.py``).  The graphs captured
+        over an earlier placement are dropped: the next
+        :meth:`tick_from_cohort` captures anew.  The private upload
+        buffers stay, so an engine that leaves its cohort ticks on through
+        them."""
+        self._drop_graphs("cohort")
+        self._row0, self._cohort_block = row0, block
+        self._cohort_dev = block[row0:row0 + self._stride]
+
+    def _leave_cohort(self) -> None:
+        """Forget the cohort placement and the graphs captured over it."""
+        self._drop_graphs("cohort")
+        self._row0 = self._cohort_block = self._cohort_dev = None
+
+    def tick_from_cohort(self, uniform: bool):
+        """Run this engine's tick on its segment of the cohort block.  The
+        cohort has bound this engine's assembly views to its segment of
+        the host block (``_bind_external``), run ``_stage`` (which
+        returned ``uniform``) and uploaded the block; the tick replays the
+        engine's ("cohort", uniform) graph.  Returns the output, a tensor
+        of its own.  (The JAX engine takes the uploaded block and ``dt``
+        here; the port reads both from its segment.)"""
+        out = self._fresh(self._call(("cohort", uniform)))
+        self._last_pixels = out
+        return out
+
     # -- auto microbatch policy: shared machinery (AutoMicrobatchMixin) --
 
     def _mb_plain_tick(self, now_ns: int, dt_f):
@@ -461,9 +513,7 @@ class PackedTickEngine(AutoMicrobatchMixin):
     def _reset_mb_extra(self) -> None:
         self._mb_uniform = []
         self._mb_dev = None
-        # the flush graphs read the dropped device buffer
-        self._ticks = {key: t for key, t in self._ticks.items()
-                       if key[0] != "mb"}
+        self._drop_graphs("mb")   # the flush graphs read the dropped buffer
 
 
 class ServingEngine(PackedTickEngine):
@@ -924,6 +974,22 @@ class ServingEngine(PackedTickEngine):
     def read_pixels(self) -> np.ndarray:
         """Host readback of the latest rebinned frame (synchronizes)."""
         return self._last_pixels.cpu().numpy()
+
+    def render_frames(self) -> torch.Tensor:
+        """RGBA frames of every stream, [S, outH, outW, 4] f32 on the
+        engine's device: the batched counterpart of the reference's
+        per-source render() (src/source.cpp:1346-1358), from the device
+        state in one batched render (``render/raster.shared_renderer``,
+        built once a config).  With
+        ``hide_on_silent`` latched streams render fully transparent (the
+        reference's render() early return, src/source.cpp:1349-1350)."""
+        from ..render.raster import shared_renderer
+        imgs = shared_renderer(self.cfg, batched=True, device=self.device)(
+            self._display_values(self.state))
+        if self.cfg.settings.hide_on_silent:
+            keep = ~self.state.last_silent
+            imgs = imgs * keep[:, None, None, None].to(imgs.dtype)
+        return imgs
 
     def read_decibels(self) -> np.ndarray:
         """Host readback of the display values (dB buffer, natural bin

@@ -20,9 +20,8 @@ assembly of one packed row per stream) is the JAX engine's.  Every
 per-tick value rides the packed upload and is read on the device, so on a
 CUDA device a tick is one replay of a captured graph
 (``runtime/graphs.py``), as in ``ServingEngine`` (the shared plumbing:
-``serving.PackedTickEngine``); the ring, display buffer, latch and RMS
-ring update in place.  Cohort mode (``bind_cohort``/``tick_from_cohort``)
-waits for the port of ``runtime/multi.py``.
+``serving.PackedTickEngine``, cohort mode for ``runtime/multi.py``
+included); the ring, display buffer, latch and RMS ring update in place.
 """
 
 from __future__ import annotations
