@@ -160,7 +160,35 @@ Phases, one line each; any failure raises and the script exits non-zero:
    upload a tick; the tick's time, busy share and p50/p99; a frame of
    each mode; then a live N=65536 subscriber: the grown ring's tail is
    the old ring, every look's state carried bit for bit, 8 K1-gen + 1 K2
-   launches a tick.
+   launches a tick;
+28. plans  — the plan tuner (``utils/plans.measure``) at N = 4096, 16384
+   and 32768, S=64, 3 reps, into a temporary plan file: each entry names a
+   body its size runs, faster than the digit lowering; the packaged H100
+   table (``data/plans_h100.json``) read on this card; a ``ServingEngine``
+   at N=16384, S=64 with no plan variable set launching the body the table
+   names once a tick and no other kernel, then under a plan file naming
+   the other body, each with the checks of phase 4 and the oracle gate,
+   and the two engines' ticks in turns;
+29. matmul — the headline configuration under
+   WAVEFORM_TPU_FFT_BACKEND=matmul, 8 ticks: no exact kernel launched,
+   graph ticks bit for bit with eager ticks, the CPU port on 4 streams
+   within 1e-3 dB, the float64 oracle's max |dB err| printed (not gated:
+   the f32 GEMM FFT), its tick in turns with the exact backend's;
+30. rfft_fn — ``ServingEngine(cfg, 256, rfft_fn=torch.fft.rfft)`` at the
+   headline: captured in the graph, bit for bit with its eager ticks, no
+   exact kernel, its oracle error within the xla backend's; then
+   ``WaveformEngine`` with the same function against the CPU port;
+31. demo   — ``waveform_tpu_torch.demo.main`` on a 2-s stereo WAV for a
+   curve scene at N=4096, a level meter and a waveform, on the card (one
+   K1-gen launch a spectrum tick, none otherwise) and with ``--device
+   cpu``: the same PNGs, within one step of 255; the profiler's line;
+32. warm   — a new S=256 headline engine's first tick in a fresh process,
+   first without warming, then after ``wisdom.warm``.
+
+Phases 13-15 and 16's K1-df sizes, 18's (16384, 256) and 27's 8192 and
+16384 looks test K1-gen (K1-df) at sizes the packaged H100 plan table
+sends to K2: they pin split 2 (``WAVEFORM_TPU_STAGE1_SPLIT``; for the bus,
+a plan file, since its N=65536 look runs K2).
 
 Every phase's seconds are printed before the kernels' JSON record and the
 result line, which are the last two lines.  Each kernel's record carries
@@ -181,7 +209,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -596,16 +626,17 @@ def feed_signal(rng, S: int, k: int, channels: int = 2) -> np.ndarray:
     return x.astype(np.float32)
 
 
-def oracle_gate(wt, ServingEngine, fft_size: int, ticks: int, rng, now0,
-                channels: int = 2):
-    """The bench's accuracy gate: TSmoothing NONE, one noise window in the
-    ring against the float64 oracle, max |dB err| on bins above -120 dBFS."""
+def oracle_err(wt, ServingEngine, fft_size: int, ticks: int, rng, now0,
+               channels: int = 2, **engine_kw) -> float:
+    """The bench's accuracy measure: TSmoothing NONE, one noise window in
+    the ring against the float64 oracle, max |dB err| on bins above -120
+    dBFS (``engine_kw`` go to the engine, e.g. an ``rfft_fn``)."""
     gcfg = wt.resolve(wt.Settings(fft_size=fft_size,
                                   enable_large_fft=fft_size > 8192,
                                   width=800, window=wt.FFTWindow.HANN,
                                   temporal_smoothing=wt.TSmoothingMode.NONE),
                       wt.AudioInfo(SR, channels))
-    geng = ServingEngine(gcfg, 2, device="cuda")
+    geng = ServingEngine(gcfg, 2, device="cuda", **engine_kw)
     for k in range(ticks):
         now = now0 + k * 16_666_667
         geng.feed_batch(rng.uniform(-0.5, 0.5, (2, channels, HOP)).astype(
@@ -615,7 +646,14 @@ def oracle_gate(wt, ServingEngine, fft_size: int, ticks: int, rng, now0,
     want, _ = wt.oracle.spectrum_frame(window, None, gcfg, dt=1 / 60)
     got = geng.read_decibels()[0]
     gvis = want > -120.0
-    gate = float(np.abs(got[gvis] - want[gvis]).max())
+    return float(np.abs(got[gvis] - want[gvis]).max())
+
+
+def oracle_gate(wt, ServingEngine, fft_size: int, ticks: int, rng, now0,
+                channels: int = 2):
+    """The bench's accuracy gate: :func:`oracle_err` under 1e-4 dB."""
+    gate = oracle_err(wt, ServingEngine, fft_size, ticks, rng, now0,
+                      channels)
     check(gate < 1e-4, f"N={fft_size} accuracy gate {gate} dB")
     return gate
 
@@ -1888,6 +1926,396 @@ def phase_bus(wt, exact_cuda, profiler, card: str) -> None:
           f"{t_big:.3f} ms", flush=True)
 
 
+# --- plans, the matmul backend, rfft_fn, the demo, warm -----------------
+
+TUNE_SIZES = (4096, 16384, 32768)   # the tuner's sizes in the plans phase
+SPLIT_COUNTER = {2: "launches_gen", 3: "launches3"}
+
+
+@contextlib.contextmanager
+def plan_file(splits: dict):
+    """``WAVEFORM_TPU_PLAN_FILE`` naming ``splits`` ({N: stage-1 split})
+    for a block, in a temporary directory (a user's plan file wins over
+    the packaged table)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "plans.json")
+        with open(path, "w") as f:
+            json.dump({str(n): {"split": s} for n, s in splits.items()}, f)
+        with env("WAVEFORM_TPU_PLAN_FILE", path):
+            yield path
+
+
+def headline_cfg(wt):
+    """Stereo 48 kHz, N=4096, Hann, 800-px Lanczos rebin."""
+    return wt.resolve(wt.Settings(fft_size=4096, width=800,
+                                  window=wt.FFTWindow.HANN,
+                                  interp_mode=wt.InterpMode.LANCZOS),
+                      wt.AudioInfo(SR, 2))
+
+
+def phase_plans(wt, exact_cuda, card: str) -> None:
+    """The tuner on this card at TUNE_SIZES, S=64, 3 reps, into a
+    temporary plan file; the packaged H100 table read here; an N=16384,
+    S=64 engine steered by the table with no variable set, then by a plan
+    file naming the other body."""
+    from waveform_tpu_torch.runtime.serving import ServingEngine
+    from waveform_tpu_torch.utils import plans
+
+    with tempfile.TemporaryDirectory() as d:
+        with env("WAVEFORM_TPU_PLAN_FILE", os.path.join(d, "plans.json")):
+            tuned = {n: plans.measure(n, streams=64, ticks=32, reps=3)
+                     for n in TUNE_SIZES}
+            check(all(plans.plan_for(n) == e for n, e in tuned.items()),
+                  "plans: the tuner's file does not read back")
+    for n, e in tuned.items():
+        check(e["split"] in {s for s, _ in plans._candidates(n)}
+              and 0 < e["us_per_frame"] < e["xla_us_per_frame"],
+              f"plans: tuner entry at N={n}: {e}")
+    plans._packaged_plans.cache_clear()
+    table = plans._packaged_plans()
+    with open(plans.PACKAGED) as f:
+        shipped = json.load(f)
+    check("H100" in torch.cuda.get_device_name(0) and table == shipped,
+          "plans: the packaged H100 table is not read on this card")
+    check("WAVEFORM_TPU_PLAN_FILE" not in os.environ
+          and "WAVEFORM_TPU_STAGE1_SPLIT" not in os.environ
+          and not os.path.exists(plans.plan_path()),
+          f"plans: a plan variable or {plans.plan_path()} would steer the "
+          "default route")
+    print(f"plans [{card}]: tuner at S=64 (3 reps, 32 calls a graph): "
+          + "; ".join(f"N={n} split {e['split']} {e['us_per_frame']} "
+                      f"us/frame, lowering {e['xla_us_per_frame']} us/frame"
+                      f" (packaged S=256 table: split "
+                      f"{table[str(n)]['split']})"
+                      for n, e in tuned.items())
+          + f"; packaged table read ({len(table)} sizes)", flush=True)
+
+    cfg = wt.resolve(wt.Settings(fft_size=16384, enable_large_fft=True,
+                                 width=800, window=wt.FFTWindow.HANN,
+                                 interp_mode=wt.InterpMode.LANCZOS),
+                     wt.AudioInfo(SR, 2))
+    rng = np.random.default_rng(SEED + 40)
+    named = table["16384"]["split"]
+    ticks = 21
+    served = []
+    for label, split in (("packaged table, no variable", named),
+                         ("plan file", 5 - named)):
+        with (plan_file({16384: split}) if split != named
+              else contextlib.nullcontext()):
+            eng = ServingEngine(cfg, 64, device="cuda")
+            cpu = ServingEngine(cfg, 2, device="cpu")
+            pk = [feed_signal(rng, 64, k) for k in range(ticks)]
+            now0 = time.monotonic_ns()
+            counts, _, peak, e_cpu = drive_slice(wt, exact_cuda, eng, cpu, pk,
+                                                 now0)
+            check(counts == only(SPLIT_COUNTER[split], ticks),
+                  f"plans: {label}: launches {counts}, want split {split}'s "
+                  f"kernel once a tick and no other")
+            gate = oracle_gate(wt, ServingEngine, 16384, ticks, rng, now0)
+        body = "K1-gen" if split == 2 else "K2"
+        served.append((body, eng, pk, now0))
+        print(f"plans [{card}]: ServingEngine N=16384 S=64 under the "
+              f"{label}: {ticks} {body} launches in {ticks} ticks, no other "
+              f"kernel, peak {peak:.2f} Hz, card vs CPU port {e_cpu:.2e} dB, "
+              f"oracle gate {gate:.2e} dB (< 1e-4)", flush=True)
+        del cpu
+    # the two engines' ticks in turns (the route was fixed at capture);
+    # each call's clock starts a second after the one before
+    turns = [tick_ms(served[j][1], served[j][2],
+                     served[j][3] + (i + 1) * 10**9)
+             for i, j in enumerate((0, 1, 1, 0))]
+    print(f"plans [{card}]: full tick (feed_batch + tick) at N=16384 S=64 "
+          f"in turns: {served[0][0]} {turns[0] * 1e3:.1f} / "
+          f"{turns[3] * 1e3:.1f} us, {served[1][0]} {turns[1] * 1e3:.1f} / "
+          f"{turns[2] * 1e3:.1f} us", flush=True)
+
+
+def graph_vs_eager(exact_cuda, make, packets, now0, cpu_rows=None,
+                   cpu=None):
+    """Drive two engines from ``make()`` over ``packets``: one by its
+    graph ticks (counts set to 0 just before, read just after), one by the
+    eager device function; and ``cpu`` on ``cpu_rows``.  Checks the
+    pixels of every tick and the final state bit for bit; returns (the
+    graph engine, the launch counts)."""
+    graph, eager = make(), make()
+    same = True
+    for name in COUNTERS:
+        setattr(exact_cuda, name, 0)
+    for k, x in enumerate(packets):
+        now = now0 + k * 16_666_667
+        graph.feed_batch(x, now, now_ns=now)
+        eager.feed_batch(x, now, now_ns=now)
+        same &= torch.equal(graph.tick(now_ns=now), eager_tick(eager, now))
+        if cpu is not None:
+            cpu.feed_batch(x[cpu_rows], now, now_ns=now)
+            cpu.tick(now_ns=now)
+    torch.cuda.synchronize()
+    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
+    check(same and all(torch.equal(a, b) for a, b in
+                       zip(engine_state(graph), engine_state(eager))),
+          "graph ticks differ from eager ticks")
+    return graph, counts
+
+
+def phase_matmul(wt, exact_cuda, card: str) -> None:
+    """The headline configuration under WAVEFORM_TPU_FFT_BACKEND=matmul."""
+    from waveform_tpu_torch.runtime.serving import ServingEngine
+    cfg = headline_cfg(wt)
+    S, ticks = 256, 8
+    rows = [0, 1, 2, S - 1]
+    rng = np.random.default_rng(SEED + 41)
+    pk = []
+    for k in range(ticks):
+        x = noise_tone(rng, (S, 2, HOP), k).astype(np.float32)
+        x[-1] = 0.0
+        pk.append(x)
+    now0 = time.monotonic_ns()
+    with env("WAVEFORM_TPU_FFT_BACKEND", "matmul"):
+        cpu = ServingEngine(cfg, 4, device="cpu")
+        eng, counts = graph_vs_eager(
+            exact_cuda, lambda: ServingEngine(cfg, S, device="cuda"), pk,
+            now0, rows, cpu)
+        check(not any(counts) and eng.kernels_per_replay
+              == {("tick", True): {}},
+              f"matmul: exact kernels launched {counts}, "
+              f"{eng.kernels_per_replay}")
+        e_cpu = db_vs(wt, eng.read_decibels()[rows], cpu.read_decibels(),
+                      "matmul: card vs CPU port")
+        check(e_cpu < 1e-3, f"matmul: card vs CPU port {e_cpu} dB")
+        err = oracle_err(wt, ServingEngine, 4096, 8, rng, now0)
+        check(np.isfinite(err), "matmul: oracle error not finite")
+    exact = ServingEngine(cfg, S, device="cuda")
+    for k, x in enumerate(pk):
+        now = now0 + k * 16_666_667
+        exact.feed_batch(x, now, now_ns=now)
+        exact.tick(now_ns=now)
+    # in turns; each call's clock starts a second after the one before
+    turns = [tick_ms(e, pk, now0 + (i + 1) * 10**9)
+             for i, e in enumerate((exact, eng, eng, exact))]
+    print(f"matmul [{card}]: S={S} N=4096 800px Lanczos, {ticks} graph "
+          f"ticks bit for bit with eager ticks (pixels and state), no exact "
+          f"kernel launched ({dict(zip(COUNTERS, counts))}); card vs CPU "
+          f"port (4 streams) {e_cpu:.2e} dB (bound 1e-3); vs the float64 "
+          f"oracle {err:.2e} dB (not gated: the f32 GEMM FFT); full tick "
+          f"(feed_batch + tick, in turns) matmul {turns[1] * 1e3:.1f} / "
+          f"{turns[2] * 1e3:.1f} us, exact {turns[0] * 1e3:.1f} / "
+          f"{turns[3] * 1e3:.1f} us", flush=True)
+
+
+def phase_rfft_fn(wt, exact_cuda, card: str) -> None:
+    """``rfft_fn=torch.fft.rfft`` in ``ServingEngine`` and
+    ``WaveformEngine`` at the headline configuration."""
+    from waveform_tpu_torch.runtime.engine import WaveformEngine
+    from waveform_tpu_torch.runtime.serving import ServingEngine
+    cfg = headline_cfg(wt)
+    fn = torch.fft.rfft
+    S, ticks = 256, 8
+    rng = np.random.default_rng(SEED + 42)
+    pk = [feed_signal(rng, S, k) for k in range(ticks)]
+    now0 = time.monotonic_ns()
+    eng, counts = graph_vs_eager(
+        exact_cuda, lambda: ServingEngine(cfg, S, rfft_fn=fn, device="cuda"),
+        pk, now0)
+    check(not any(counts) and eng.kernels_per_replay == {("tick", True): {}},
+          f"rfft_fn: exact kernels launched {counts}")
+    e_fn = oracle_err(wt, ServingEngine, 4096, 8,
+                      np.random.default_rng(SEED + 43), now0, rfft_fn=fn)
+    with env("WAVEFORM_TPU_FFT_BACKEND", "xla"):
+        e_xla = oracle_err(wt, ServingEngine, 4096, 8,
+                           np.random.default_rng(SEED + 43), now0)
+    check(e_fn <= e_xla, f"rfft_fn: oracle error {e_fn} dB above the xla "
+          f"backend's {e_xla} dB")
+    t_ms = tick_ms(eng, pk, now0)
+    del eng
+
+    weng = WaveformEngine(cfg, S, rfft_fn=fn, device="cuda")
+    wcpu = WaveformEngine(cfg, 4, rfft_fn=fn, device="cpu")
+    rows = [0, 1, 2, S - 1]
+    for name in COUNTERS:
+        setattr(exact_cuda, name, 0)
+    now = now0
+    for x in pk:
+        now += 16_666_667
+        for s in range(S):
+            weng.feed(s, x[s], now, now_ns=now)
+        for i, s in enumerate(rows):
+            wcpu.feed(i, x[s], now, now_ns=now)
+        db_card = weng.tick(now_ns=now)
+        db_cpu = wcpu.tick(now_ns=now)
+    torch.cuda.synchronize()
+    wcounts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
+    check(not any(wcounts) and weng._device_tick.graph is not None,
+          f"rfft_fn: WaveformEngine launches {wcounts}, or no graph")
+    e_w = db_vs(wt, db_card.cpu().numpy()[rows], db_cpu.numpy(),
+                "rfft_fn: WaveformEngine card vs CPU port")
+    check(e_w < 1e-3, f"rfft_fn: WaveformEngine card vs CPU {e_w} dB")
+    print(f"rfft_fn [{card}]: ServingEngine(cfg, {S}, rfft_fn=torch.fft."
+          f"rfft) at the headline: captured in the graph, {ticks} ticks bit "
+          f"for bit with eager ticks, no exact kernel; vs the float64 oracle "
+          f"{e_fn:.2e} dB (xla backend {e_xla:.2e} dB); full tick "
+          f"{t_ms * 1e3:.1f} us; WaveformEngine(rfft_fn=...) S={S}: {ticks} "
+          f"graph ticks, no exact kernel, card vs CPU port {e_w:.2e} dB "
+          "(bound 1e-3)", flush=True)
+
+
+def read_png(path: str) -> np.ndarray:
+    """RGBA8 [H, W, 4] of a PNG as ``render/image.write_png`` writes it
+    (one IDAT stream, filter 0 on every row)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat = 8, b""
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = (int.from_bytes(body[i:i + 4], "big") for i in (0, 4))
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
+    return rows[:, 1:].reshape(h, w, 4)
+
+
+def phase_demo(exact_cuda, card: str) -> None:
+    """``python -m waveform_tpu_torch.demo`` (its ``main``) on a 2-s
+    stereo WAV of two tones plus noise, for a curve scene at N=4096, a
+    level meter and a waveform, on the card and with ``--device cpu``."""
+    import logging
+    import wave
+
+    from waveform_tpu_torch import demo
+    from waveform_tpu_torch.utils.log import get_logger
+
+    rng = np.random.default_rng(SEED + 44)
+    t = np.arange(2 * SR) / SR
+    x = np.stack([0.3 * np.sin(2 * np.pi * 440.0 * t),
+                  0.3 * np.sin(2 * np.pi * 1000.0 * t)])
+    x = np.clip(x + 0.1 * rng.standard_normal(x.shape), -1.0, 1.0)
+    scenes = {"curve": {"display_mode": "curve", "fft_size": 4096},
+              "level_meter": {"display_mode": "level_meter",
+                              "meter_buf": 100},
+              "waveform": {"display_mode": "waveform"}}
+    said = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            said.append(record.getMessage())
+
+    keep = Keep()
+    get_logger().addHandler(keep)
+    lines = []
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            wav = os.path.join(d, "in.wav")
+            with wave.open(wav, "wb") as w:
+                w.setnchannels(2)
+                w.setsampwidth(2)
+                w.setframerate(SR)
+                w.writeframes((x.T * 32767).astype("<i2").tobytes())
+            ticks = x.shape[1] // HOP
+            for name, scene in scenes.items():
+                sp = os.path.join(d, f"{name}.json")
+                with open(sp, "w") as f:
+                    json.dump(scene, f)
+                outs = {dev: os.path.join(d, f"{name}_{dev}")
+                        for dev in ("cuda", "cpu")}
+                args = [wav, "--settings", sp, "--every", "30"]
+                for name_c in COUNTERS:
+                    setattr(exact_cuda, name_c, 0)
+                said.clear()
+                check(demo.main(args + ["--out", outs["cuda"]]) == 0,
+                      f"demo: {name} on the card")
+                torch.cuda.synchronize()
+                counts = tuple(getattr(exact_cuda, c) for c in COUNTERS)
+                stats = [m for m in said if "frames/s" in m]
+                want = only("launches_gen",
+                            ticks if name == "curve" else 0)
+                check(counts == want, f"demo: {name} launches {counts}, want "
+                      f"{want}")
+                check(demo.main(args + ["--out", outs["cpu"], "--device",
+                                        "cpu"]) == 0, f"demo: {name} on CPU")
+                names = sorted(os.listdir(outs["cuda"]))
+                check(names == sorted(os.listdir(outs["cpu"])) and names
+                      == [f"frame_{k:06d}.png" for k in (30, 60, 90)],
+                      f"demo: {name} frames {names}")
+                worst = 0
+                for png in names:
+                    a, b = (read_png(os.path.join(outs[dev], png))
+                            .astype(np.int16) for dev in ("cuda", "cpu"))
+                    check(a.shape == b.shape and a[..., 3].any(),
+                          f"demo: {name} {png}")
+                    worst = max(worst, int(np.abs(a - b).max()))
+                check(worst <= 1, f"demo: {name} card vs CPU frames differ "
+                      f"by {worst}/255")
+                lines.append(f"{name}: {len(names)} PNGs, "
+                             f"{dict(zip(COUNTERS, counts))['launches_gen']}"
+                             f" K1-gen launches in {ticks} ticks, card vs CPU "
+                             f"port frames max {worst}/255; "
+                             + (stats[0] if stats else "no profiler stats"))
+    finally:
+        get_logger().removeHandler(keep)
+    for ln in lines:
+        print(f"demo [{card}]: {ln}", flush=True)
+
+
+WARM_PROBE = """
+import json, sys, time
+import numpy as np, torch
+import waveform_tpu_torch as wt
+from waveform_tpu_torch.runtime.serving import ServingEngine
+from waveform_tpu_torch.utils import wisdom
+cfg = wt.resolve(wt.Settings(fft_size=4096, width=800,
+                             window=wt.FFTWindow.HANN,
+                             interp_mode=wt.InterpMode.LANCZOS),
+                 wt.AudioInfo(48000, 2))
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()     # the CUDA context: outside every timing
+t_warm = 0.0
+if sys.argv[1] == "warm":
+    t0 = time.perf_counter()
+    wisdom.warm(cfg, 256)
+    t_warm = time.perf_counter() - t0
+t0 = time.perf_counter()
+eng = ServingEngine(cfg, 256)
+t_new = time.perf_counter() - t0
+x = np.zeros((256, 2, 800), np.float32)
+ticks = []
+for k in range(2):
+    eng.feed_batch(x, 10**10 + k, now_ns=10**10 + k)
+    t0 = time.perf_counter()
+    eng.tick(now_ns=10**10 + k)
+    torch.cuda.synchronize()
+    ticks.append(time.perf_counter() - t0)
+print(json.dumps({"warm_s": t_warm, "engine_s": t_new, "first_s": ticks[0],
+                  "second_s": ticks[1]}))
+"""
+
+
+def phase_warm(card: str) -> None:
+    """``wisdom.warm`` at the headline: two fresh processes, in this order,
+    each building a new S=256 engine and timing its first two ticks on the
+    host clock (synchronized): first without warming, then after
+    ``wisdom.warm(cfg, 256)``.  Both find the kernel library that the
+    build phase left on disk (an nvcc build, had there been none, would
+    fall to the first of them)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    got = {}
+    for mode in ("cold", "warm"):
+        r = subprocess.run([sys.executable, "-c", WARM_PROBE, mode], cwd=root,
+                           capture_output=True, text=True, timeout=600)
+        check(r.returncode == 0, f"warm: the {mode} process failed:\n"
+              f"{r.stderr[-2000:]}")
+        got[mode] = json.loads(r.stdout.strip().splitlines()[-1])
+    c, w = got["cold"], got["warm"]
+    print(f"warm [{card}]: a new S=256 headline engine in a fresh process "
+          f"(cold first, then warm): first tick {c['first_s'] * 1e3:.1f} ms "
+          f"cold vs {w['first_s'] * 1e3:.1f} ms after wisdom.warm (which "
+          f"took {w['warm_s'] * 1e3:.1f} ms); second tick "
+          f"{c['second_s'] * 1e3:.2f} / {w['second_s'] * 1e3:.2f} ms; engine "
+          f"construction {c['engine_s'] * 1e3:.1f} / "
+          f"{w['engine_s'] * 1e3:.1f} ms", flush=True)
+
+
 def kernel_label(fn: str) -> str:
     """A mangled kernel name as name<template arguments>."""
     m = re.search(r"_cu_[0-9a-f]{8}\d+(exact_[a-z0-9_]+?)(I.*?E)?E", fn)
@@ -2164,112 +2592,123 @@ def main() -> None:
               f"{path} {t_ms * 1e3:.1f} us at S={S} N={n} = "
               f"{S / (t_ms * 1e-3):,.0f} frames/s", flush=True)
 
-    # 13. kernel_gen: K1-gen vs twin, float64, K2 and K1 ----------------
-    t0 = time.perf_counter()
-    sizes_g = (3072, 5120, 6144, 7168, 8192, 9216, 16384, 31744)
-    check(all(exact_cuda.stage1_split(n) == 2 for n in sizes_g),
-          "K1-gen sizes route to split 2")
-    cases_g, worst_g = phase_kernel(
-        exact_cuda, dev, exact_cuda.rfft_pair_mag,
-        exact_cuda.rfft_pair_mag_ref, "launches_gen", sizes_g, (1, 7, 64),
-        SEED + 7, versus=(exact_cuda.rfft_pair_mag3, (8192, 16384)))
-    cases_s, worst_s = phase_kernel(
-        exact_cuda, dev, exact_cuda.rfft_pair_mag,
-        exact_cuda.rfft_pair_mag_ref, "launches_gen", (6144,), (S,),
-        SEED + 8)
+    # 13.-15. test K1-gen at sizes the packaged H100 plan table sends to
+    # K2 (8192, 16384): pinned to split 2, as N=32768 always was
     with env("WAVEFORM_TPU_STAGE1_SPLIT", "2"):
-        check(exact_cuda.supports(32768) and exact_cuda.stage1_split(32768)
-              == 2, "N=32768 under STAGE1_SPLIT=2")
-        cases_32, worst_32 = phase_kernel(
+        # 13. kernel_gen: K1-gen vs twin, float64, K2 and K1 ----------------
+        t0 = time.perf_counter()
+        sizes_g = (3072, 5120, 6144, 7168, 8192, 9216, 16384, 31744)
+        check(all(exact_cuda.stage1_split(n) == 2 for n in sizes_g),
+              "K1-gen sizes route to split 2")
+        cases_g, worst_g = phase_kernel(
             exact_cuda, dev, exact_cuda.rfft_pair_mag,
-            exact_cuda.rfft_pair_mag_ref, "launches_gen", (32768,),
-            (1, 7, 64), SEED + 9)
-    secs["kernel_gen"] = time.perf_counter() - t0
-    for w in (worst_s, worst_32):
-        worst_g = {k: max(v, w[k]) for k, v in worst_g.items()}
-    print(f"kernel_gen: {cases_g + cases_s + cases_32} cases at N in "
-          f"{sizes_g}, (6144, {S}) and 32768 under STAGE1_SPLIT=2, "
-          f"max|d|/max|ref| vs twin {worst_g['twin']:.3e}, vs float64 "
-          f"{worst_g['f64']:.3e} (bound {TOL}), vs K2 at 8192/16384 "
-          f"{worst_g['versus']:.3e} (bound {TOL_SPLITS}); nz exact; "
-          "1e20/NaN streams isolated",
-          flush=True)
-
-    # 14. slice_gen: N=6144 (a slider position) and N=16384 -------------
-    t0 = time.perf_counter()
-    gen = {}
-    for n_g, s_g, ticks_g, n_cpu in ((6144, S, ticks, 4), (16384, 64, 21, 2)):
-        cfg_g = wt.resolve(wt.Settings(fft_size=n_g,
-                                       enable_large_fft=n_g > 8192,
-                                       width=800, window=wt.FFTWindow.HANN,
-                                       interp_mode=wt.InterpMode.LANCZOS),
-                           wt.AudioInfo(SR, 2))
-        check(cfg_g.fft_size == n_g, f"resolved fft_size {cfg_g.fft_size}")
-        eng_g = ServingEngine(cfg_g, s_g, device="cuda")
-        cpu_g = ServingEngine(cfg_g, n_cpu, device="cpu")
-        pk_g = [feed_signal(rng, s_g, k) for k in range(ticks_g)]
-        now_g = time.monotonic_ns()
-        counts_g, px_g, peak_g, e_cpu_g = drive_slice(
-            wt, exact_cuda, eng_g, cpu_g, pk_g, now_g)
-        gen_g = counts_g[COUNTERS.index("launches_gen")]
-        check(counts_g == only("launches_gen", ticks_g),
-              f"N={n_g}: launches {counts_g} ({'/'.join(COUNTERS)}) in "
-              f"{ticks_g} ticks: want K1-gen's alone")
-        gate_g = oracle_gate(wt, ServingEngine, n_g, ticks_g, rng, now_g)
-        print(f"slice_gen: S={s_g} N={n_g} 800px Lanczos, {ticks_g} ticks, "
-              f"{gen_g} K1-gen launches, no other kernel, "
-              f"pixels {px_g} finite, silent stream at DB_MIN, peak "
-              f"{peak_g:.2f} Hz, card vs CPU port ({n_cpu} streams) "
-              f"{e_cpu_g:.2e} dB, oracle gate {gate_g:.2e} dB (< 1e-4)",
+            exact_cuda.rfft_pair_mag_ref, "launches_gen", sizes_g, (1, 7, 64),
+            SEED + 7, versus=(exact_cuda.rfft_pair_mag3, (8192, 16384)))
+        cases_s, worst_s = phase_kernel(
+            exact_cuda, dev, exact_cuda.rfft_pair_mag,
+            exact_cuda.rfft_pair_mag_ref, "launches_gen", (6144,), (S,),
+            SEED + 8)
+        with env("WAVEFORM_TPU_STAGE1_SPLIT", "2"):
+            check(exact_cuda.supports(32768) and exact_cuda.stage1_split(32768)
+                  == 2, "N=32768 under STAGE1_SPLIT=2")
+            cases_32, worst_32 = phase_kernel(
+                exact_cuda, dev, exact_cuda.rfft_pair_mag,
+                exact_cuda.rfft_pair_mag_ref, "launches_gen", (32768,),
+                (1, 7, 64), SEED + 9)
+        secs["kernel_gen"] = time.perf_counter() - t0
+        for w in (worst_s, worst_32):
+            worst_g = {k: max(v, w[k]) for k, v in worst_g.items()}
+        print(f"kernel_gen: {cases_g + cases_s + cases_32} cases at N in "
+              f"{sizes_g}, (6144, {S}) and 32768 under STAGE1_SPLIT=2, "
+              f"max|d|/max|ref| vs twin {worst_g['twin']:.3e}, vs float64 "
+              f"{worst_g['f64']:.3e} (bound {TOL}), vs K2 at 8192/16384 "
+              f"{worst_g['versus']:.3e} (bound {TOL_SPLITS}); nz exact; "
+              "1e20/NaN streams isolated",
               flush=True)
-        if n_g == 6144:
-            gen_slice = (eng_g, pk_g, now_g, gen_g)
-        del eng_g, cpu_g
-    torch.cuda.synchronize()
-    secs["slice_gen"] = time.perf_counter() - t0
 
-    # 15. times_gen ---------------------------------------------------------
-    t0 = time.perf_counter()
-    for n, s_n in ((6144, S), (16384, S)):
-        kg_ms, pg_ms, max_abs_g = kernel_times(
-            exact_cuda.rfft_pair_mag, exact_cuda.rfft_pair_mag_ref, n, s_n,
-            dev)
-        lg_ms = library_ms(n, s_n, dev)
-        gen[n] = (kg_ms, pg_ms, max_abs_g, lg_ms)
-        print(f"times_gen [{card}]: K1-gen {kg_ms * 1e3:.1f} us, twin "
-              f"{pg_ms * 1e3:.1f} us, library {lg_ms * 1e3:.1f} us at "
-              f"S={s_n} N={n}, max|K1-gen - twin| {max_abs_g:.1e}; K1-gen "
-              + rate_line("exact_mag_gen", kg_ms, n, s_n), flush=True)
-    k2_ms, p2_ms, _ = kernel_times(exact_cuda.rfft_pair_mag3,
-                                   exact_cuda.rfft_pair_mag3_ref, 16384, S,
-                                   dev)
-    b2_ms, b2_by = bound("exact_mag3", 16384, S)
-    print_stages(exact_cuda, card, dev, "times_gen", "K1-gen", False,
-                 ((6144, S), (16384, S)))
-    print(f"times_gen [{card}]: K2 {k2_ms * 1e3:.1f} us, twin "
-          f"{p2_ms * 1e3:.1f} us, bound {b2_ms * 1e3:.2f} us ({b2_by}) at "
-          f"S={S} N=16384", flush=True)
-    eng_g, pk_g, now_g, launches_gen = gen_slice
-    tg_ms = tick_ms(eng_g, pk_g, now_g)
-    print(f"times_gen [{card}]: full tick (feed_batch + tick) "
-          f"{tg_ms * 1e3:.1f} us at S={S} N=6144 = "
-          f"{S / (tg_ms * 1e-3):,.0f} frames/s", flush=True)
-    libs = {"exact_mag": library_ms(4096, S, dev),
-            "exact_mag3": lib3[65536],
-            "exact_cfft": lib_c[4096]}
-    secs["times_gen"] = time.perf_counter() - t0
+        # 14. slice_gen: N=6144 (a slider position) and N=16384 -------------
+        t0 = time.perf_counter()
+        gen = {}
+        for n_g, s_g, ticks_g, n_cpu in ((6144, S, ticks, 4),
+                                         (16384, 64, 21, 2)):
+            cfg_g = wt.resolve(wt.Settings(fft_size=n_g,
+                                           enable_large_fft=n_g > 8192,
+                                           width=800, window=wt.FFTWindow.HANN,
+                                           interp_mode=wt.InterpMode.LANCZOS),
+                               wt.AudioInfo(SR, 2))
+            check(cfg_g.fft_size == n_g, f"resolved fft_size {cfg_g.fft_size}")
+            eng_g = ServingEngine(cfg_g, s_g, device="cuda")
+            cpu_g = ServingEngine(cfg_g, n_cpu, device="cpu")
+            pk_g = [feed_signal(rng, s_g, k) for k in range(ticks_g)]
+            now_g = time.monotonic_ns()
+            counts_g, px_g, peak_g, e_cpu_g = drive_slice(
+                wt, exact_cuda, eng_g, cpu_g, pk_g, now_g)
+            gen_g = counts_g[COUNTERS.index("launches_gen")]
+            check(counts_g == only("launches_gen", ticks_g),
+                  f"N={n_g}: launches {counts_g} ({'/'.join(COUNTERS)}) in "
+                  f"{ticks_g} ticks: want K1-gen's alone")
+            gate_g = oracle_gate(wt, ServingEngine, n_g, ticks_g, rng, now_g)
+            print(f"slice_gen: S={s_g} N={n_g} 800px Lanczos, {ticks_g} "
+                  f"ticks, "
+                  f"{gen_g} K1-gen launches, no other kernel, "
+                  f"pixels {px_g} finite, silent stream at DB_MIN, peak "
+                  f"{peak_g:.2f} Hz, card vs CPU port ({n_cpu} streams) "
+                  f"{e_cpu_g:.2e} dB, oracle gate {gate_g:.2e} dB (< 1e-4)",
+                  flush=True)
+            if n_g == 6144:
+                gen_slice = (eng_g, pk_g, now_g, gen_g)
+            del eng_g, cpu_g
+        torch.cuda.synchronize()
+        secs["slice_gen"] = time.perf_counter() - t0
+
+        # 15. times_gen -----------------------------------------------------
+        t0 = time.perf_counter()
+        for n, s_n in ((6144, S), (16384, S)):
+            kg_ms, pg_ms, max_abs_g = kernel_times(
+                exact_cuda.rfft_pair_mag, exact_cuda.rfft_pair_mag_ref, n, s_n,
+                dev)
+            lg_ms = library_ms(n, s_n, dev)
+            gen[n] = (kg_ms, pg_ms, max_abs_g, lg_ms)
+            print(f"times_gen [{card}]: K1-gen {kg_ms * 1e3:.1f} us, twin "
+                  f"{pg_ms * 1e3:.1f} us, library {lg_ms * 1e3:.1f} us at "
+                  f"S={s_n} N={n}, max|K1-gen - twin| {max_abs_g:.1e}; K1-gen "
+                  + rate_line("exact_mag_gen", kg_ms, n, s_n), flush=True)
+        k2_ms, p2_ms, _ = kernel_times(exact_cuda.rfft_pair_mag3,
+                                       exact_cuda.rfft_pair_mag3_ref, 16384, S,
+                                       dev)
+        b2_ms, b2_by = bound("exact_mag3", 16384, S)
+        print_stages(exact_cuda, card, dev, "times_gen", "K1-gen", False,
+                     ((6144, S), (16384, S)))
+        print(f"times_gen [{card}]: K2 {k2_ms * 1e3:.1f} us, twin "
+              f"{p2_ms * 1e3:.1f} us, bound {b2_ms * 1e3:.2f} us ({b2_by}) at "
+              f"S={S} N=16384", flush=True)
+        eng_g, pk_g, now_g, launches_gen = gen_slice
+        tg_ms = tick_ms(eng_g, pk_g, now_g)
+        print(f"times_gen [{card}]: full tick (feed_batch + tick) "
+              f"{tg_ms * 1e3:.1f} us at S={S} N=6144 = "
+              f"{S / (tg_ms * 1e-3):,.0f} frames/s", flush=True)
+        libs = {"exact_mag": library_ms(4096, S, dev),
+                "exact_mag3": lib3[65536],
+                "exact_cfft": lib_c[4096]}
+        secs["times_gen"] = time.perf_counter() - t0
 
     # 16. kernel_df: K1-df and K2-df vs their twins, float64, the f32 tier
     t0 = time.perf_counter()
     sizes_df = (1024, 2048, 3072, 4096, 6144, 16384, 31744)
-    check(all(exact_cuda.stage1_split(n) == 2 for n in sizes_df),
-          "K1-df sizes route to split 2")
-    cases_df, worst_df = phase_df(
+    # K1-df at 16384, which the packaged H100 table sends to K2: pinned
+    with env("WAVEFORM_TPU_STAGE1_SPLIT", "2"):
+        cases_df, worst_df = phase_df(
+            exact_cuda, dev,
+            [("router", n, (1, 7, 64)) for n in sizes_df]
+            + [("router", 4096, (S,))], SEED + 11)
+    check(all(exact_cuda.stage1_split(n) == 3 for n in (32768, 65536)),
+          "K2-df sizes route to split 3")
+    cases_k2, worst_k2 = phase_df(
         exact_cuda, dev,
-        [("router", n, (1, 7, 64)) for n in sizes_df]
-        + [("router", 4096, (S,)), ("k2", 8192, (1, 7, 64)),
-           ("router", 32768, (1, 7, 64)), ("router", 65536, (1, 7, 32))],
-        SEED + 11)
+        [("k2", 8192, (1, 7, 64)), ("router", 32768, (1, 7, 64)),
+         ("router", 65536, (1, 7, 32))], SEED + 15)
+    cases_df += cases_k2
+    worst_df = {k: max(v, worst_k2[k]) for k, v in worst_df.items()}
     secs["kernel_df"] = time.perf_counter() - t0
     print(f"kernel_df: {cases_df} cases, K1-df at N in {sizes_df} and "
           f"(4096, {S}), K2-df at 8192 (direct), 32768 and 65536: bit for "
@@ -2314,34 +2753,36 @@ def main() -> None:
     for n, s_n, lib_ms in ((4096, S, libs["exact_mag"]),
                            (16384, S, gen[16384][3]),
                            (65536, 32, libs["exact_mag3"])):
-        x = torch.from_numpy((0.5 * np.random.default_rng(SEED + 12)
-                              .standard_normal((s_n, 2, n)))
-                             .astype(np.float32)).to(dev)
-        _, win = hann_pair(n, dev)
-        twin = (exact_cuda.rfft_pair_mag3_df_ref
-                if exact_cuda.stage1_split(n) == 3
-                else exact_cuda.rfft_pair_mag_df_ref)
-        turns = []
-        for tier in ("df", "f32", "f32", "df"):        # in turns
-            with env("WAVEFORM_TPU_KERNEL_TWIDDLE", tier):
-                turns.append(cuda_median_ms(
-                    lambda: exact_cuda.rfft_pair_mag(x, win)))
-        with env("WAVEFORM_TPU_KERNEL_TWIDDLE", "df"):
-            mag, _ = exact_cuda.rfft_pair_mag(x, win)
-        max_abs = float((mag - twin(x, win)[0]).abs().max())
-        twin_ms = cuda_median_ms(lambda: twin(x, win))
-        body = "K2" if exact_cuda.stage1_split(n) == 3 else "K1"
-        b_ms, b_by = bound("exact_mag3" if body == "K2" else "exact_mag_gen",
-                           n, s_n)
-        df_rows[n] = (turns[0], twin_ms, max_abs, lib_ms)
-        print(f"times_df [{card}]: {body}-df {turns[0] * 1e3:.1f} / "
-              f"{turns[3] * 1e3:.1f} us, f32 kernel {turns[1] * 1e3:.1f} / "
-              f"{turns[2] * 1e3:.1f} us (in turns), df twin "
-              f"{twin_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
-              f"{b_ms * 1e3:.2f} us ({b_by}) at S={s_n} N={n}, "
-              f"max|{body}-df - twin| {max_abs:.1e}; {body}-df "
-              + rate_line("exact_mag3" if body == "K2" else "exact_mag_gen",
-                          turns[0], n, s_n), flush=True)
+        # K1-df at 16384 (the packaged table's K2 size): pinned to split 2
+        with env("WAVEFORM_TPU_STAGE1_SPLIT", "2" if n < 32768 else None):
+            x = torch.from_numpy((0.5 * np.random.default_rng(SEED + 12)
+                                  .standard_normal((s_n, 2, n)))
+                                 .astype(np.float32)).to(dev)
+            _, win = hann_pair(n, dev)
+            twin = (exact_cuda.rfft_pair_mag3_df_ref
+                    if exact_cuda.stage1_split(n) == 3
+                    else exact_cuda.rfft_pair_mag_df_ref)
+            turns = []
+            for tier in ("df", "f32", "f32", "df"):        # in turns
+                with env("WAVEFORM_TPU_KERNEL_TWIDDLE", tier):
+                    turns.append(cuda_median_ms(
+                        lambda: exact_cuda.rfft_pair_mag(x, win)))
+            with env("WAVEFORM_TPU_KERNEL_TWIDDLE", "df"):
+                mag, _ = exact_cuda.rfft_pair_mag(x, win)
+            max_abs = float((mag - twin(x, win)[0]).abs().max())
+            twin_ms = cuda_median_ms(lambda: twin(x, win))
+            body = "K2" if exact_cuda.stage1_split(n) == 3 else "K1"
+            b_ms, b_by = bound("exact_mag3" if body == "K2" else "exact_mag_gen",
+                               n, s_n)
+            df_rows[n] = (turns[0], twin_ms, max_abs, lib_ms)
+            print(f"times_df [{card}]: {body}-df {turns[0] * 1e3:.1f} / "
+                  f"{turns[3] * 1e3:.1f} us, f32 kernel {turns[1] * 1e3:.1f} / "
+                  f"{turns[2] * 1e3:.1f} us (in turns), df twin "
+                  f"{twin_ms * 1e3:.1f} us, library {lib_ms * 1e3:.1f} us, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}) at S={s_n} N={n}, "
+                  f"max|{body}-df - twin| {max_abs:.1e}; {body}-df "
+                  + rate_line("exact_mag3" if body == "K2" else "exact_mag_gen",
+                              turns[0], n, s_n), flush=True)
     print_k2_extras(exact_cuda, card, dev, "times_df", True, lib3[16384])
     print_stages(exact_cuda, card, dev, "times_df", "K1-gen", True,
                  ((4096, S), (16384, S)))
@@ -2557,9 +2998,38 @@ def main() -> None:
     secs["multi"] = time.perf_counter() - t0
 
     # 27. bus: an OutputBus with 500 consumers -------------------------------
+    # its 8192 and 16384 looks test K1-gen, which the packaged H100 table
+    # sends to K2: a plan file pins them to split 2 (the variable cannot:
+    # its N=65536 subscriber runs K2)
     t0 = time.perf_counter()
-    phase_bus(wt, exact_cuda, profiler, card)
+    with plan_file({8192: 2, 16384: 2}):
+        phase_bus(wt, exact_cuda, profiler, card)
     secs["bus"] = time.perf_counter() - t0
+
+    # 28. plans: the tuner, the packaged table and the route it steers ------
+    t0 = time.perf_counter()
+    phase_plans(wt, exact_cuda, card)
+    secs["plans"] = time.perf_counter() - t0
+
+    # 29. matmul: the GEMM FFT backend at the headline -----------------------
+    t0 = time.perf_counter()
+    phase_matmul(wt, exact_cuda, card)
+    secs["matmul"] = time.perf_counter() - t0
+
+    # 30. rfft_fn: a caller's FFT captured in the tick ------------------------
+    t0 = time.perf_counter()
+    phase_rfft_fn(wt, exact_cuda, card)
+    secs["rfft_fn"] = time.perf_counter() - t0
+
+    # 31. demo: python -m waveform_tpu_torch.demo on a WAV --------------------
+    t0 = time.perf_counter()
+    phase_demo(exact_cuda, card)
+    secs["demo"] = time.perf_counter() - t0
+
+    # 32. warm: wisdom.warm against a cold first tick ------------------------
+    t0 = time.perf_counter()
+    phase_warm(card)
+    secs["warm"] = time.perf_counter() - t0
 
     jax_mods =[m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]

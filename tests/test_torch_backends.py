@@ -1,6 +1,6 @@
-"""The environment switches outside the exact FFT, port against the JAX
-package: ``WAVEFORM_TPU_FFT_BACKEND`` (the spectrum step's FFT backend) and
-``WAVEFORM_TPU_REBIN`` (the rebin's interp form).
+"""The switches outside the exact FFT, port against the JAX package:
+``WAVEFORM_TPU_FFT_BACKEND`` (the spectrum step's FFT backend), a caller's
+``rfft_fn`` and ``WAVEFORM_TPU_REBIN`` (the rebin's interp form).
 
 Under ``xla`` both steps take a plain f32 FFT of the f32-windowed frame;
 the two FFT libraries round differently, so decibels are held within the
@@ -23,6 +23,7 @@ from waveform_tpu.rebin import apply as japply
 import waveform_tpu_torch as wt
 from waveform_tpu_torch.dsp import spectrum as tspec
 from waveform_tpu_torch.dsp.windows import window_coefficients
+from waveform_tpu_torch.kernels import matfft
 from waveform_tpu_torch.rebin import apply as tapply
 
 N, S, TICKS = 1024, 4, 3
@@ -77,10 +78,25 @@ def test_xla_backend_matches_jax(smoothing, monkeypatch):
 
 
 def test_matmul_backend_raises_and_unknown_backend_refused(monkeypatch):
-    _, tcfg = _cfgs()
+    """``matmul`` is ported: it resolves, and its step's decibels are the
+    GEMM FFT's (``kernels/matfft.rfft_mag``) of the f32-windowed frame, bit
+    for bit (``tests/test_torch_matfft.py`` holds it against JAX); an
+    unknown backend is still refused."""
+    _, tcfg = _cfgs(channel_mode=ChannelMode.STEREO,
+                    temporal_smoothing=TSmoothingMode.NONE)
     monkeypatch.setenv("WAVEFORM_TPU_FFT_BACKEND", "matmul")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tspec.make_spectrum_step(tcfg, device="cpu")
+    assert tspec.resolve_fft_backend() == "matmul"
+    step = tspec.make_spectrum_step(tcfg, device="cpu")
+    x = (0.3 * np.random.default_rng(2).standard_normal((S, 2, N))
+         ).astype(np.float32)
+    st = step(torch.from_numpy(x), tspec.init_state(tcfg, S, device="cpu"),
+              1 / 60, torch.ones(S, dtype=torch.bool), torch.zeros(S))
+    w32 = torch.from_numpy(window_coefficients(tcfg.window, N,
+                                               tcfg.sine_exponent,
+                                               dtype=np.float32))
+    mag = matfft.rfft_mag(torch.from_numpy(x) * w32, N // 2)
+    assert torch.equal(st.decibels, tspec.dbfs(tspec._mag_tail(tcfg, mag,
+                                                                None)))
     monkeypatch.setenv("WAVEFORM_TPU_FFT_BACKEND", "fftw")
     with pytest.raises(ValueError, match="fftw"):
         tspec.make_spectrum_step(tcfg, device="cpu")
@@ -89,6 +105,54 @@ def test_matmul_backend_raises_and_unknown_backend_refused(monkeypatch):
         assert tspec.resolve_fft_backend() == "exact"
     monkeypatch.delenv("WAVEFORM_TPU_FFT_BACKEND")
     assert tspec.resolve_fft_backend() == "exact"
+
+
+@pytest.mark.parametrize("backend", ["exact", "matmul", "xla"])
+def test_rfft_fn_overrides_every_backend(backend, monkeypatch):
+    """A caller's ``rfft_fn`` takes the f32-windowed frame under every
+    backend (no exact kernel runs under it), bins past N/2 dropped, as
+    the JAX step with ``jnp.fft.rfft``: against the float64 spectrum, the
+    port's magnitude error (relative to its row's peak) at most twice the
+    JAX step's, and the two steps within that bound of each other; bit
+    for bit the port's own xla step."""
+    monkeypatch.setenv("WAVEFORM_TPU_FFT_BACKEND", backend)
+    jcfg, tcfg = _cfgs(channel_mode=ChannelMode.STEREO,
+                       temporal_smoothing=TSmoothingMode.NONE)
+    seen = []
+
+    def rfft_fn(x):
+        seen.append(tuple(x.shape))
+        return torch.fft.rfft(x)
+
+    step = tspec.make_spectrum_step(tcfg, rfft_fn, device="cpu")
+    jstep = jspec.make_spectrum_step(jcfg, rfft_fn=jnp.fft.rfft)
+    x = (0.3 * np.random.default_rng(3).standard_normal((S, 2, N))
+         ).astype(np.float32)
+    ones, rms = np.ones(S, bool), np.zeros(S, np.float32)
+    st = step(torch.from_numpy(x), tspec.init_state(tcfg, S, device="cpu"),
+              1 / 60, torch.from_numpy(ones), torch.from_numpy(rms))
+    jst = jstep(jnp.asarray(x), jspec.init_state(jcfg, S),
+                jnp.float32(1 / 60), jnp.asarray(ones), jnp.asarray(rms))
+    assert seen == [(S, 2, N)]
+    # two f32 FFT libraries, each off the float64 spectrum by ~1e-7 of its
+    # row's peak (in dB that error grows without bound toward a null):
+    # the port within twice the JAX step's error of it and of the JAX step
+    w64 = window_coefficients(tcfg.window, N, tcfg.sine_exponent,
+                              dtype=np.float64)
+    want = (np.abs(np.fft.rfft(x.astype(np.float64) * w64))[..., :N // 2]
+            * 2.0 / w64.sum())
+    peak = want.max(axis=-1, keepdims=True)
+    got, jgot = (10.0 ** (np.asarray(d, np.float64) / 20.0)
+                 for d in (st.decibels.numpy(), jst.decibels))
+    e_jax = (np.abs(jgot - want) / peak).max()
+    assert e_jax < 1e-6
+    assert (np.abs(got - want) / peak).max() <= 2 * e_jax
+    assert (np.abs(got - jgot) / peak).max() <= 2 * e_jax
+    monkeypatch.setenv("WAVEFORM_TPU_FFT_BACKEND", "xla")
+    xla = tspec.make_spectrum_step(tcfg, device="cpu")(
+        torch.from_numpy(x), tspec.init_state(tcfg, S, device="cpu"),
+        1 / 60, torch.from_numpy(ones), torch.from_numpy(rms))
+    assert torch.equal(st.decibels, xla.decibels)
 
 
 @pytest.mark.parametrize("mode", ["dense", "gather"])

@@ -6,6 +6,9 @@ with one, run them without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import gc
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,7 @@ from waveform_tpu_torch import (
 from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.runtime.graphs import COUNTERS
 from waveform_tpu_torch.runtime.serving import ServingEngine
+from waveform_tpu_torch.utils import plans
 
 pytestmark = pytest.mark.cuda
 
@@ -34,6 +38,15 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(autouse=True)
+def default_split_rule(tmp_path, monkeypatch):
+    """The tests below hold the router's default split rule: no plan file
+    of the user's and not the packaged H100 table (which sends 8192 and
+    16384-28672 to K2); the plan's own tests set a file."""
+    monkeypatch.setenv("WAVEFORM_TPU_PLAN_FILE", str(tmp_path / "none.json"))
+    monkeypatch.setattr(plans, "_packaged_plans", lambda: {})
 
 
 def _counts():
@@ -504,6 +517,8 @@ GRAPH_PATHS = {
     "k3_mono": (dict(fft_size=1024), 1, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
                 {"launches_cfft": 1}),
     "lowering": (dict(auto_fft_size=True), 2, {}, {}),
+    "matmul": (dict(fft_size=4096), 2, {"WAVEFORM_TPU_FFT_BACKEND": "matmul"},
+               {}),
 }
 
 
@@ -1048,3 +1063,76 @@ def test_graph_captures_do_not_grow_device_memory(dev):
         gc.collect()
         mem.append(torch.cuda.memory_allocated(dev))
     assert mem[-1] - mem[0] <= 1 << 20, mem
+
+
+# --- the plan, the matmul backend and rfft_fn -------------------------------
+
+def test_plan_steers_the_launched_body(dev, tmp_path, monkeypatch):
+    """N=16384: a plan file naming 2 sends each tick to K1-gen, one naming
+    3 to K2 (read at the graph's capture); with no file the packaged H100
+    table decides, on this card only if it names an H100."""
+    cfg = resolve(Settings(fft_size=16384, enable_large_fft=True, width=400),
+                  AudioInfo(48000, 2))
+    pf = tmp_path / "plans.json"
+    monkeypatch.undo()                       # the real packaged table
+    monkeypatch.setenv("WAVEFORM_TPU_PLAN_FILE", str(pf))
+    monkeypatch.delenv("WAVEFORM_TPU_STAGE1_SPLIT", raising=False)
+    rng = np.random.default_rng(11)
+    table = plans._packaged_plans().get("16384", {}).get("split", 2)
+    for stamp, split in ((None, table), (1, 2), (2, 3)):
+        if stamp is not None:
+            pf.write_text('{"16384": {"split": %d}}' % split)
+            os.utime(pf, (stamp, stamp))
+        eng = ServingEngine(cfg, 2, device=dev)
+        before = _counts()
+        for k in range(3):
+            now = 10_000_000_000 + k * 16_666_667
+            eng.feed_batch(_packets(rng, 2, 2, False, k), now, now_ns=now)
+            eng.tick(now_ns=now)
+        torch.cuda.synchronize()
+        assert _counts() == (before[0] + 3 * (split == 3), before[1],
+                             before[2] + 3 * (split == 2)), (stamp, split)
+
+
+def test_rfft_fn_graph_tick_matches_eager(dev):
+    """``ServingEngine(rfft_fn=torch.fft.rfft)``: the function is captured
+    in the graph, whose ticks equal the eager ticks bit for bit, and no
+    exact kernel launches; a function that synchronizes with the host
+    cannot be captured, and the engine says so."""
+    cfg = resolve(Settings(fft_size=4096, width=400, window=FFTWindow.HANN),
+                  AudioInfo(48000, 2))
+    graph = ServingEngine(cfg, 4, rfft_fn=torch.fft.rfft, device=dev)
+    eager = ServingEngine(cfg, 4, rfft_fn=torch.fft.rfft, device=dev)
+    rng = np.random.default_rng(12)
+    before = _counts()
+    for k in range(5):
+        x = _packets(rng, 4, 2, False, k)
+        now = 10_000_000_000 + k * 16_666_667
+        graph.feed_batch(x, now, now_ns=now)
+        eager.feed_batch(x, now, now_ns=now)
+        assert torch.equal(graph.tick(now_ns=now), _eager_tick(eager, now))
+    assert _counts() == before
+    assert graph.kernels_per_replay == {("tick", True): {}}
+
+    def syncs(x):
+        z = torch.fft.rfft(x)
+        z.abs().sum().item()
+        return z
+
+    # the capture runs with the collector off (a collection there could
+    # free a dropped engine's graph, which invalidates the capture)
+    seen = []
+
+    def watched(x):
+        seen.append(gc.isenabled())
+        return torch.fft.rfft(x)
+
+    eng = ServingEngine(cfg, 2, rfft_fn=watched, device=dev)
+    eng.feed_batch(x[:2], now, now_ns=now)
+    eng.tick(now_ns=now)
+    assert seen == [True, False] and gc.isenabled()
+
+    bad = ServingEngine(cfg, 2, rfft_fn=syncs, device=dev)
+    bad.feed_batch(x[:2], now, now_ns=now)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        bad.tick(now_ns=now)

@@ -148,6 +148,16 @@ def test_resized_matches_jax(mode, xla_backend):
 
 
 def test_rfft_fn_is_not_ported_yet():
+    """The rfft_fn override, now ported: ``WaveformEngine(rfft_fn=
+    torch.fft.rfft)`` against the JAX engine with ``jnp.fft.rfft`` (the
+    exact backend set, so only the override can make the two agree), and
+    ``resized`` keeps the function."""
+    import jax.numpy as jnp
     cfg = resolve(Settings(**MODES["spectrum"]), AudioInfo(SR, 2))
-    with pytest.raises(NotImplementedError, match="A14"):
-        WaveformEngine(cfg, 2, rfft_fn=lambda x: x, device="cpu")
+    port = WaveformEngine(cfg, 3, rfft_fn=torch.fft.rfft, device="cpu")
+    ref = JaxEngine(_jax_cfg(cfg), 3, rfft_fn=jnp.fft.rfft)
+    now = _drive([port, ref], 3, 12, 74, _check(port, ref))
+    _assert_close(port.render_values(), ref.render_values(), floor=False)
+    port, ref = port.resized(2, keep=[2]), ref.resized(2, keep=[2])
+    assert port._rfft_fn is torch.fft.rfft
+    _drive([port, ref], 2, 4, 75, _check(port, ref), k0=12, now=now)

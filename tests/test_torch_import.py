@@ -15,8 +15,10 @@ checkpoint saved and loaded into a resized engine, one
 ``MeterServingEngine`` tick, ``DeviceWaveformEngine`` ticks (one a k=2
 microbatch flush) and a resize, a ``WaveformEngine`` tick in each of
 its three modes, a ``MultiEngine`` scene tick (a cohort and a solo group)
-with its frames, and an ``OutputBus`` tick with a spectrum read and a
-meter frame.
+with its frames, an ``OutputBus`` tick with a spectrum read and a
+meter frame, a tick under the matmul backend and one with an ``rfft_fn``,
+``wisdom.warm`` and a run of the demo CLI on a WAV; the plan lookup finds
+no packaged table on the CPU.
 """
 
 import subprocess
@@ -65,6 +67,13 @@ _PROBE = textwrap.dedent("""
     import waveform_tpu_torch.render.image
     import waveform_tpu_torch.render.raster
     import waveform_tpu_torch.utils.checkpoint
+    import waveform_tpu_torch.utils.log
+    import waveform_tpu_torch.utils.plans
+    import waveform_tpu_torch.utils.wisdom
+    import waveform_tpu_torch.kernels.matfft
+    import waveform_tpu_torch.core.locale
+    import waveform_tpu_torch.core.settings_io
+    import waveform_tpu_torch.demo
 
     import os
     import tempfile
@@ -131,6 +140,30 @@ _PROBE = textwrap.dedent("""
     bus.tick(now_ns=10**10)
     assert bus.read_pixels(hs[0]).shape == (1, 200)
     assert bus.render_frame(hs[1]).shape == (mcfg.height, mcfg.width, 4)
+
+    import torch
+    from waveform_tpu_torch.utils import plans, wisdom
+    assert plans._packaged_plans() == {} and plans.plan_for(1024) is None
+    os.environ["WAVEFORM_TPU_FFT_BACKEND"] = "matmul"
+    mm = ServingEngine(cfg, 2, device="cpu")
+    del os.environ["WAVEFORM_TPU_FFT_BACKEND"]
+    fn = ServingEngine(cfg, 2, rfft_fn=torch.fft.rfft, device="cpu")
+    for e in (mm, fn):
+        e.feed_batch(x.astype(np.float32), 10**10, now_ns=10**10)
+        assert bool(e.tick(now_ns=10**10).isfinite().all())
+    wisdom.warm(cfg, 2, device="cpu")
+    import wave
+    from waveform_tpu_torch import demo
+    with tempfile.TemporaryDirectory() as d:
+        with wave.open(os.path.join(d, "in.wav"), "wb") as w:
+            w.setnchannels(2)
+            w.setsampwidth(2)
+            w.setframerate(48000)
+            w.writeframes((x[0].T * 3000).astype("<i2").tobytes())
+        assert demo.main([os.path.join(d, "in.wav"), "--out",
+                          os.path.join(d, "f"), "--device", "cpu",
+                          "--fps", "100"]) == 0
+        assert os.listdir(os.path.join(d, "f"))
 
     loaded = sorted(k for k in sys.modules if blocked(k))
     assert not loaded, loaded

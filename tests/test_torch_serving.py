@@ -290,3 +290,46 @@ def test_cuda_engine_requires_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(cfg, 2, device="cuda")
+
+
+def test_rfft_fn_slice_matches_jax(kernel_on):
+    """``ServingEngine(rfft_fn=torch.fft.rfft)`` against the JAX engine
+    with ``jnp.fft.rfft``, with the exact backend and kernel set (which the
+    override must beat): single ticks, then ``resized`` (which keeps the
+    function), a k=2 microbatch flush and ``tick_many``, within
+    :func:`_assert_same`'s bounds, and no exact kernel twin reached."""
+    import jax.numpy as jnp
+    cfg = resolve(Settings(fft_size=1024, width=300,
+                           channel_mode=ChannelMode.STEREO),
+                  AudioInfo(SR, 2))
+    S = 3
+    port = ServingEngine(cfg, S, rfft_fn=torch.fft.rfft, use_native=False,
+                         device="cpu")
+    ref = JaxEngine(_jax_cfg(cfg), S, rfft_fn=jnp.fft.rfft, use_native=False)
+    rng = np.random.default_rng(31)
+    twins = (exact_cuda.rfft_pair_mag_ref, exact_cuda.rfft_pair_mag3_ref)
+
+    def run(engines, ticks, k0):
+        for k in range(k0, k0 + ticks):
+            x = _audio(rng, engines[0].S, k, silent=[engines[0].S - 1])
+            now = T0 + k * FRAME_NS
+            for eng in engines:
+                eng.feed_batch(x, now, now_ns=now)
+                eng.tick(now_ns=now)
+            _assert_same(*engines)
+
+    import unittest.mock as mock
+    with mock.patch.object(exact_cuda, "rfft_pair_mag_ref",
+                           side_effect=AssertionError("exact twin ran")), \
+            mock.patch.object(exact_cuda, "rfft_pair_mag3_ref",
+                              side_effect=AssertionError("exact twin ran")):
+        run([port, ref], 4, 0)
+        port, ref = port.resized(4, keep=[0, 2]), ref.resized(4, keep=[0, 2])
+        assert port._rfft_fn is torch.fft.rfft
+        run([port, ref], 2, 4)
+        new = _audio(rng, 8, 9).reshape(2, 4, 2, HOP)
+        got = port.tick_many(new).numpy()
+        want = np.asarray(ref.tick_many(new))
+        vis = want > -120.0
+        np.testing.assert_allclose(got[vis], want[vis], rtol=0, atol=1e-4)
+    assert exact_cuda.rfft_pair_mag_ref is twins[0]

@@ -1,7 +1,8 @@
 """Batched spectrum step: exact |rFFT| magnitudes -> EMA -> gated dBFS.
 
 The PyTorch counterpart of ``waveform_tpu/dsp/spectrum.py`` with its
-"exact" and "xla" FFT backends (:func:`resolve_fft_backend`).  One function over a
+"exact", "matmul" and "xla" FFT backends (:func:`resolve_fft_backend`)
+and a caller's ``rfft_fn``.  One function over a
 ``[S, C, N]`` batch replaces the reference's per-source tick
 (reference src/source_generic.cpp:26-180).
 
@@ -26,6 +27,7 @@ from ..core.config import DB_MIN, ResolvedConfig, check_config
 from ..core.device import checked_device
 from ..core.enums import FFTWindow, TSmoothingMode
 from ..kernels.exactfft import rfft_mag_exact, two_prod, two_sum
+from ..kernels.matfft import rfft_mag
 from .oracle import TV_EMA_DENOM, rolloff_modifiers, slope_modifiers
 from .windows import window_coefficients, window_sum
 
@@ -171,21 +173,17 @@ def resolve_fft_backend() -> str:
     step is built, as the JAX package's ``resolve_fft_backend`` reads it.
 
     "exact" runs the exact |rFFT| (``kernels/exactfft.rfft_mag_exact``);
-    "xla" runs ``torch.fft.rfft`` of the f32-windowed frame, as the JAX
-    package's "xla" runs ``jnp.fft.rfft``.  Unset (or "auto") is "exact":
+    "matmul" the GEMM FFT (``kernels/matfft.rfft_mag``) and "xla"
+    ``torch.fft.rfft``, both of the f32-windowed frame, as the JAX
+    package's "matmul" and "xla" run them.  Unset (or "auto") is "exact":
     the JAX package picks exact on its accelerator and "xla" on any other
-    backend, and this card is the port's accelerator.  "matmul" (the JAX
-    package's ``kernels/matfft.py``) is not ported yet and raises
-    NotImplementedError; any other value raises ValueError.
+    backend, and this card is the port's accelerator.  Any other value
+    raises ValueError.
     """
     backend = os.environ.get("WAVEFORM_TPU_FFT_BACKEND", "auto")
     if backend == "auto":
         return "exact"
-    if backend == "matmul":
-        raise NotImplementedError(
-            "WAVEFORM_TPU_FFT_BACKEND=matmul: the matmul FFT backend "
-            "(waveform_tpu/kernels/matfft.py) is not ported yet (ROADMAP A14)")
-    if backend not in ("exact", "xla"):
+    if backend not in ("exact", "matmul", "xla"):
         raise ValueError(f"unknown fft_backend {backend!r}; expected 'auto', "
                          "'exact', 'matmul', or 'xla'")
     return backend
@@ -202,11 +200,17 @@ def _mag_tail(cfg: ResolvedConfig, mag: torch.Tensor,
     return mag
 
 
-def make_spectrum_step(cfg: ResolvedConfig,
+def make_spectrum_step(cfg: ResolvedConfig, rfft_fn=None,
                        device: torch.device | str = "cuda"):
     """Build the spectrum step for a resolved config on ``device`` (the
     card unless the caller asks for the CPU; raises RuntimeError without
     one), on the FFT backend :func:`resolve_fft_backend` reads now.
+
+    A caller's ``rfft_fn`` overrides every backend: it takes the
+    f32-windowed frame [S, C, N] and returns a complex tensor whose bins
+    past N/2 are dropped (the exact kernels never run under it).  In a
+    captured tick it is captured like any other op, so it must not
+    synchronize with the host.
 
     Returns ``step(samples, state, dt, active, input_rms, valid=None,
     run=None) -> SpectrumState``:
@@ -226,10 +230,10 @@ def make_spectrum_step(cfg: ResolvedConfig,
     C, O = _channels(cfg)
     D = cfg.display_channels
     floor_gate = float(np.float32(cfg.floor - 10))
-    backend = resolve_fft_backend()
-    window = window_pair(cfg, device)
+    backend = "rfft_fn" if rfft_fn is not None else resolve_fft_backend()
+    window = window_pair(cfg, device) if backend == "exact" else None
     w32 = None
-    if backend == "xla" and cfg.window != FFTWindow.NONE:
+    if backend != "exact" and cfg.window != FFTWindow.NONE:
         w32 = torch.from_numpy(window_coefficients(
             cfg.window, cfg.fft_size, cfg.sine_exponent,
             dtype=np.float32)).to(device)
@@ -258,7 +262,12 @@ def make_spectrum_step(cfg: ResolvedConfig,
             mag, nz_k = rfft_mag_exact(samples, window)
         else:
             x = samples if w32 is None else samples * w32
-            mag = torch.fft.rfft(x).abs()[..., :nbins]
+            if backend == "matmul":
+                mag = rfft_mag(x, nbins)
+            elif backend == "xla":
+                mag = torch.fft.rfft(x).abs()[..., :nbins]
+            else:   # drop Nyquist, as the reference does
+                mag = rfft_fn(x)[..., :nbins].abs().to(torch.float32)
             nz_k = torch.any(samples != 0.0, dim=-1)
         mag = _mag_tail(cfg, mag, slope)                  # [S, C, nbins]
 

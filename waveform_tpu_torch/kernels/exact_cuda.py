@@ -62,6 +62,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils.plans import plan_for
 from .exactfft import (_CLAMP, DIGIT_BITS, FIRST_SHIFT, N_DIGITS,
                        _df_cmul, _df_pair, _digit_gemm, _digit_planes, _left,
                        _right, _slice_df, _windowed_df, df_add, df_mul, df_neg,
@@ -98,13 +99,22 @@ TIERS = ("f32", "df")
 # ---------------------------------------------------------------------------
 
 def stage1_split(n: int) -> int:
-    """``exact_pallas._stage1_split(n)`` without the v5e plan table (which
-    never applies on this card): ``WAVEFORM_TPU_STAGE1_SPLIT`` in
-    {"2", "3"} (read at call time) wins, else 3 from N = 32768 up and 2
-    below.  Split 2 is K1's body (K1-gen), split 3 K2's."""
+    """``exact_pallas._stage1_split(n)``: ``WAVEFORM_TPU_STAGE1_SPLIT`` in
+    {"2", "3"} wins; else the measured plan's ``split``
+    (``utils/plans.plan_for``: the user's plan file, then the packaged
+    H100 table), kept only where that body can run (2 up to N = 32768, 3
+    where N1 % 32 == 0); else 3 from N = 32768 up and 2 below.  Read at
+    call time (on the card: when a graph is captured).  Split 2 is K1's
+    body (K1-gen), split 3 K2's."""
     mode = os.environ.get("WAVEFORM_TPU_STAGE1_SPLIT", "auto")
     if mode in ("2", "3"):
         return int(mode)
+    p = plan_for(n)
+    if p is not None and p.get("split") in (2, 3):
+        split = p["split"]
+        if ((split == 2 and n <= MAX_N2)
+                or (split == 3 and (n // LANES) % 32 == 0)):
+            return split
     return 3 if n >= 32768 else 2
 
 

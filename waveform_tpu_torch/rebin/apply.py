@@ -43,17 +43,18 @@ def _rows_mm(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], m.shape[-1])
 
 
-def check_full_f32_matmul() -> None:
+def check_full_f32_matmul(who: str = "the rebin") -> None:
     """Raise unless float32 matrix products run in full float32.
 
     The dense interp product needs every mantissa bit (a reduced-precision
-    variant failed the 1e-4 dB gate), so TF32 or bf16 internal precision
-    is refused here rather than switched off behind the caller's back.
+    variant failed the 1e-4 dB gate), and so does the matmul FFT
+    (``kernels/matfft.py``): TF32 or bf16 internal precision is refused
+    here rather than switched off behind the caller's back.
     """
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(
-            "the rebin needs full-f32 matmuls: set "
+            f"{who} needs full-f32 matmuls: set "
             "torch.backends.cuda.matmul.allow_tf32 = False and "
             "torch.set_float32_matmul_precision('highest')")
 

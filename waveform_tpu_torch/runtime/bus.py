@@ -219,7 +219,7 @@ class OutputBus:
                           active, rms) for g in self._groups.values()]
 
     def _build_spectrum_group(self, cfg, g):
-        step = make_spectrum_step(cfg, self.device)
+        step = make_spectrum_step(cfg, device=self.device)
         rebin = make_rebin_fn(cfg, apply_pixel_map=False, device=self.device)
         n = cfg.fft_size
         cb = cfg.channel_base

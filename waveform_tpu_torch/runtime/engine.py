@@ -58,14 +58,13 @@ class WaveformEngine:
                  rfft_fn=None, jit: bool = True,
                  device: torch.device | str = "cuda"):
         check_config(cfg)
-        if rfft_fn is not None:
-            raise NotImplementedError(
-                "WaveformEngine(rfft_fn=...): the rfft_fn override is not "
-                "ported yet (ROADMAP A14)")
         self.device = checked_device(device, type(self).__name__)
         self.cfg = cfg
         self.S = num_streams
-        self._jit = jit   # kept for resized()
+        # kept for resized(); rfft_fn overrides the spectrum step's FFT
+        # (dsp/spectrum.make_spectrum_step) and is captured with the step
+        self._rfft_fn = rfft_fn
+        self._jit = jit
         C = max(cfg.capture_channels, 1)
         self.C = C
         self.sources = [StreamSource(cfg) for _ in range(num_streams)]
@@ -90,7 +89,7 @@ class WaveformEngine:
             self._scrollers = [WaveformScroller(cfg) for _ in range(S)]
         else:
             self.state: SpectrumState = init_state(cfg, S, dev)
-            step = make_spectrum_step(cfg, dev)
+            step = make_spectrum_step(cfg, rfft_fn, device=dev)
             self._rebin = make_rebin_fn(cfg, apply_pixel_map=False,
                                         device=dev)
             host, d = self._inputs(dict(batch=(S, C, N), dt=(2,),
@@ -240,8 +239,8 @@ class WaveformEngine:
         if any(not 0 <= j < self.S for j in keep):
             raise ValueError(f"keep indices out of range for S={self.S}: "
                              f"{keep}")
-        eng = WaveformEngine(self.cfg, num_streams, jit=self._jit,
-                             device=self.device)
+        eng = WaveformEngine(self.cfg, num_streams, rfft_fn=self._rfft_fn,
+                             jit=self._jit, device=self.device)
         eng._last_tick_ns = self._last_tick_ns
         k = len(keep)
         if not k:

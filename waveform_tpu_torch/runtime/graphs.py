@@ -17,7 +17,13 @@ config's constants and the exact-FFT routing variables, which are read
 once, when the graph is captured (changing them later needs a new engine,
 as it needs a new program in JAX).  What changes from tick to tick is
 device data written before the replay.  A capture or replay that fails
-raises; nothing falls back to eager launches.
+raises, a capture with the reason (an op that synchronizes with the host,
+in the step or in a caller's ``rfft_fn``); nothing falls back to eager
+launches.
+
+A capture runs with Python's garbage collector off (:func:`no_gc`): the
+collector frees the graphs of dropped engines, and freeing a graph during
+a capture invalidates it.
 
 Launch counts: ``exact_cuda``'s counters count kernel launches.  A replay
 launches the kernels that the capture recorded, so a :class:`GraphTick`
@@ -27,6 +33,9 @@ to the counters at every replay.
 """
 
 from __future__ import annotations
+
+import contextlib
+import gc
 
 import torch
 
@@ -48,6 +57,23 @@ def _side_stream(dev: torch.device):
     if side is None:
         side = _SIDE[dev] = torch.cuda.Stream(dev)
     return side
+
+
+@contextlib.contextmanager
+def no_gc():
+    """Keep Python's garbage collector off for the block (a capture).  A
+    dropped engine's graphs are freed when the collector finds their
+    reference cycles, and freeing a CUDA graph is an operation a capture
+    forbids: run by a collection that an allocation inside the capture
+    set off, it invalidates the capture.  The garbage waits for the next
+    collection after the block."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def _counts() -> dict:
@@ -91,9 +117,16 @@ class GraphTick:
         main.wait_stream(side)
         before = _counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="global"):
-            self._out = self._fn()
+        try:
+            with no_gc(), torch.cuda.graph(graph, stream=side,
+                                           capture_error_mode="global"):
+                self._out = self._fn()
+        except RuntimeError as e:
+            _add_counts({c: before[c] - n for c, n in _counts().items()})
+            raise RuntimeError(
+                "the tick cannot be captured in a CUDA graph (does the step, "
+                "or a caller's rfft_fn, synchronize with the host, as "
+                f".item() or a copy to the CPU does?): {e}") from e
         after = _counts()
         self.launches = {c: after[c] - before[c] for c in COUNTERS
                          if after[c] != before[c]}

@@ -541,7 +541,7 @@ class ServingEngine(PackedTickEngine):
         return cfg.normalize_volume
 
     def __init__(self, cfg: ResolvedConfig, num_streams: int,
-                 hop_budget: int | None = None,
+                 hop_budget: int | None = None, rfft_fn=None,
                  use_native: bool | None = None,
                  microbatch: int | str = 1,
                  device: torch.device | str = "cuda"):
@@ -551,7 +551,10 @@ class ServingEngine(PackedTickEngine):
         self.cfg = cfg
         self.S = num_streams
         self.C = max(cfg.capture_channels, 1)
-        # kept for resized(): rebuild with identical construction choices
+        # kept for resized(): rebuild with identical construction choices;
+        # a caller's rfft_fn (dsp/spectrum.make_spectrum_step) is captured
+        # in every tick graph with the rest of the step
+        self._rfft_fn = rfft_fn
         self._use_native_req = use_native
         self._init_microbatch(microbatch)
         # hop budget: max new samples consumed per stream per tick; default
@@ -609,7 +612,7 @@ class ServingEngine(PackedTickEngine):
         graphs capture).  MeterServingEngine swaps the spectrum step for
         the meter reduction, keeping every host-side path identical."""
         cfg, dev = self.cfg, self.device
-        step = make_spectrum_step(cfg, dev)
+        step = make_spectrum_step(cfg, self._rfft_fn, device=dev)
         rebin = make_rebin_fn(cfg, apply_pixel_map=False, device=dev)
         normalize = self._normalize
         rms_size = cfg.input_rms_size
@@ -1030,6 +1033,7 @@ class ServingEngine(PackedTickEngine):
             raise ValueError(f"keep indices out of range for S={self.S}: "
                              f"{keep}")
         eng = type(self)(self.cfg, num_streams, hop_budget=self.H,
+                         rfft_fn=self._rfft_fn,
                          use_native=self._use_native_req,
                          microbatch=(self._mb_req if self._mb_auto
                                      else self._mb),
