@@ -184,6 +184,25 @@ Phases, one line each; any failure raises and the script exits non-zero:
    cpu``: the same PNGs, within one step of 255; the profiler's line;
 32. warm   — a new S=256 headline engine's first tick in a fresh process,
    first without warming, then after ``wisdom.warm``.
+33. parallel — the sharded engines (``waveform_tpu_torch.parallel``) over
+   a 4-entry mesh (the real devices when there are 4, else cuda:0
+   repeated), each against its single engine on the same packets within
+   1e-4 dB (max |d| and bit for bit printed): ``ShardedServingEngine`` at
+   the headline, S=256, on 4x1 and 2x2 for 8 ticks (one K1-gen launch an
+   entry a replay, no other kernel); N=65536 S=32 on 4x1 (4 K2 launches a
+   tick); under EXACT_FUSED=never one K3 launch an entry a replay (each
+   entry's packed pair on K3, as the single engine's); 250 streams padded
+   to 252 (trimmed reads, inert pad rows); the meter (2x2) and waveform
+   (W=800, 4x1) families, a microbatch=2 flush and ``tick_many`` T=4; a
+   resize from 2x2 to 4x1 keeping rows [3, 1, 4] (dB bit for bit) and the
+   device memory the program requests over 10 round trips (within 1 MiB);
+   two gloo processes on one card, 2 entries each, each fed only its
+   rows, the tiles reassembled against the single engine, then a
+   collective ``save_state`` that a ``ServingEngine`` loads and
+   ``load_state(keep=[5, 0, 3])`` on 6 streams with a live tick; the
+   sharded and single ticks in turns (host clock, synchronized, medians
+   of 20); and the dry run (``waveform_tpu_torch.dryrun``) over 4
+   entries.
 
 Phases 13-15 and 16's K1-df sizes, 18's (16384, 256) and 27's 8192 and
 16384 looks test K1-gen (K1-df) at sizes the packaged H100 plan table
@@ -197,7 +216,9 @@ by the port) and its bound: the larger of its int8 operations at the
 card's peak and the bytes it must move (inputs read once, outputs written
 once) at its memory rate.  The record named ``exact_mag`` (the TPU body
 at N1 in {8, 16, 32}) carries K1-gen's numbers at (4096, 256) and the
-``slice`` phase's launches: K1-gen serves those sizes.
+``slice`` phase's launches: K1-gen serves those sizes.  Each record's
+``launches_parallel`` is its kernel's launches in the ``parallel``
+phase's meshes (K1-gen's at 4x1 and 2x2 under ``exact_mag``).
 """
 
 from __future__ import annotations
@@ -1466,30 +1487,40 @@ def timed_methods(engines, names, acc):
     return lambda: [delattr(e, name) for e in engines for name in names]
 
 
-def h2d_copies(step, n: int = 5) -> int:
+def h2d_copies(step, want: int, n: int = 5) -> int:
     """The host-to-device copies the device ran in ``n`` calls of
     ``step``, counted from a profiler trace's events (a copy within one of
     the trace's microseconds counts all the same).  The profiler traces
     one call first and drops it: without that warm-up the first activity
-    records of a trace can be lost (one copy in five went missing so)."""
+    records of a trace can be lost (one copy in five went missing so).
+    A trace can still lose a record after the warm-up (one bus copy of
+    five did once), and never shows a copy the device did not run: the
+    count is the largest of up to three traces, the first that reaches
+    ``want`` ending the search."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    counted = []
+    best = -1
+    for _ in range(3):
+        counted = []
 
-    def ready(prof):          # the active window's trace, as it completes
-        counted.append(sum(
-            1 for ev in prof.events()
-            if getattr(ev, "device_type", None)
-            == torch.autograd.DeviceType.CUDA and "HtoD" in ev.name))
+        def ready(prof):      # the active window's trace, as it completes
+            counted.append(sum(
+                1 for ev in prof.events()
+                if getattr(ev, "device_type", None)
+                == torch.autograd.DeviceType.CUDA and "HtoD" in ev.name))
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=n),
-                 on_trace_ready=ready) as prof:
-        for _ in range(n + 1):
-            step()
-            torch.cuda.synchronize()
-            prof.step()
-    check(len(counted) == 1, f"the profiler gave {len(counted)} traces")
-    return counted[0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n),
+                     on_trace_ready=ready) as prof:
+            for _ in range(n + 1):
+                step()
+                torch.cuda.synchronize()
+                prof.step()
+        check(len(counted) == 1, f"the profiler gave {len(counted)} traces")
+        best = max(best, counted[0])
+        if best >= want:
+            break
+    return best
 
 
 def graphs_of(scene) -> dict:
@@ -1652,7 +1683,7 @@ def phase_multi(wt, exact_cuda, profiler, card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     summ = profiler.device_summary(prof, wall)
-    h2d = h2d_copies(scene_tick)
+    h2d = h2d_copies(scene_tick, 5 * len(scene._cohorts))
     check(h2d == 5 * len(scene._cohorts),
           f"multi: {h2d} host-to-device copies in 5 scene ticks, want one a "
           f"cohort a tick ({len(scene._cohorts)} cohorts)")
@@ -1863,7 +1894,7 @@ def phase_bus(wt, exact_cuda, profiler, card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     summ = profiler.device_summary(prof, wall)
-    h2d = h2d_copies(bus_tick)
+    h2d = h2d_copies(bus_tick, 5)
     check(h2d == 5, f"bus: {h2d} host-to-device copies in 5 ticks, want 5")
     ops = sum(c for c, _ in summ["kernels"].values()) / 5
     t_tick = cuda_median_ms(bus_tick, reps=20, warmup=3)
@@ -2314,6 +2345,386 @@ def phase_warm(card: str) -> None:
           f"{c['second_s'] * 1e3:.2f} / {w['second_s'] * 1e3:.2f} ms; engine "
           f"construction {c['engine_s'] * 1e3:.1f} / "
           f"{w['engine_s'] * 1e3:.1f} ms", flush=True)
+
+
+PARALLEL_CHILD = """
+import datetime, json, os, sys
+import numpy as np, torch, torch.distributed as dist
+import waveform_tpu_torch as wt
+from waveform_tpu_torch.parallel import ShardedServingEngine, make_mesh
+from waveform_tpu_torch.utils.checkpoint import to_host
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank,
+                        timeout=datetime.timedelta(seconds=120))
+dev = torch.device("cuda", 0)
+mesh = make_mesh([dev, dev])               # this process's 2 entries
+cfg = wt.resolve(wt.Settings(fft_size=4096, width=800,
+                             window=wt.FFTWindow.HANN,
+                             interp_mode=wt.InterpMode.LANCZOS),
+                 wt.AudioInfo(48000, 2))
+pk = np.load(os.path.join(out, "packets.npy"))
+eng = ShardedServingEngine(cfg, pk.shape[1], mesh=mesh)
+lo, hi = eng.local_streams
+for t in range(len(pk)):
+    x = np.zeros_like(pk[t])
+    x[lo:hi] = pk[t, lo:hi]                # ONLY this process's rows
+    now = 10**10 + t * 16_666_667
+    eng.feed_batch(x, now, now_ns=now)
+    eng.tick(now_ns=now)
+for k, tl in enumerate(eng.pixels_sharded):
+    np.savez(os.path.join(out, f"px_{rank}_{k}.npz"), data=tl.data.cpu().numpy(),
+             bounds=np.array([[sl.start or 0, sl.stop or n] for sl, n in
+                              zip(tl.index, tl.data.shape)]))
+db_old = to_host(eng.state.decibels)       # collective
+ck = os.path.join(out, "ck.npz")
+eng.save_state(ck)                         # collective; process 0 writes
+eng2 = ShardedServingEngine(cfg, 6, mesh=mesh)
+eng2.load_state(ck, keep=[5, 0, 3])        # collective
+db_new = to_host(eng2.state.decibels)
+if rank == 0:
+    np.savez(os.path.join(out, "resize.npz"), db_old=db_old, db_new=db_new)
+for s in range(*eng2.local_streams):
+    eng2.feed(s, pk[0, s], now, now_ns=now)
+eng2.tick(now_ns=now + 16_666_667)
+ok = all(bool(torch.isfinite(tl.data).all()) for tl in eng2.pixels_sharded)
+dist.barrier()
+dist.destroy_process_group()
+print(json.dumps({"rank": rank, "rows": [lo, hi], "live_finite": ok}))
+"""
+
+
+def tiles_vs(wt, eng, single, what: str) -> tuple:
+    """A sharded engine's pixels and dB against a single engine's: (max
+    |d| dB on visible values, bit for bit); checks 1e-4 dB."""
+    e_px = db_vs(wt, eng.read_pixels(), single.read_pixels(), what)
+    e_db = db_vs(wt, eng.read_decibels(), single.read_decibels(), what)
+    same = (np.array_equal(eng.read_pixels(), single.read_pixels())
+            and np.array_equal(eng.read_decibels(), single.read_decibels()))
+    e = max(e_px, e_db)
+    check(e < 1e-4, f"{what}: sharded vs single {e} dB")
+    return e, same
+
+
+def phase_parallel(wt, exact_cuda, card: str) -> dict:
+    """The sharded engines (``waveform_tpu_torch.parallel``) at the
+    headline's full width over a 4-entry mesh (the real devices when there
+    are 4, else cuda:0 repeated), each against its single engine fed the
+    same packets: 4x1 and 2x2 at N=4096 S=256, N=65536 S=32, the routing
+    under EXACT_FUSED=never, padding, the meter and waveform families,
+    microbatch, tick_many, resize across mesh shapes with the memory over
+    10 round trips, two processes on one card, and the sharded and single
+    ticks timed in turns.  Returns the phase's launches."""
+    import gc
+
+    from waveform_tpu_torch.parallel import (
+        ShardedMeterServingEngine,
+        ShardedServingEngine,
+        ShardedWaveformEngine,
+        make_mesh,
+    )
+    from waveform_tpu_torch.runtime.meter_serving import MeterServingEngine
+    from waveform_tpu_torch.runtime.serving import ServingEngine
+    from waveform_tpu_torch.runtime.waveform_device import (
+        DeviceWaveformEngine,
+    )
+    from waveform_tpu_torch.dryrun import mesh_devices
+    from waveform_tpu_torch.utils.checkpoint import to_host
+
+    devs = mesh_devices(4)
+    where = f"{len({str(d) for d in devs})} distinct device(s)"
+    cfg = headline_cfg(wt)
+    rng = np.random.default_rng(SEED + 13)
+    S, ticks = 256, 8
+    packets = [noise_tone(rng, (S, 2, HOP), k) for k in range(ticks)]
+    now0 = 10**10
+    launched = {}
+
+    def drive(engines, pk, t0=0):
+        for k, x in enumerate(pk):
+            now = now0 + (t0 + k) * 16_666_667
+            for e in engines:
+                e.feed_batch(x, now, now_ns=now)
+                e.tick(now_ns=now)
+        torch.cuda.synchronize()
+
+    def counts():
+        return tuple(getattr(exact_cuda, c) for c in COUNTERS)
+
+    def zero():
+        for c in COUNTERS:
+            setattr(exact_cuda, c, 0)
+
+    # 4x1 and 2x2 at the headline, against the single engine
+    single = ServingEngine(cfg, S)
+    drive([single], packets)
+    meshes = {}
+    for pp in (1, 2):
+        mesh = make_mesh(devs, pixel_parallel=pp)
+        shape = f"{mesh.shape['stream']}x{mesh.shape['pixel']}"
+        eng = ShardedServingEngine(cfg, S, mesh=mesh)
+        zero()
+        drive([eng], packets)
+        got = counts()
+        check(got == only("launches_gen", 4 * ticks),
+              f"parallel {shape}: launches {got} in {ticks} ticks")
+        reps = eng.kernels_per_replay
+        check(reps == {("tick", True): {"launches_gen": 4}},
+              f"parallel {shape}: kernels a replay {reps}")
+        launched[f"k1_gen_{shape}"] = got[COUNTERS.index("launches_gen")]
+        e, same = tiles_vs(wt, eng, single, f"parallel {shape}")
+        tiles = {tuple(t.data.shape) for t in eng.pixels_sharded}
+        print(f"parallel [{card}]: {shape} mesh on {where}, S={S} N=4096 "
+              f"800px Lanczos, {ticks} ticks: tiles {sorted(tiles)}, "
+              f"{got[COUNTERS.index('launches_gen')]} K1-gen launches (4 a "
+              f"replay, one an entry), no other kernel; pixels and dB vs "
+              f"the single engine max |d| {e:.3e} dB, bit for bit: {same}",
+              flush=True)
+        meshes[pp] = (mesh, eng)
+    if torch.cuda.device_count() >= 2:    # two real cards, when present
+        real = make_mesh([torch.device("cuda", 0), torch.device("cuda", 1)])
+        eng = ShardedServingEngine(cfg, S, mesh=real)
+        drive([eng], packets)
+        e, same = tiles_vs(wt, eng, single, "parallel cuda:0+cuda:1")
+        print(f"parallel [{card}]: 2x1 mesh on cuda:0 and cuda:1 vs the "
+              f"single engine {e:.3e} dB, bit for bit: {same}", flush=True)
+    mesh41, eng41 = meshes[1]
+
+    # the large FFT: K2 on every entry
+    big = wt.resolve(wt.Settings(fft_size=65536, enable_large_fft=True,
+                                 width=800, window=wt.FFTWindow.HANN,
+                                 interp_mode=wt.InterpMode.LANCZOS),
+                     wt.AudioInfo(SR, 2))
+    pk32 = [noise_tone(rng, (32, 2, HOP), k) for k in range(3)]
+    sb = ServingEngine(big, 32)
+    drive([sb], pk32)
+    eb = ShardedServingEngine(big, 32, mesh=mesh41)
+    zero()
+    drive([eb], pk32)
+    got = counts()
+    check(got == only("launches3", 4 * len(pk32)),
+          f"parallel N=65536: launches {got}")
+    launched["k2_4x1"] = got[COUNTERS.index("launches3")]
+    e, same = tiles_vs(wt, eb, sb, "parallel N=65536")
+    print(f"parallel [{card}]: 4x1 N=65536 S=32, {len(pk32)} ticks: "
+          f"{launched['k2_4x1']} K2 launches (4 a tick), no other kernel; "
+          f"vs the single engine {e:.3e} dB, bit for bit: {same}",
+          flush=True)
+    del sb, eb
+
+    # the routing: off the pair kernel each entry runs K3, as the single
+    # engine does (the JAX sharded engine takes its lowering there)
+    with env("WAVEFORM_TPU_EXACT_FUSED", "never"):
+        sl = ServingEngine(cfg, S)
+        zero()
+        drive([sl], packets[:3])
+        one = counts()
+        check(one == only("launches_cfft", 3),
+              f"parallel FUSED=never: single engine launches {one}")
+        el = ShardedServingEngine(cfg, S, mesh=mesh41)
+        zero()
+        drive([el], packets[:3])
+        got = counts()
+        check(got == only("launches_cfft", 4 * 3),
+              f"parallel FUSED=never: launches {got}")
+        reps = el.kernels_per_replay
+        check(reps == {("tick", True): {"launches_cfft": 4}},
+              f"parallel FUSED=never: kernels a replay {reps}")
+        launched["k3_4x1"] = got[COUNTERS.index("launches_cfft")]
+        e, same = tiles_vs(wt, el, sl, "parallel FUSED=never")
+    print(f"parallel [{card}]: EXACT_FUSED=never 4x1 S={S}, 3 ticks: "
+          f"{launched['k3_4x1']} K3 launches (4 a replay, one an entry; the "
+          f"single engine 3 in 3), no other kernel; vs the single engine "
+          f"{e:.3e} dB, bit for bit: {same}", flush=True)
+    del sl, el
+
+    # padding: 250 streams on 4 row blocks
+    ep = ShardedServingEngine(cfg, 250, mesh=mesh41)
+    sp = ServingEngine(cfg, 250)
+    drive([ep, sp], [x[:250] for x in packets[:3]])
+    e, _ = tiles_vs(wt, ep, sp, "parallel padded")
+    check(ep.S == 252 and ep.read_pixels().shape[0] == 250
+          and ep.last_silent.shape == (250,), "parallel padded: trim")
+    pad_db = to_host(ep.state.decibels)[250:]
+    check(to_host(ep.state.last_silent)[250:].all()
+          and (pad_db == np.float32(wt.DB_MIN)).all(),
+          "parallel padded: pad rows not inert")
+    del ep, sp
+
+    # the meter and waveform families, microbatch and tick_many
+    mcfg = wt.resolve(wt.Settings(display_mode=wt.DisplayMode.METER),
+                      wt.AudioInfo(SR, 2))
+    em = ShardedMeterServingEngine(mcfg, S, mesh=meshes[2][0])
+    smt = MeterServingEngine(mcfg, S)
+    drive([em, smt], packets[:4])
+    e_m = db_vs(wt, em.meter_values.cpu().numpy(),
+                smt.meter_values.cpu().numpy(), "parallel meter")
+    check(e_m < 1e-4, f"parallel meter {e_m} dB")
+    wcfg = wt.resolve(wt.Settings(display_mode=wt.DisplayMode.WAVEFORM,
+                                  width=800,
+                                  temporal_smoothing=wt.TSmoothingMode.NONE),
+                      wt.AudioInfo(SR, 2))
+    ew = ShardedWaveformEngine(wcfg, S, mesh=mesh41)
+    sw = DeviceWaveformEngine(wcfg, S)
+    drive([ew, sw], packets[:4])
+    e_w = db_vs(wt, ew.render_values(), sw.render_values(),
+                "parallel waveform")
+    check(e_w < 1e-4, f"parallel waveform {e_w} dB")
+    emb = ShardedServingEngine(cfg, S, mesh=meshes[2][0], microbatch=2)
+    drive([emb], packets[:4])
+    batch = np.empty((2, S, 1, 800), np.float32)
+    for t in emb.last_batch_pixels:
+        batch[t.index] = t.data.cpu().numpy()
+    s1 = ServingEngine(cfg, S)
+    flush = []
+    for k, x in enumerate(packets[:4]):
+        now = now0 + k * 16_666_667
+        s1.feed_batch(x, now, now_ns=now)
+        flush.append(s1.tick(now_ns=now).cpu().numpy())
+    e_mb = db_vs(wt, batch, np.stack(flush[2:]), "parallel microbatch")
+    check(e_mb < 1e-4, f"parallel microbatch {e_mb} dB")
+    bulk = np.stack([noise_tone(rng, (S, 2, HOP), k) for k in range(4)])
+    tm = ShardedServingEngine(cfg, S, mesh=meshes[2][0])
+    stm = ServingEngine(cfg, S)
+    zero()
+    tiles = tm.tick_many(bulk)
+    torch.cuda.synchronize()
+    n_bulk = exact_cuda.launches_gen
+    got = np.empty((4, S, 1, 800), np.float32)
+    for t in tiles:
+        got[t.index] = t.data.cpu().numpy()
+    e_tm = db_vs(wt, got, stm.tick_many(bulk).cpu().numpy(),
+                 "parallel tick_many")
+    check(e_tm < 1e-4 and n_bulk == 16, f"parallel tick_many {e_tm} dB, "
+          f"{n_bulk} K1-gen launches")
+    print(f"parallel [{card}]: meter 2x2 (one shard a row block) vs single "
+          f"{e_m:.3e} dB; waveform W=800 4x1 vs single {e_w:.3e} dB; "
+          f"microbatch=2 flush 2x2 vs single ticks {e_mb:.3e} dB; "
+          f"tick_many T=4 2x2: {n_bulk} K1-gen launches, vs single "
+          f"{e_tm:.3e} dB; padded 250 -> 252 rows, pad rows latched at "
+          f"DB_MIN, trimmed reads", flush=True)
+    del em, smt, ew, sw, emb, s1, tm, stm
+
+    # resize across mesh shapes, and device memory over 10 round trips
+    e22 = meshes[2][1]
+    before = e22.read_decibels()
+    keep = [3, 1, 4]
+    r41 = e22.resized(4, keep=keep, mesh=mesh41)
+    check(np.array_equal(r41.read_decibels()[:3], before[keep]),
+          "parallel resize: kept dB")
+    drive([r41], [x[:4] for x in packets[:1]], t0=ticks)
+    check(np.isfinite(r41.read_pixels()).all(), "parallel resize: tick")
+    mem, asked, live = [], [], []
+    cur = e22
+    for cycle in range(10):
+        a = cur.resized(S, keep=list(range(S)), mesh=mesh41)
+        drive([a], packets[:1], t0=ticks + 1 + cycle)
+        cur = a.resized(S, keep=list(range(S)), mesh=meshes[2][0])
+        drive([cur], packets[:1], t0=ticks + 1 + cycle)
+        del a
+        gc.collect()
+        torch.cuda.synchronize()
+        st = torch.cuda.memory_stats()
+        mem.append(st["allocated_bytes.all.current"])
+        asked.append(st["requested_bytes.all.current"])
+        live.append(st["active.all.current"])
+    # the bytes the program holds, gated as phase_multi gates its cycles;
+    # the allocated bytes also count the rest of each cached block that
+    # served a request (a block is split only when 1 MiB or more would be
+    # left), so they move with the cache's layout from trip to trip
+    check(abs(asked[-1] - asked[0]) <= 1 << 20,
+          f"parallel resize: memory after 10 round trips {asked[-1]} against "
+          f"{asked[0]} after the first (every trip: {asked}; allocated "
+          f"{mem}; live blocks {live})")
+    print(f"parallel [{card}]: resized 2x2 -> 4x1 keeping rows {keep}: dB "
+          f"carried bit for bit, a live tick after; device memory requested "
+          f"after 1 / 10 round trips (2x2 -> 4x1 -> 2x2, S={S}, a tick on "
+          f"each, gc.collect() first) {asked[0] / 1e6:.3f} / "
+          f"{asked[-1] / 1e6:.3f} MB (margin 1 MiB), live blocks {live[0]} "
+          f"/ {live[-1]}; allocated (whole cached blocks) {min(mem) / 1e6:.3f}"
+          f"-{max(mem) / 1e6:.3f} MB", flush=True)
+    del r41, cur
+
+    # two processes on one card, each a 2-entry mesh on cuda:0
+    import socket
+    with tempfile.TemporaryDirectory() as out:
+        S2 = 16
+        pk = np.stack([noise_tone(rng, (S2, 2, HOP), k) for k in range(4)])
+        np.save(os.path.join(out, "packets.npy"), pk)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        root = os.path.dirname(os.path.abspath(__file__))
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", PARALLEL_CHILD, str(r), str(port), out],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        try:
+            res = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, (o, err) in zip(procs, res):
+            check(p.returncode == 0, f"parallel child failed:\n{err[-3000:]}")
+        rows = [json.loads(o.strip().splitlines()[-1]) for o, _ in res]
+        ref = ServingEngine(cfg, S2)
+        for t in range(len(pk)):
+            now = 10**10 + t * 16_666_667
+            ref.feed_batch(pk[t], now, now_ns=now)
+            ref.tick(now_ns=now)
+        want = ref.read_pixels()
+        got = np.full_like(want, np.nan)
+        files = sorted(f for f in os.listdir(out) if f.startswith("px_"))
+        for f in files:
+            z = np.load(os.path.join(out, f))
+            got[tuple(slice(a, b) for a, b in z["bounds"])] = z["data"]
+        check(len(files) == 4 and np.isfinite(got).all(),
+              "parallel two processes: tiles")
+        e2 = db_vs(wt, got, want, "parallel two processes")
+        check(e2 < 1e-4, f"parallel two processes {e2} dB")
+        z = np.load(os.path.join(out, "resize.npz"))
+        db_old, db_new = z["db_old"], z["db_new"]
+        check(np.array_equal(db_new[:3], db_old[[5, 0, 3]])
+              and (db_new[3:6] == np.float32(wt.DB_MIN)).all(),
+              "parallel two processes: load_state(keep)")
+        back = ServingEngine(cfg, S2)
+        back.load_state(os.path.join(out, "ck.npz"))
+        check(np.array_equal(back.state.decibels.cpu().numpy(), db_old),
+              "parallel two processes: checkpoint into a ServingEngine")
+        check(all(r["live_finite"] for r in rows),
+              "parallel two processes: live tick")
+    print(f"parallel [{card}]: two gloo processes on one card, 2 entries "
+          f"each (4x1, S={S2} N=4096), each fed only its rows "
+          f"{[r['rows'] for r in rows]}: reassembled tiles vs the single "
+          f"engine {e2:.3e} dB; collective save_state -> a ServingEngine "
+          f"loads it; load_state(keep=[5, 0, 3]) on 6 streams carries dB "
+          f"bit for bit, a live tick after", flush=True)
+
+    # the sharded and single ticks in turns (host clock, synchronized)
+    def tick_s(eng, k):
+        now = now0 + (ticks + 40 + k) * 16_666_667
+        t = time.perf_counter()
+        eng.feed_batch(packets[k % ticks], now, now_ns=now)
+        eng.tick(now_ns=now)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    engs = {"single": single, "4x1": eng41, "2x2": meshes[2][1]}
+    times = {name: [] for name in engs}
+    for k in range(20):
+        for name, e in engs.items():
+            times[name].append(tick_s(e, k))
+    med = {n: statistics.median(v) * 1e3 for n, v in times.items()}
+    print(f"parallel [{card}]: feed_batch + tick + synchronize at S={S} "
+          f"N=4096, medians of 20 in turns on {where}: single "
+          f"{med['single']:.3f} ms, 4x1 {med['4x1']:.3f} ms, 2x2 "
+          f"{med['2x2']:.3f} ms (a virtual mesh on one card is not "
+          f"expected to be faster; nothing claimed)", flush=True)
+
+    # python -m waveform_tpu_torch.dryrun 4, in this process
+    from waveform_tpu_torch.dryrun import dryrun
+    print(f"parallel [{card}]: {dryrun(4)}", flush=True)
+    return launched
 
 
 def kernel_label(fn: str) -> str:
@@ -3031,6 +3442,11 @@ def main() -> None:
     phase_warm(card)
     secs["warm"] = time.perf_counter() - t0
 
+    # 33. parallel: the sharded engines over a 4-entry mesh -------------------
+    t0 = time.perf_counter()
+    par = phase_parallel(wt, exact_cuda, card)
+    secs["parallel"] = time.perf_counter() - t0
+
     jax_mods =[m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]
     check(not jax_mods, f"the JAX package or jax was imported: {jax_mods}")
@@ -3063,6 +3479,11 @@ def main() -> None:
             "launches": count, "max_abs_err": row[2], "ms": row[0],
             "plain_ms": row[1], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib})
+        # the parallel phase's launches (its own run, counts zeroed before)
+        records[-1]["launches_parallel"] = {
+            "exact_mag": par["k1_gen_4x1"] + par["k1_gen_2x2"],
+            "exact_mag3": par["k2_4x1"], "exact_cfft": par["k3_4x1"]}.get(
+                name, 0)
         print(f"bound: {name} at (N, S) = ({n}, {s_n}): kernel "
               f"{row[0] * 1e3:.1f} us, twin {row[1] * 1e3:.1f} us, library "
               f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})",

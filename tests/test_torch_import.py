@@ -18,7 +18,9 @@ its three modes, a ``MultiEngine`` scene tick (a cohort and a solo group)
 with its frames, an ``OutputBus`` tick with a spectrum read and a
 meter frame, a tick under the matmul backend and one with an ``rfft_fn``,
 ``wisdom.warm`` and a run of the demo CLI on a WAV; the plan lookup finds
-no packaged table on the CPU.
+no packaged table on the CPU.  The sharded engines (``parallel``) and the
+dry run (``dryrun``) import the same way, and the dry run runs over a
+2-entry CPU mesh.
 """
 
 import subprocess
@@ -74,6 +76,11 @@ _PROBE = textwrap.dedent("""
     import waveform_tpu_torch.core.locale
     import waveform_tpu_torch.core.settings_io
     import waveform_tpu_torch.demo
+    import waveform_tpu_torch.parallel
+    import waveform_tpu_torch.parallel.mesh
+    import waveform_tpu_torch.parallel.sharded_serving
+    import waveform_tpu_torch.parallel.sharded_waveform
+    import waveform_tpu_torch.dryrun
 
     import os
     import tempfile
@@ -164,6 +171,8 @@ _PROBE = textwrap.dedent("""
                           os.path.join(d, "f"), "--device", "cpu",
                           "--fps", "100"]) == 0
         assert os.listdir(os.path.join(d, "f"))
+    from waveform_tpu_torch.dryrun import dryrun
+    assert dryrun(2, device="cpu").startswith("dryrun OK")
 
     loaded = sorted(k for k in sys.modules if blocked(k))
     assert not loaded, loaded

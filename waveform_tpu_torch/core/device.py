@@ -19,3 +19,21 @@ def checked_device(device: torch.device | str, who: str) -> torch.device:
         raise RuntimeError(f"{who}(device='cuda') needs a CUDA device and "
                            "none is available")
     return dev
+
+
+def process_count() -> int:
+    """Processes in the ``torch.distributed`` group (1 when none is
+    initialized): the port's ``jax.process_count()``."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def process_index() -> int:
+    """This process's rank in the ``torch.distributed`` group (0 when none
+    is initialized): the port's ``jax.process_index()``."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0

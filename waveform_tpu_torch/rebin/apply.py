@@ -61,7 +61,8 @@ def check_full_f32_matmul(who: str = "the rebin") -> None:
 
 def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
                   device: torch.device | str = "cuda",
-                  dense: bool | None = None):
+                  dense: bool | None = None,
+                  pixels: tuple[int, int] | None = None):
     """Build ``rebin(db [..., nbins]) -> [..., P]`` for the resolved config
     on ``device`` (the card unless the caller asks for the CPU; raises
     RuntimeError without one).
@@ -77,6 +78,15 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
     ``DENSE_MAX_BINS`` input bins (the matrix stays a few MB) and the
     gather elsewhere.  The dense form raises unless float32 matmuls run
     in full float32 (:func:`check_full_f32_matmul`).
+
+    ``pixels=(p0, p1)`` returns output columns ``[p0, p1)`` only: one
+    block of a mesh's pixel axis (``parallel/sharded_serving.py``, the
+    JAX package's ``pixel_constraint``).  Each output column of the interp
+    stage reads only its own taps, so the block keeps columns ``[p0, p1)``
+    of the dense matrix, or rows ``[p0, p1)`` of the taps and weights, and
+    computes nothing else.  Bar bands, the Gaussian filter and mirroring
+    mix columns, so under any of them the whole row is rebinned and the
+    block cut from it.
     """
     check_config(cfg)
     device = checked_device(device, "make_rebin_fn")
@@ -87,18 +97,30 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
         mode = os.environ.get("WAVEFORM_TPU_REBIN", "auto")
         dense = (mode == "dense" if mode in ("dense", "gather") else
                  device.type == "cuda" and nbins_in <= DENSE_MAX_BINS)
-    if dense:
-        check_full_f32_matmul()
-        imat = torch.from_numpy(_interp_matrix(
-            tables.taps, tables.weights, nbins_in)).to(device)
-    else:
-        taps = torch.from_numpy(tables.taps.astype(np.int64)).to(device)
-        weights = torch.from_numpy(tables.weights).to(device)      # [P, T]
-    band = (None if tables.band_matrix is None
-            else torch.from_numpy(tables.band_matrix).to(device))  # [B, P]
-
     n_out = tables.num_outputs
     use_gauss = cfg.filter_mode == FilterMode.GAUSS and not cfg.meter_mode
+    cols = slice(None)       # the interp columns computed
+    cut = None               # the block cut from a whole rebinned row
+    if pixels is not None:
+        p0, p1 = pixels
+        if not 0 <= p0 < p1 <= n_out:
+            raise ValueError(f"pixels {pixels} outside [0, {n_out})")
+        if (tables.band_matrix is None and not use_gauss
+                and not cfg.mirror_freq_axis):
+            cols = slice(p0, p1)
+        else:
+            cut = slice(p0, p1)
+    if dense:
+        check_full_f32_matmul()
+        imat = torch.from_numpy(np.ascontiguousarray(_interp_matrix(
+            tables.taps, tables.weights, nbins_in)[:, cols])).to(device)
+    else:
+        taps = torch.from_numpy(
+            tables.taps[cols].astype(np.int64)).to(device)
+        weights = torch.from_numpy(
+            np.ascontiguousarray(tables.weights[cols])).to(device)  # [P, T]
+    band = (None if tables.band_matrix is None
+            else torch.from_numpy(tables.band_matrix).to(device))  # [B, P]
     if use_gauss:
         gt = build_gauss_tables(cfg.settings.filter_radius, n_out)
         gw = [float(w) for w in gt.weights]
@@ -131,6 +153,8 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
             vals = top + (bottom - top) * t
         if cfg.mirror_freq_axis:
             vals = vals[..., mirror]
+        if cut is not None:
+            vals = vals[..., cut]
         return vals
 
     return rebin

@@ -101,9 +101,12 @@ class GraphTick:
     def __call__(self):
         if self.device.type != "cuda":
             return self._fn()
-        if self.graph is None:
-            return self._warm_and_capture()
-        self.graph.replay()
+        # the warm-up, the capture and each replay on the tick's own card
+        # (a mesh ticks one graph on each of its devices in turn)
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                return self._warm_and_capture()
+            self.graph.replay()
         _add_counts(self.launches)
         return self._out
 

@@ -45,7 +45,7 @@ from ..core.config import (
     ResolvedConfig,
     check_config,
 )
-from ..core.device import checked_device
+from ..core.device import checked_device, process_count
 from ..core.ring import audio_frames_to_ns, ns_to_audio_frames
 from ..dsp.devring import init_ring, push
 from ..dsp.spectrum import (
@@ -331,14 +331,21 @@ class PackedTickEngine(AutoMicrobatchMixin):
         host memory: the upload is asynchronous, so it reads the host
         buffer after tick() returns; a tick rewrites a buffer only after
         the event recorded behind its last upload has completed."""
+        self._init_host_uploads()
+        self._dev_in = torch.empty(self._stride, dtype=torch.float32,
+                                   device=self.device)
+        self._last_pixels = None
+
+    def _init_host_uploads(self) -> None:
+        """The host half of :meth:`_init_uploads`: the double-buffered
+        host blocks, their events and the graphs' table (a sharded engine,
+        ``parallel/sharded_serving.py``, uploads into its shards' device
+        buffers instead of one of its own)."""
         self._ticks: dict = {}       # (kind, ...) -> GraphTick
         self._host = [self._host_buffer(1) for _ in range(2)]
         self._events: list = [None, None]
         self._flip = 0
-        self._dev_in = torch.empty(self._stride, dtype=torch.float32,
-                                   device=self.device)
         self._bind_buf(0)
-        self._last_pixels = None
         # cohort mode (bind_cohort): this engine's segment of a shared block
         self._row0 = self._cohort_block = self._cohort_dev = None
 
@@ -427,7 +434,11 @@ class PackedTickEngine(AutoMicrobatchMixin):
         of its own."""
         self._flip ^= 1
         self._bind_buf(self._flip)
-        uniform = self._stage(now_ns, dt_f)
+        return self._run_tick(self._stage(now_ns, dt_f))
+
+    def _run_tick(self, uniform: bool):
+        """Upload the staged host block ``_host[_flip]`` and run the tick
+        on it; returns its output, a tensor of its own."""
         self._upload(self._host[self._flip], self._dev_in, self._events,
                      self._flip)
         pixels = self._fresh(self._call(("tick", uniform)))
@@ -441,8 +452,6 @@ class PackedTickEngine(AutoMicrobatchMixin):
         k = self._mb
         if self._mb_bufs is None:
             self._mb_bufs = [self._host_buffer(k) for _ in range(2)]
-            self._mb_dev = torch.empty(k * self._stride, dtype=torch.float32,
-                                       device=self.device)
         if self._mb_fill == 0:
             self._mb_flip ^= 1
             ev = self._mb_events[self._mb_flip]
@@ -459,11 +468,54 @@ class PackedTickEngine(AutoMicrobatchMixin):
         if self._mb_fill < k:
             return self._last_pixels
         self._mb_fill = 0
-        self._upload(host, self._mb_dev, self._mb_events, self._mb_flip)
-        pxs = self._fresh(self._call(("mb", k, all(self._mb_uniform))))
+        self._flush_microbatch(host, k, all(self._mb_uniform))
+        return self._last_pixels
+
+    def _flush_microbatch(self, host: torch.Tensor, k: int,
+                          uniform: bool) -> None:
+        """Upload the k staged slots of ``host`` and run them as one
+        flush: sets ``_last_batch`` [k, ...] and ``_last_pixels``."""
+        self._upload(host, self._mb_buffer(k), self._mb_events,
+                     self._mb_flip)
+        pxs = self._fresh(self._call(("mb", k, uniform)))
         self._last_batch = pxs
         self._last_pixels = pxs[-1]
-        return self._last_pixels
+
+    def _mb_buffer(self, k: int) -> torch.Tensor:
+        """The device buffer of a flush of k ticks, made at its first use
+        (anew, the flush graphs dropped with the old one, when k changed)."""
+        if self._mb_dev is None or self._mb_dev.numel() != k * self._stride:
+            self._drop_graphs("mb")
+            self._mb_dev = torch.empty(k * self._stride, dtype=torch.float32,
+                                       device=self.device)
+        return self._mb_dev
+
+    def tick_rows(self, host: torch.Tensor, rows: int, lo: int, k: int,
+                  uniform: bool):
+        """The device half of a tick on one row block of a wider upload
+        (a shard of a sharded engine, ``parallel/sharded_serving.py``).
+        Each of the k slots of ``host`` holds ``rows`` packed rows of this
+        engine's width, then its ``_TAIL`` scalars: copy rows ``[lo, lo +
+        S)`` and the scalars of each slot into this engine's device
+        buffer, asynchronously, and run the single tick (k = 1) or the
+        flush of k.  Returns the output, a tensor of its own, and the
+        event that frees ``host`` for reuse (None on the CPU)."""
+        W, T, r = self.packed_width, self._TAIL, self._stride
+        R, n = rows * W + T, self.S * W
+        dst = self._dev_in if k == 1 else self._mb_buffer(k)
+        for t in range(k):
+            src = host[t * R:(t + 1) * R]
+            dst[t * r:t * r + n].copy_(src[lo * W:lo * W + n],
+                                       non_blocking=True)
+            if T:
+                dst[t * r + n:(t + 1) * r].copy_(src[rows * W:],
+                                                 non_blocking=True)
+        ev = None
+        if dst.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dst.device))
+        key = ("tick", uniform) if k == 1 else ("mb", k, uniform)
+        return self._fresh(self._call(key)), ev
 
     @property
     def last_batch_pixels(self):
@@ -602,6 +654,10 @@ class ServingEngine(PackedTickEngine):
         self.rms_ring = (init_ring(self.S, 1, cfg.input_rms_size, dev)
                          if self._normalize else None)
 
+    def _rebin_kwargs(self) -> dict:
+        """Extra arguments of ``make_rebin_fn`` (a shard's pixel block)."""
+        return {}
+
     def _display_values(self, state):
         """State -> display output for one tick: the display dB channels
         here; meter levels in MeterServingEngine."""
@@ -613,7 +669,8 @@ class ServingEngine(PackedTickEngine):
         the meter reduction, keeping every host-side path identical."""
         cfg, dev = self.cfg, self.device
         step = make_spectrum_step(cfg, self._rfft_fn, device=dev)
-        rebin = make_rebin_fn(cfg, apply_pixel_map=False, device=dev)
+        rebin = make_rebin_fn(cfg, apply_pixel_map=False, device=dev,
+                              **self._rebin_kwargs())
         normalize = self._normalize
         rms_size = cfg.input_rms_size
         C, H = self.C, self.H
@@ -893,7 +950,13 @@ class ServingEngine(PackedTickEngine):
 
     def _uniform_count(self) -> tuple[bool, int]:
         """True when every stream advances by the same count this tick:
-        the ring then shifts the whole batch by one count."""
+        the ring then shifts the whole batch by one count.  Forced off
+        when the ``torch.distributed`` group has more than one process, as
+        the JAX engine forces it off on a multi-host mesh (each process
+        sees only its own rows' counts there, and would pick its own
+        program)."""
+        if process_count() > 1:
+            return False, 0
         counts_col = self._meta_buf[:, 0]
         c0 = counts_col[0]
         return bool((counts_col == c0).all()), int(c0)

@@ -128,21 +128,8 @@ class DeviceWaveformEngine(PackedTickEngine):
             if self._normalize:
                 p.rms_chunks.append(np.zeros(cfg.fft_size, np.float32))
 
-        dev = self.device
-        self.ring = init_ring(num_streams, C, self.L, dev)
-        O = max(cfg.output_channels, C)
-        self.O = O
-        self.buf = torch.full((num_streams, O, self.W), DB_MIN,
-                              dtype=torch.float32, device=dev)
-        self.latch = torch.zeros(num_streams, dtype=torch.bool, device=dev)
-        # slack beyond the 1 s window: sync-reserve squares park at the
-        # tail and the windowed sum skips them (drained only once the
-        # matching samples pass the reserve, like update_input_rms,
-        # runtime/source.py)
-        self.rms_ring = (init_ring(num_streams, 1,
-                                   cfg.input_rms_size + self._reserve_limit,
-                                   dev)
-                         if self._normalize else None)
+        self.O = max(cfg.output_channels, C)
+        self._init_device_state()
 
         # native C++ assembler (native/): per-stream rings + sync + the
         # whole waveform host assembly (drain, int64 timestamp math,
@@ -163,7 +150,6 @@ class DeviceWaveformEngine(PackedTickEngine):
                     raise
                 self._native = None
 
-        self._step = self._make_step()
         # All host-side per-tick inputs ride ONE packed [S, packed_width]
         # upload — samples, RMS squares, the per-pixel gather rows and the
         # 5 meta columns (counts, n, run, timeout, reserve) — pinned and
@@ -172,6 +158,28 @@ class DeviceWaveformEngine(PackedTickEngine):
         # of k packed ticks; "auto" decides k (AutoMicrobatchMixin)
         self._init_microbatch(microbatch)
         self._init_uploads()
+
+    def _init_device_state(self) -> None:
+        """Allocate the device-resident per-stream state (sample ring,
+        display buffer, silence latch, RMS ring) and build the step over
+        it."""
+        cfg, dev, S = self.cfg, self.device, self.S
+        self.ring = init_ring(S, self.C, self.L, dev)
+        self.buf = torch.full((S, self.O, self.W), DB_MIN,
+                              dtype=torch.float32, device=dev)
+        self.latch = torch.zeros(S, dtype=torch.bool, device=dev)
+        # slack beyond the 1 s window: sync-reserve squares park at the
+        # tail and the windowed sum skips them (drained only once the
+        # matching samples pass the reserve, like update_input_rms,
+        # runtime/source.py)
+        self.rms_ring = (init_ring(S, 1,
+                                   cfg.input_rms_size + self._reserve_limit,
+                                   dev)
+                         if self._normalize else None)
+        self._step = self._make_step()
+
+    def _init_uploads(self) -> None:
+        super()._init_uploads()
         # a tick between microbatch flushes returns the last flushed frame
         self._last_pixels = self.display.clone()
 
