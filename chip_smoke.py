@@ -202,7 +202,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``load_state(keep=[5, 0, 3])`` on 6 streams with a live tick; the
    sharded and single ticks in turns (host clock, synchronized, medians
    of 20); and the dry run (``waveform_tpu_torch.dryrun``) over 4
-   entries.
+   entries;
+34. bench  — ``waveform_tpu_torch.bench.main`` at its defaults (S=256,
+   N=4096, scan 128, reps 10, the sweep 1024, 16384, 32768, 65536) in
+   this process: it must return 0 with the headline JSON line, its
+   accuracy gate under 1e-4 dB, no roofline share over 100%, and each
+   timed dispatch's ticks one launch each of the size's kernel and of no
+   other (K1-gen at 1024 and 4096, K2 at 16384-65536, the packaged H100
+   plan's choice); prints the bench's lines.
 
 Phases 13-15 and 16's K1-df sizes, 18's (16384, 256) and 27's 8192 and
 16384 looks test K1-gen (K1-df) at sizes the packaged H100 plan table
@@ -224,6 +231,7 @@ phase's meshes (K1-gen's at 4x1 and 2x2 under ``exact_mag``).
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -242,8 +250,6 @@ TOL = 2.5e-7          # kernel bound of the JAX package's tests
 TOL_SPLITS = 3e-7     # K2 vs K1's body (tests/test_exact_pallas.py:217-229)
 SEED = 0
 K1_SIZES = (1024, 2048, 4096)   # N1 = 8, 16, 32: K1's sizes, now K1-gen's
-INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak, ops/s
-HBM = 3.35e12         # H100 SXM device memory, bytes/s
 # exact_cuda's launch counters: K2, K3, K1-gen, K1-df, K2-df
 COUNTERS = ("launches3", "launches_cfft", "launches_gen", "launches_gen_df",
             "launches3_df")
@@ -457,46 +463,32 @@ def phase_df(exact_cuda, dev, cases, seed: int):
     return n_cases, worst
 
 
+SPLITS = {"exact_mag_gen": 2, "exact_mag3": 3, "exact_cfft": "cfft"}
+
+
 def work(name: str, n: int, S: int) -> tuple[float, float]:
-    """(int8 operations, bytes) of one call of kernel ``name`` on S streams
-    of size n: 2 operations per digit-pair MAC, 10 digit pairs a product;
-    each input, window and constant read once, each output written once."""
-    n1 = n // 128
-    macs2 = 655360 * n1                       # kept-half or full stage 2
-    tw = 2 * n1 * 128 * 4                     # twiddle (f32, or df32 pair)
-    if name == "exact_cfft":
-        macs1 = 5120 * n1 * n1                # F1b [2N1, 2N1] x 128 columns
-        io = 8 * S * n * 4                    # df32 re/im in, df32 out
-        consts = 4 * (2 * n1) ** 2 + 4 * 256 * 256 + 2 * tw
-    else:
-        io = S * 2 * n * 4 + 2 * n * 4 + S * 2 * (n // 2) * 4 + S * 2 * 4
-        if name == "exact_mag3":
-            a = n1 // 4
-            macs1 = 2 * 2 * (4 * a) * (2 * a) * 128 * 10   # c02, c13
-            consts = 2 * 4 * (4 * a) * (2 * a)
-        else:
-            macs1 = 5120 * n1 * n1            # F1r [2N1, N1], two channels
-            consts = 4 * 2 * n1 * n1
-        consts += 4 * 256 * 128 + tw
-    return 2 * S * (macs1 + macs2), io + consts
+    """(int8 operations, bytes) of one call of kernel source ``name`` on S
+    streams of size n: ``exact_cuda.kernel_cost`` of its body (the df
+    instances run the same digit GEMMs)."""
+    from waveform_tpu_torch.kernels import exact_cuda
+    c = exact_cuda.kernel_cost(n, S, SPLITS[name], "f32")
+    return c["int8_ops"], c["hbm_bytes"]
 
 
 def bound(name: str, n: int, S: int) -> tuple[float, str]:
-    """(bound_ms, bound_by) of one call of kernel ``name`` on S streams of
-    size n: the larger of its int8 operations at INT8_OPS and the bytes it
-    must move at HBM (:func:`work`)."""
-    ops, nbytes = work(name, n, S)
-    ops_ms = ops / INT8_OPS * 1e3
-    bytes_ms = nbytes / HBM * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
-                                                              "bytes")
+    """(bound_ms, bound_by) of one call of kernel source ``name`` on S
+    streams of size n (``exact_cuda.kernel_bound``)."""
+    from waveform_tpu_torch.kernels import exact_cuda
+    s, by = exact_cuda.kernel_bound(n, S, SPLITS[name], "f32")
+    return s * 1e3, by
 
 
 def rate_line(name: str, ms: float, n: int, S: int) -> str:
     """A kernel time as its int8 rate and its share of the bound."""
+    from waveform_tpu_torch.kernels.exact_cuda import INT8_PEAK_OPS
     b_ms, b_by = bound(name, n, S)
     rate = work(name, n, S)[0] / (ms * 1e-3)
-    return (f"{rate / 1e12:.1f} TOP/s ({rate / INT8_OPS * 100:.1f}% of "
+    return (f"{rate / 1e12:.1f} TOP/s ({rate / INT8_PEAK_OPS * 100:.1f}% of "
             f"the int8 peak), bound {b_ms * 1e3:.2f} us ({b_by}), "
             f"{b_ms / ms * 100:.1f}% of bound")
 
@@ -810,16 +802,11 @@ def cfft_stage_ms(exact_cuda, exactfft, n: int, S: int, dev):
 
 def stage_ops(body: str, n: int, S: int) -> tuple[int, int]:
     """The int8 operations of ``body``'s stage 1 and stage 2 at [S, 2, n]
-    (``STAGED``; the df tier adds none), or at K3's [S, n] (``body`` "K3":
-    F1b is K1-gen's two channels' work, F2b's 256 columns its kept half
-    of both channels)."""
-    n1 = n // 128
-    if body == "K2":
-        a = n1 // 4
-        macs1 = 2 * 2 * (4 * a) * (2 * a) * 128 * 10       # c02, c13
-    else:
-        macs1 = 5120 * n1 * n1                              # F1r, 2 channels
-    return 2 * S * macs1, 2 * S * 655360 * n1
+    (``STAGED``; the df tier adds none), or at K3's [S, n] (``body``
+    "K3"): ``exact_cuda.kernel_cost``'s ``stage_ops``."""
+    from waveform_tpu_torch.kernels import exact_cuda
+    split = {"K2": 3, "K3": "cfft"}.get(body, 2)
+    return exact_cuda.kernel_cost(n, S, split, "f32")["stage_ops"]
 
 
 def print_stages(exact_cuda, card: str, dev, phase: str, body: str,
@@ -2727,6 +2714,45 @@ def phase_parallel(wt, exact_cuda, card: str) -> dict:
     return launched
 
 
+# the kernel each size of the bench's sweep runs on an H100
+BENCH_KERNELS = {1024: "K1-gen", 4096: "K1-gen", 16384: "K2", 32768: "K2",
+                 65536: "K2"}
+
+
+def phase_bench(card: str) -> None:
+    """``python -m waveform_tpu_torch.bench`` at its defaults, in process:
+    return 0, the headline JSON line, the gate under 1e-4 dB, no roofline
+    share over 100%, one launch of the size's kernel a timed tick and no
+    other kernel's."""
+    from waveform_tpu_torch import bench
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = bench.main([])
+    lines = out.getvalue().strip().splitlines() + \
+        err.getvalue().strip().splitlines()
+    for ln in lines:
+        print(f"bench [{card}]: {ln}", flush=True)
+    check(rc == 0, f"bench returned {rc}")
+    head = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(head["metric"] == "4096pt_spectrum_frames_per_sec_per_chip"
+          and head["value"] > 0, f"bench headline {head}")
+    gate = re.search(r"oracle: ([0-9.e+-]+) ", err.getvalue())
+    check(gate is not None and float(gate.group(1)) < 1e-4,
+          f"bench gate {gate and gate.group(1)}")
+    mfu = [ln for ln in lines if ln.startswith("# MFU")]
+    sizes = sorted(int(re.search(r"N=(\d+) ", ln).group(1)) for ln in mfu)
+    check(sizes == sorted(BENCH_KERNELS), f"bench sizes {sizes}")
+    for ln in mfu:
+        n = int(re.search(r"N=(\d+) ", ln).group(1))
+        shares = [float(x) for x in re.findall(r"\(([0-9.]+)% of", ln)]
+        check(len(shares) == 2 and max(shares) <= 100,
+              f"bench N={n} shares {shares}")
+        ticks = int(re.search(r"; (\d+) timed ticks", ln).group(1))
+        launched = re.search(r"\[launches: ([^;]*);", ln).group(1)
+        check(launched == f"{BENCH_KERNELS[n]} {ticks}" and f"] [{card}]"
+              in ln, f"bench N={n}: launches {launched!r} in {ticks} ticks")
+
+
 def kernel_label(fn: str) -> str:
     """A mangled kernel name as name<template arguments>."""
     m = re.search(r"_cu_[0-9a-f]{8}\d+(exact_[a-z0-9_]+?)(I.*?E)?E", fn)
@@ -3446,6 +3472,12 @@ def main() -> None:
     t0 = time.perf_counter()
     par = phase_parallel(wt, exact_cuda, card)
     secs["parallel"] = time.perf_counter() - t0
+
+    # 34. bench: python -m waveform_tpu_torch.bench at its defaults -----------
+    t0 = time.perf_counter()
+    phase_bench(card)
+    secs["bench"] = time.perf_counter() - t0
+    print(f"bench [{card}]: {secs['bench']:.1f} s", flush=True)
 
     jax_mods =[m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]

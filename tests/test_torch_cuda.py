@@ -1176,3 +1176,41 @@ def test_sharded_mesh_on_one_card_matches_single_engine(dev):
     vis = want > -120.0
     np.testing.assert_allclose(got[vis], want[vis], rtol=0, atol=1e-4)
     assert graph.kernels_per_replay[("tick", True)] == {"launches_gen": 2}
+
+
+def test_graph_tick_generator_draws_anew_each_replay(dev):
+    """A ``GraphTick`` given its ``torch.Generator`` registers it with the
+    graph: each replay draws new numbers (the bench's on-device audio);
+    the warm-up draws what an eager call of a generator seeded alike
+    draws."""
+    from waveform_tpu_torch.runtime.graphs import GraphTick
+    out = torch.empty(4096, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    tick = GraphTick(lambda: torch.rand(out.shape, generator=gen,
+                                        device=dev, out=out), dev,
+                     generators=(gen,))
+    draws = []
+    for _ in range(4):          # warm-up, capture, two replays
+        tick()
+        draws.append(out.clone())
+    assert tick.graph is not None
+    for a in range(4):
+        for b in range(a + 1, 4):
+            assert not torch.equal(draws[a], draws[b]), (a, b)
+    ref = torch.Generator(device=dev)
+    ref.manual_seed(11)
+    assert torch.equal(draws[0], torch.rand(out.shape, generator=ref,
+                                            device=dev))
+
+
+def test_bench_dispatch_on_card(dev):
+    """The bench's captured tick at (1024, 8): one K1-gen launch a
+    replay, new audio each replay, the gate under 1e-4 dB."""
+    from waveform_tpu_torch import bench
+    cfg = bench.build_cfg(1024, 800)
+    m = bench.measure(cfg, 8, 4, 1, 1, dev, seed=0, rounds=1)
+    assert m["launches"]["launches_gen"] == m["timed_ticks"] == 4
+    d = m["dispatch"]
+    window = d.ring.buf[0].cpu().numpy().astype(np.float64)
+    assert bench.accuracy_gate(cfg, window, dev)[0] < 1e-4

@@ -10,6 +10,17 @@ each frame must match within the renderer's tolerance
 (``tests/test_torch_render.py``: 1e-6 on RGBA floats in [0, 1], which
 after the 8-bit encode is at most one step of 255 where a value straddles
 a rounding edge).
+
+The JAX reference runs with each engine tick blocked to completion
+(:func:`synchronous_reference`): ``waveform_tpu``'s ``WaveformEngine``
+hands its host meter windows to an asynchronous jitted step through
+``jnp.asarray``, which on the CPU aliases a 64-byte-aligned numpy array
+instead of copying it, and the next tick's drain rewrites those windows
+in place.  When the step runs late (a loaded machine) it reads the next
+tick's samples, and the reference's meter moves by whole pixel rows.
+The JAX ``ServingEngine`` fences the same hazard with its double-buffered
+upload (``waveform_tpu/runtime/serving.py:369-385``); the meter tick does
+not.
 """
 
 import json
@@ -18,11 +29,18 @@ import struct
 import wave
 import zlib
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import waveform_tpu as jwt
+import waveform_tpu_torch as wt
 from waveform_tpu import demo as jdemo
+from waveform_tpu.runtime import engine as jengine
+from waveform_tpu.runtime import serving as jserving
 from waveform_tpu_torch import demo
+from waveform_tpu_torch.runtime.engine import WaveformEngine
 
 SR = 48000
 
@@ -88,6 +106,16 @@ def test_read_wav_matches_jax(width, channels, tmp_path):
                                atol=2.0 ** (1 - 8 * width) + 2.0 ** -24)
 
 
+def synchronous_reference(monkeypatch) -> None:
+    """Block every tick of the JAX reference's engines until its result is
+    ready, so that a step reads the host inputs it was handed before the
+    next tick rewrites them (see the module docstring)."""
+    for cls in (jengine.WaveformEngine, jserving.ServingEngine):
+        tick = cls.tick
+        monkeypatch.setattr(cls, "tick", lambda self, *a, _t=tick, **k:
+                            jax.block_until_ready(_t(self, *a, **k)))
+
+
 SCENES = {
     "curve": {"display_mode": "curve", "fft_size": 4096},
     "level_meter": {"display_mode": "level_meter", "meter_buf": 100},
@@ -98,6 +126,7 @@ SCENES = {
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_demo_matches_jax(scene, tmp_path, monkeypatch):
     monkeypatch.setenv("WAVEFORM_TPU_FFT_BACKEND", "exact")
+    synchronous_reference(monkeypatch)
     wav = tmp_path / "in.wav"
     _write_wav(wav, _noise(0.4), 2)
     sp = tmp_path / f"{scene}.json"
@@ -116,6 +145,60 @@ def test_demo_matches_jax(scene, tmp_path, monkeypatch):
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= 1, name
         assert got[..., 3].any(), name         # something was drawn
+
+
+def _aligned(shape, align: int = 64) -> np.ndarray:
+    """A zeroed f32 array whose data starts on an ``align``-byte edge."""
+    n = int(np.prod(shape))
+    buf = np.zeros(n + align // 4, np.float32)
+    off = (-buf.ctypes.data % align) // 4
+    return buf[off:off + n].reshape(shape)
+
+
+def _late(step, n: int = 1024, reps: int = 8):
+    """``step`` jitted so that it reads the meter windows only after ``reps``
+    [n, n] matmuls: a step that runs late, as one does on a loaded
+    machine, while the dispatch returns at once."""
+    def run(windows, *rest):
+        a = jnp.full((n, n), 1.0 / n, jnp.float32)
+        for _ in range(reps):
+            a = a @ a
+        return step(jnp.where(jnp.sum(a) > -1.0, windows, 0.0), *rest)
+    return jax.jit(run)
+
+
+def test_meter_reference_reads_its_own_window(monkeypatch):
+    """The level-meter demo's minimal input (the scene's config, S=1, the
+    test WAV's samples) with the reference's windows 64-byte aligned and
+    its step late (``_late``): with the reference's ticks blocked, its meter
+    matches the port's within 1e-5 dB after 12 ticks."""
+    synchronous_reference(monkeypatch)
+    x = np.round(_noise(0.4) * 32768).clip(-32768, 32767) / 32768.0
+    x = x.astype(np.float32)
+    jcfg = jwt.resolve(jwt.Settings(display_mode=jwt.DisplayMode.METER,
+                                    meter_buf=100),
+                       jwt.AudioInfo(SR, 2), jwt.VideoInfo(60.0))
+    cfg = wt.resolve(wt.Settings(display_mode=wt.DisplayMode.METER,
+                                 meter_buf=100),
+                     wt.AudioInfo(SR, 2), wt.VideoInfo(60.0))
+    ref = jengine.WaveformEngine(jcfg, 1)
+    ref._meter_windows = _aligned(ref._meter_windows.shape)
+    assert ref._meter_windows.ctypes.data % 64 == 0
+    ref._meter_step = _late(ref._meter_step)
+    port = WaveformEngine(cfg, 1, device="cpu")
+    NS, hop, now = 1_000_000_000, 800, 1_000_000_000
+    for k in range(12):
+        chunk = x[:, k * hop:(k + 1) * hop]
+        ref.feed(0, chunk, now, now_ns=now)
+        port.feed(0, chunk, now, now_ns=now)
+        now += hop * NS // SR
+        ref.tick(now_ns=now)
+        port.tick(now_ns=now)
+    # read once, at the end: a read blocks, as the demo's reads every 6th
+    # tick do, and would hide the late reads in between
+    np.testing.assert_allclose(port.render_values(), ref.render_values(),
+                               rtol=0, atol=1e-5)
+    assert np.isfinite(port.render_values()).all()
 
 
 def test_demo_needs_a_card_unless_told(tmp_path):

@@ -20,7 +20,9 @@ meter frame, a tick under the matmul backend and one with an ``rfft_fn``,
 ``wisdom.warm`` and a run of the demo CLI on a WAV; the plan lookup finds
 no packaged table on the CPU.  The sharded engines (``parallel``) and the
 dry run (``dryrun``) import the same way, and the dry run runs over a
-2-entry CPU mesh.
+2-entry CPU mesh.  A second probe, blocked the same way, runs the bench
+(``waveform_tpu_torch.bench``) whole at a small size on the CPU, loads the
+three examples (``examples/torch_*.py``) and renders a showcase panel.
 """
 
 import subprocess
@@ -81,6 +83,7 @@ _PROBE = textwrap.dedent("""
     import waveform_tpu_torch.parallel.sharded_serving
     import waveform_tpu_torch.parallel.sharded_waveform
     import waveform_tpu_torch.dryrun
+    import waveform_tpu_torch.bench
 
     import os
     import tempfile
@@ -185,3 +188,54 @@ def test_port_imports_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+_PROBE_BENCH = textwrap.dedent("""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    BLOCKED = ("jax", "jaxlib", "flax", "waveform_tpu")
+
+    def blocked(name):
+        return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ImportError("blocked: " + name)
+            return None
+
+    for k in [k for k in sys.modules if blocked(k)]:
+        del sys.modules[k]
+    sys.meta_path.insert(0, Block())
+
+    from waveform_tpu_torch import bench
+    assert bench.main(["--device", "cpu", "--streams", "2", "--fft", "1024",
+                       "--scan", "2", "--reps", "1", "--warmup", "1",
+                       "--sizes", ""]) == 0
+    mods = {}
+    for name in ("torch_showcase", "torch_live_ingest",
+                 "torch_sharded_demo"):
+        spec = importlib.util.spec_from_file_location(
+            name, Path("examples") / (name + ".py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    show = mods["torch_showcase"]
+    img = show.render_panel(dict(dict(show.PANELS)["meter"]), "cpu")
+    assert img.shape[-1] == 4 and img[..., 3].any()
+
+    loaded = sorted(k for k in sys.modules if blocked(k))
+    assert not loaded, loaded
+    print("ok")
+""")
+
+
+def test_bench_and_examples_import_without_jax():
+    """The bench, run whole at a small size on the CPU, and the three
+    examples (loaded, and a showcase panel rendered) import neither JAX
+    nor the JAX package."""
+    r = subprocess.run([sys.executable, "-c", _PROBE_BENCH], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().splitlines()[-1] == "ok"

@@ -181,6 +181,93 @@ def _tier(twiddle: str | None) -> str:
 
 
 # ---------------------------------------------------------------------------
+# cost model: the roofline's numerator
+# ---------------------------------------------------------------------------
+
+# NVIDIA H100 SXM (80 GB HBM3) peaks, the roofline's denominators: dense
+# int8 tensor-core operations a second, and device-memory bytes a second
+INT8_PEAK_OPS = 1979e12
+HBM_PEAK_BYTES = 3.35e12
+
+KERNELS = {(2, "f32"): "K1-gen", (2, "df"): "K1-df", (3, "f32"): "K2",
+           (3, "df"): "K2-df", ("cfft", "df"): "K3"}
+# each kernel's launch counter
+COUNTER = {"K1-gen": "launches_gen", "K1-df": "launches_gen_df",
+           "K2": "launches3", "K2-df": "launches3_df", "K3": "launches_cfft"}
+
+
+def kernel_cost(n: int, streams: int, split=None,
+                twiddle: str | None = None) -> dict:
+    """Static int8 operations and compulsory bytes of one call of the
+    kernel that :func:`rfft_pair_mag` launches on [streams, 2, n]: the
+    counterpart of ``exact_pallas.kernel_cost``, the bench's roofline
+    numerator.
+
+    ``split`` None resolves as the router does (:func:`stage1_split`, as
+    the JAX function resolves it), 2 or 3 names the body, and ``"cfft"``
+    costs K3 (:func:`cfft_exact_kernel`) on ``streams`` complex rows of n.
+    ``twiddle`` None reads :func:`twiddle_tier`.  The df tier runs the same
+    digit GEMMs (its compensated arithmetic is on the CUDA cores and not
+    counted), so its counts are the f32 tier's; K3 is always df.
+
+    * ``int8_ops``: 2 operations per digit-pair MAC, 10 digit pairs
+      (classes, i + j <= 3) a product, over stage 1 (K1's body: F1r
+      [2N1, N1] on both channels' 128 columns; K2: the ``c02`` and ``c13``
+      GEMMs [4a, 2a], N1 = 4a; K3: F1b [2N1, 2N1]) and stage 2 (256
+      columns, kept half of both channels or K3's whole row, contracting
+      128, on N1 rows).  The JAX count of split 2 has [4N1, 2N1]
+      contractions and a silence-selector dot, which these kernels do not
+      run: the count is the port's own.
+    * ``hbm_bytes``: each input, window and constant read once, each
+      output written once (f32 samples and df32 window in, magnitudes and
+      nonzero counts out; K3 df32 re/im in and out).
+
+    Returns ``{"int8_ops", "hbm_bytes", "stage_ops": (stage 1, stage 2),
+    "split", "twiddle", "kernel"}``.
+    """
+    if split is None:
+        split = stage1_split(n)
+    if split not in (2, 3, "cfft"):
+        raise ValueError(f"split must be 2, 3, 'cfft' or None, got {split!r}")
+    twiddle = "df" if split == "cfft" else _tier(twiddle)
+    n1 = n // LANES
+    classes = N_DIGITS * (N_DIGITS + 1) // 2
+    macs2 = classes * (2 * n1) * (2 * LANES) * LANES
+    tw = 2 * n1 * LANES * 4                   # f32 twiddle re, im planes
+    f2 = N_DIGITS * (2 * LANES) * LANES       # stage-2 digit words
+    if split == "cfft":
+        macs1 = classes * (2 * n1) ** 2 * LANES
+        io = 8 * streams * n * 4              # df32 re/im in and out
+        consts = N_DIGITS * (2 * n1) ** 2 + 2 * f2 + 2 * tw
+    else:
+        io = (streams * 2 * n * 4 + 2 * n * 4          # samples, window
+              + streams * 2 * (n // 2) * 4 + streams * 2 * 4)
+        if split == 3:
+            a = n1 // 4
+            macs1 = 2 * classes * 2 * (4 * a) * (2 * a) * LANES
+            consts = 2 * N_DIGITS * (4 * a) * (2 * a)
+        else:
+            macs1 = classes * (2 * n1) * n1 * 2 * LANES
+            consts = N_DIGITS * 2 * n1 * n1
+        consts += f2 + tw
+    s1, s2 = 2 * streams * macs1, 2 * streams * macs2
+    return {"int8_ops": s1 + s2, "hbm_bytes": io + consts,
+            "stage_ops": (s1, s2), "split": split, "twiddle": twiddle,
+            "kernel": KERNELS[split, twiddle]}
+
+
+def kernel_bound(n: int, streams: int, split=None,
+                 twiddle: str | None = None) -> tuple[float, str]:
+    """(seconds, "operations" or "bytes"): the least time the card could
+    take for one call, :func:`kernel_cost`'s int8 operations at
+    ``INT8_PEAK_OPS`` or its bytes at ``HBM_PEAK_BYTES``, the larger."""
+    c = kernel_cost(n, streams, split, twiddle)
+    ops_s = c["int8_ops"] / INT8_PEAK_OPS
+    bytes_s = c["hbm_bytes"] / HBM_PEAK_BYTES
+    return (ops_s, "operations") if ops_s >= bytes_s else (bytes_s, "bytes")
+
+
+# ---------------------------------------------------------------------------
 # host plan: the same numpy builders as exact_pallas
 # ---------------------------------------------------------------------------
 

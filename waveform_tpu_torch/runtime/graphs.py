@@ -41,8 +41,7 @@ import torch
 
 from ..kernels import exact_cuda
 
-COUNTERS = ("launches_gen", "launches_gen_df", "launches3", "launches3_df",
-            "launches_cfft")
+COUNTERS = tuple(exact_cuda.COUNTER.values())
 
 
 # the side stream of every warm-up and capture on a device: the libraries
@@ -89,11 +88,17 @@ class GraphTick:
     """``fn()`` run eagerly on the CPU; on a CUDA device run eagerly once
     on a side stream (that call's output is returned), then captured and
     replayed.  A replay returns the graph's own output tensors, which the
-    next replay overwrites: a caller that hands them out copies them."""
+    next replay overwrites: a caller that hands them out copies them.
 
-    def __init__(self, fn, device: torch.device):
+    ``generators``: the ``torch.Generator`` objects that ``fn`` draws from,
+    registered with the graph before its capture, so that each replay
+    draws new numbers and advances them (an unregistered generator cannot
+    be used in a capture)."""
+
+    def __init__(self, fn, device: torch.device, generators=()):
         self._fn = fn
         self.device = device
+        self._generators = tuple(generators)
         self.graph = None
         self._out = None
         self.launches: dict = {}   # exact_cuda counter -> kernels a replay
@@ -120,6 +125,8 @@ class GraphTick:
         main.wait_stream(side)
         before = _counts()
         graph = torch.cuda.CUDAGraph()
+        for g in self._generators:
+            graph.register_generator_state(g)
         try:
             with no_gc(), torch.cuda.graph(graph, stream=side,
                                            capture_error_mode="global"):
