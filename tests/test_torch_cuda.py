@@ -8,6 +8,7 @@ with one, run them without the JAX test configuration:
 
 import gc
 import os
+import time
 
 import numpy as np
 import pytest
@@ -1119,8 +1120,9 @@ def test_rfft_fn_graph_tick_matches_eager(dev):
         z.abs().sum().item()
         return z
 
-    # the capture runs with the collector off (a collection there could
-    # free a dropped engine's graph, which invalidates the capture)
+    # the captures (the plain graph, then its stamped twin) run with the
+    # collector off (a collection there could free a dropped engine's
+    # graph, which invalidates the capture)
     seen = []
 
     def watched(x):
@@ -1130,7 +1132,7 @@ def test_rfft_fn_graph_tick_matches_eager(dev):
     eng = ServingEngine(cfg, 2, rfft_fn=watched, device=dev)
     eng.feed_batch(x[:2], now, now_ns=now)
     eng.tick(now_ns=now)
-    assert seen == [True, False] and gc.isenabled()
+    assert seen == [True, False, False] and gc.isenabled()
 
     bad = ServingEngine(cfg, 2, rfft_fn=syncs, device=dev)
     bad.feed_batch(x[:2], now, now_ns=now)
@@ -1214,3 +1216,150 @@ def test_bench_dispatch_on_card(dev):
     d = m["dispatch"]
     window = d.ring.buf[0].cpu().numpy().astype(np.float64)
     assert bench.accuracy_gate(cfg, window, dev)[0] < 1e-4
+
+
+# --- the tick's own tracing: the stamped twin (runtime/profiler.py) --------
+
+TRACE_STAGES = ("tick.push", "tick.fft", "tick.tail", "tick.rebin")
+
+
+@pytest.fixture
+def tracing():
+    """The profiler with its switch off and its registry empty, and so
+    left after the test."""
+    from waveform_tpu_torch.runtime import profiler
+    profiler.set_tracing(False)
+    profiler.reset()
+    yield profiler
+    profiler.set_tracing(False)
+    profiler.reset()
+
+
+def _trace_cfg(n):
+    return resolve(Settings(fft_size=n, enable_large_fft=n > 8192, width=800,
+                            window=FFTWindow.HANN,
+                            interp_mode=InterpMode.LANCZOS),
+                   AudioInfo(48000, 2))
+
+
+class _Replays:
+    """A graph that counts its replays."""
+
+    def __init__(self, graph):
+        self.graph, self.n = graph, 0
+
+    def replay(self):
+        self.n += 1
+        self.graph.replay()
+
+
+@pytest.mark.parametrize("n,S", [(65536, 32), (4096, 256)])
+def test_stamped_twin_matches_plain_graph_bitwise(n, S, dev, tracing):
+    """Two engines on the same packets, one ticked with tracing on: the
+    pixels agree bit for bit over 20 ticks; the traced engine replays its
+    stamped twin, the other its plain graph; each stage reads positive
+    on the device clock, once a replay, and a closed loop misses none."""
+    cfg = _trace_cfg(n)
+    plain = ServingEngine(cfg, S, device=dev)
+    traced = ServingEngine(cfg, S, device=dev)
+    rng = np.random.default_rng(17)
+    for k in range(20):
+        x = _packets(rng, S, 2, False, k)
+        now = 10_000_000_000 + k * 16_666_667
+        plain.feed_batch(x, now, now_ns=now)
+        traced.feed_batch(x, now, now_ns=now)
+        tracing.set_tracing(False)
+        a = plain.tick(now_ns=now)
+        tracing.set_tracing(True)
+        b = traced.tick(now_ns=now)
+        assert torch.equal(a, b), k
+        if k == 0:      # the warm-up and both captures; then count replays
+            p, t = plain._ticks[("tick", True)], traced._ticks[("tick", True)]
+            assert p.twin is not None and t.twin is not None
+            p.graph, p.twin = _Replays(p.graph), _Replays(p.twin)
+            t.graph, t.twin = _Replays(t.graph), _Replays(t.twin)
+    assert (p.graph.n, p.twin.n, t.graph.n, t.twin.n) == (19, 0, 0, 19)
+    torch.cuda.synchronize()
+    snap = tracing.snapshot()
+    assert list(snap["marks"]) == list(TRACE_STAGES)
+    for name in TRACE_STAGES:
+        m = snap["marks"][name]
+        assert m["count"] == 19 and m["total_us"] > 0, (name, m)
+    assert snap["counters"].get("marks.missed", 0) == 0
+    assert snap["counters"]["graph.captures"] == {"tick,True": 2}
+    assert snap["setup"]["graph.capture"]["count"] == 2
+
+
+def test_marks_lie_within_the_replay_and_never_wait(dev, tracing):
+    """At (65536, 32): one traced tick's four stages add up to no more
+    than the device interval around the tick; the host returns from
+    ``tick()`` before the device has finished it (no mark read waits)."""
+    S = 32
+    eng = ServingEngine(_trace_cfg(65536), S, device=dev)
+    rng = np.random.default_rng(18)
+    tracing.set_tracing(True)
+
+    def tick(k):
+        now = 10_000_000_000 + k * 16_666_667
+        eng.feed_batch(_packets(rng, S, 2, False, k), now, now_ns=now)
+        return eng.tick(now_ns=now)
+
+    for k in range(3):
+        tick(k)
+    torch.cuda.synchronize()
+    tracing.reset()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    tick(3)
+    e1.record()
+    torch.cuda.synchronize()
+    marks = tracing.snapshot()["marks"]
+    got = [marks[name]["total_us"] for name in TRACE_STAGES]
+    assert all(us > 0 for us in got) and [marks[name]["count"] for name in
+                                          TRACE_STAGES] == [1] * 4
+    assert sum(got) <= e0.elapsed_time(e1) * 1e3, (got, e0.elapsed_time(e1))
+    pending = []
+    for k in range(4, 12):
+        tick(k)
+        ev = torch.cuda.Event()
+        ev.record()
+        pending.append(ev.query())
+    assert not all(pending)
+    torch.cuda.synchronize()
+
+
+def test_program_ranges_label_idle_gaps_and_leave_no_device_op(dev,
+                                                               tracing):
+    """Under ``profiler.trace`` the tick's host spans land as
+    ``waveform.*`` ranges on the host only (no device-side annotation
+    counted as a device operation), and ``device_summary`` puts the
+    device's idle time down to them."""
+    S = 256
+    eng = ServingEngine(_trace_cfg(4096), S, device=dev)
+    rng = np.random.default_rng(19)
+
+    def tick(k):
+        now = 10_000_000_000 + k * 16_666_667
+        eng.feed_batch(_packets(rng, S, 2, False, k), now, now_ns=now)
+        eng.tick(now_ns=now)
+        torch.cuda.synchronize()
+
+    for k in range(3):
+        tick(k)
+    t0 = time.perf_counter()
+    with tracing.trace() as prof:
+        for k in range(3, 13):
+            tick(k)
+    summ = tracing.device_summary(prof, time.perf_counter() - t0)
+    cuda = torch.autograd.DeviceType.CUDA
+    ours = [ev for ev in prof.events() if ev.name.startswith("waveform.")]
+    assert {ev.name for ev in ours} >= {
+        "waveform.serving.feed", "waveform.serving.stage",
+        "waveform.serving.upload", "waveform.serving.replay"}
+    assert not [ev for ev in ours if ev.device_type == cuda]
+    assert not [k for k in summ["kernels"] if k.startswith("waveform.")]
+    idle = summ["idle_by_span"]
+    assert "serving.stage" in idle and set(idle) <= {
+        "serving.feed", "serving.stage", "serving.upload", "serving.replay",
+        tracing.CALLER}
+    assert tracing.snapshot()["marks"]["tick.fft"]["count"] == 10

@@ -28,6 +28,7 @@ from ..core.device import checked_device
 from ..core.enums import FFTWindow, TSmoothingMode
 from ..kernels.exactfft import rfft_mag_exact, two_prod, two_sum
 from ..kernels.matfft import rfft_mag
+from ..runtime import profiler
 from .oracle import TV_EMA_DENOM, rolloff_modifiers, slope_modifiers
 from .windows import window_coefficients, window_sum
 
@@ -269,6 +270,7 @@ def make_spectrum_step(cfg: ResolvedConfig, rfft_fn=None,
             else:   # drop Nyquist, as the reference does
                 mag = rfft_fn(x)[..., :nbins].abs().to(torch.float32)
             nz_k = torch.any(samples != 0.0, dim=-1)
+        profiler.mark("tick.fft")
         mag = _mag_tail(cfg, mag, slope)                  # [S, C, nbins]
 
         if cfg.tsmoothing != TSmoothingMode.NONE:

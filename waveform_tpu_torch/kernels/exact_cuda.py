@@ -62,6 +62,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..runtime import profiler
 from ..utils.plans import plan_for
 from .exactfft import (_CLAMP, DIGIT_BITS, FIRST_SHIFT, N_DIGITS,
                        _df_cmul, _df_pair, _digit_gemm, _digit_planes, _left,
@@ -782,10 +783,16 @@ def _nvcc() -> str:
 def build() -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` into a shared library (once per source hash)
     and bind it: one ``nvcc`` per source, all started together, then one
-    link.  Raises on a failed build."""
+    link.  Raises on a failed build.  Timed as the profiler's set-up
+    phase ``library.exact_cuda``."""
     global _lib
-    if _lib is not None:
-        return _lib
+    if _lib is None:
+        with profiler.setup("library.exact_cuda"):
+            _lib = _build()
+    return _lib
+
+
+def _build() -> ctypes.CDLL:
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(_CSRC.glob("*.cu*")):
@@ -842,7 +849,6 @@ def build() -> ctypes.CDLL:
                             (lib.wf_exact_cfft_stage, lib.wf_exact_cfft, 1)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * ints + whole.argtypes
-    _lib = lib
     return lib
 
 

@@ -18,6 +18,8 @@ import threading
 
 import numpy as np
 
+from ..runtime import profiler
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "assembler.cpp")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
@@ -129,7 +131,8 @@ class NativeAssembler:
     def __init__(self, num_streams: int, channels: int, window: int,
                  sample_rate: int, ts_offset_ns: int = 0,
                  prefill: bool = True, rms: bool = False):
-        lib = load_library()
+        with profiler.setup("library.native"):
+            lib = load_library()
         if lib is None:
             raise RuntimeError("native assembler unavailable (g++ missing "
                                "or build failed)")

@@ -30,6 +30,16 @@ launches the kernels that the capture recorded, so a :class:`GraphTick`
 counts each wrapper call made during the capture (and takes those calls
 back out of the counters: a capture launches nothing) and adds that count
 to the counters at every replay.
+
+Stage marks (``runtime/profiler.mark``): where the warm-up passed marks
+that make a stage, a :class:`GraphTick` captures a second graph of the
+same function right after the first, its **stamped twin**, in which each
+mark records a timing event (an event-record node).  The twin shares the
+plain graph's memory pool and has no warm-up of its own, so the state
+advances exactly as it does without it.  While tracing is on a tick
+replays the twin and the profiler reads its stages on the device clock;
+off, it replays the plain graph.  On the CPU the marks record the host
+clock while tracing is on.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ import gc
 import torch
 
 from ..kernels import exact_cuda
+from . import profiler
 
 COUNTERS = tuple(exact_cuda.COUNTER.values())
 
@@ -93,53 +104,85 @@ class GraphTick:
     ``generators``: the ``torch.Generator`` objects that ``fn`` draws from,
     registered with the graph before its capture, so that each replay
     draws new numbers and advances them (an unregistered generator cannot
-    be used in a capture)."""
+    be used in a capture).  ``kind`` names the tick in the profiler's
+    ``graph.captures`` counter."""
 
-    def __init__(self, fn, device: torch.device, generators=()):
+    def __init__(self, fn, device: torch.device, generators=(),
+                 kind="graph"):
         self._fn = fn
         self.device = device
         self._generators = tuple(generators)
+        self.kind = kind
         self.graph = None
         self._out = None
+        self.twin = None           # the stamped twin, where marks make stages
+        self._twin_out = None
+        self._stamps = None
         self.launches: dict = {}   # exact_cuda counter -> kernels a replay
 
     def __call__(self):
         if self.device.type != "cuda":
+            if profiler.on:
+                return profiler.host_marks(self._fn)
             return self._fn()
         # the warm-up, the capture and each replay on the tick's own card
         # (a mesh ticks one graph on each of its devices in turn)
         with torch.cuda.device(self.device):
             if self.graph is None:
                 return self._warm_and_capture()
-            self.graph.replay()
+            if profiler.on and self.twin is not None:
+                self._stamps.replaying()
+                self.twin.replay()
+                out = self._twin_out
+            else:
+                self.graph.replay()
+                out = self._out
         _add_counts(self.launches)
-        return self._out
+        return out
+
+    def _capture(self, graph, side, sink, **kw):
+        """Capture ``fn`` into ``graph`` on ``side`` with its marks sent to
+        ``sink``; returns its output.  The capture launches nothing, so
+        the launch counters are set back, and the count it made is
+        returned beside the output."""
+        for g in self._generators:
+            graph.register_generator_state(g)
+        before = _counts()
+        try:
+            with no_gc(), profiler.marking(sink), torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="global", **kw):
+                out = self._fn()
+        finally:
+            after = _counts()
+            _add_counts({c: before[c] - after[c] for c in COUNTERS})
+        return out, {c: after[c] - before[c] for c in COUNTERS
+                     if after[c] != before[c]}
 
     def _warm_and_capture(self):
         dev = self.device
         main = torch.cuda.current_stream(dev)
         side = _side_stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = self._fn()                  # the warm-up: a real tick
-        main.wait_stream(side)
-        before = _counts()
-        graph = torch.cuda.CUDAGraph()
-        for g in self._generators:
-            graph.register_generator_state(g)
-        try:
-            with no_gc(), torch.cuda.graph(graph, stream=side,
-                                           capture_error_mode="global"):
-                self._out = self._fn()
-        except RuntimeError as e:
-            _add_counts({c: before[c] - n for c, n in _counts().items()})
-            raise RuntimeError(
-                "the tick cannot be captured in a CUDA graph (does the step, "
-                "or a caller's rfft_fn, synchronize with the host, as "
-                f".item() or a copy to the CPU does?): {e}") from e
-        after = _counts()
-        self.launches = {c: after[c] - before[c] for c in COUNTERS
-                         if after[c] != before[c]}
-        _add_counts({c: -n for c, n in self.launches.items()})
-        self.graph = graph
+        profiler.captured(self.kind)
+        with profiler.setup("graph.capture"):
+            side.wait_stream(main)
+            seen: list = []
+            with torch.cuda.stream(side), profiler.marking(
+                    lambda name: seen.append((name, None))):
+                out = self._fn()                  # the warm-up: a real tick
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                self._out, self.launches = self._capture(graph, side, None)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    "the tick cannot be captured in a CUDA graph (does the "
+                    "step, or a caller's rfft_fn, synchronize with the host, "
+                    f"as .item() or a copy to the CPU does?): {e}") from e
+            self.graph = graph
+            if profiler.stages(seen):
+                stamps = profiler.Stamps()
+                twin = torch.cuda.CUDAGraph()
+                self._twin_out, _ = self._capture(twin, side, stamps.stamp,
+                                                  pool=graph.pool())
+                self.twin, self._stamps = twin, stamps
         return out

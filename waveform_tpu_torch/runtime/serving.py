@@ -55,6 +55,7 @@ from ..dsp.spectrum import (
     make_spectrum_step,
 )
 from ..rebin.apply import make_rebin_fn
+from . import profiler
 from .graphs import GraphTick
 
 
@@ -397,7 +398,8 @@ class PackedTickEngine(AutoMicrobatchMixin):
         Returns the raw output (on CUDA the graph's own buffer)."""
         t = self._ticks.get(key)
         if t is None:
-            t = self._ticks[key] = GraphTick(self._graph_fn(key), self.device)
+            t = self._ticks[key] = GraphTick(self._graph_fn(key), self.device,
+                                             kind=key)
         return t()
 
     def _drop_graphs(self, *kinds: str) -> None:
@@ -422,7 +424,9 @@ class PackedTickEngine(AutoMicrobatchMixin):
 
     def _tick(self, now_ns: int, dt_f):
         """One frame: a probe or validation tick while "auto" decides, an
-        accumulating tick under microbatch k > 1, else a single tick."""
+        accumulating tick under microbatch k > 1, else a single tick.
+        Tracing's switch is read here and at each feed call."""
+        profiler.refresh()
         if self._mb_auto:   # probe (k=1) or validation (candidate k) phase
             return self._tick_probe(now_ns, dt_f)
         if self._mb > 1:
@@ -433,15 +437,20 @@ class PackedTickEngine(AutoMicrobatchMixin):
         """Assemble, upload and run one tick; returns its output, a tensor
         of its own."""
         self._flip ^= 1
-        self._bind_buf(self._flip)
-        return self._run_tick(self._stage(now_ns, dt_f))
+        with profiler.span("serving.stage"):
+            self._bind_buf(self._flip)
+            uniform = self._stage(now_ns, dt_f)
+        profiler.count("ticks.uniform" if uniform else "ticks.gather")
+        return self._run_tick(uniform)
 
     def _run_tick(self, uniform: bool):
         """Upload the staged host block ``_host[_flip]`` and run the tick
         on it; returns its output, a tensor of its own."""
-        self._upload(self._host[self._flip], self._dev_in, self._events,
-                     self._flip)
-        pixels = self._fresh(self._call(("tick", uniform)))
+        with profiler.span("serving.upload"):
+            self._upload(self._host[self._flip], self._dev_in, self._events,
+                         self._flip)
+        with profiler.span("serving.replay"):
+            pixels = self._fresh(self._call(("tick", uniform)))
         self._last_pixels = pixels
         return pixels
 
@@ -468,7 +477,9 @@ class PackedTickEngine(AutoMicrobatchMixin):
         if self._mb_fill < k:
             return self._last_pixels
         self._mb_fill = 0
-        self._flush_microbatch(host, k, all(self._mb_uniform))
+        uniform = all(self._mb_uniform)
+        profiler.count("ticks.uniform" if uniform else "ticks.gather", k)
+        self._flush_microbatch(host, k, uniform)
         return self._last_pixels
 
     def _flush_microbatch(self, host: torch.Tensor, k: int,
@@ -684,8 +695,13 @@ class ServingEngine(PackedTickEngine):
                 # before the mute zero-fill (src/source.cpp:1843-1871)
                 push(rms_ring, rms_sq, counts)
                 rms = torch.sqrt(rms_ring.buf.sum(-1)[:, 0] / rms_size)
+            profiler.mark("tick.push")
             assign(state, step(ring.buf, state, scalars, active, rms))
-            return rebin(self._display_values(state))
+            values = self._display_values(state)
+            profiler.mark("tick.tail")
+            pixels = rebin(values)
+            profiler.mark("tick.rebin")
+            return pixels
 
         def packed_tick(flat, ring, state, scalars, rms_ring=None,
                         ucount=None):
@@ -708,6 +724,7 @@ class ServingEngine(PackedTickEngine):
             """One tick of ``tick_many`` (the JAX ``scan_ticks`` body): the
             pushed samples are raw — no mute path — so the RMS squares
             derive from them directly."""
+            profiler.mark(profiler.OPEN)
             sq = None
             if normalize:
                 m = new.abs().amax(dim=1, keepdim=True)
@@ -743,6 +760,7 @@ class ServingEngine(PackedTickEngine):
         """The packed tick on one tick's uploaded ``flat``: its rows
         [S, W], its scalars [2] and, for the uniform form, its count as a
         0-d int64 tensor, all read on the device."""
+        profiler.mark(profiler.OPEN)
         S, W = self.S, self.packed_width
         tail = flat[S * W:]
         return self._packed_tick(
@@ -766,6 +784,12 @@ class ServingEngine(PackedTickEngine):
     def feed(self, stream: int, data: np.ndarray | None, timestamp_ns: int,
              now_ns: int | None = None, muted: bool = False) -> None:
         """Queue one packet ([channels, frames] float32 planar)."""
+        profiler.refresh()
+        with profiler.span("serving.feed"):
+            self._feed(stream, data, timestamp_ns, now_ns, muted)
+
+    def _feed(self, stream: int, data: np.ndarray | None, timestamp_ns: int,
+              now_ns: int | None, muted: bool) -> None:
         now_ns = time.monotonic_ns() if now_ns is None else now_ns
         cfg = self.cfg
         frames = 0 if data is None else data.shape[-1]
@@ -834,6 +858,12 @@ class ServingEngine(PackedTickEngine):
         timestamp.  Streams fed this way share sync state; don't mix with
         per-stream ``feed`` on the same engine.
         """
+        profiler.refresh()
+        with profiler.span("serving.feed"):
+            self._feed_batch(data, timestamp_ns, now_ns)
+
+    def _feed_batch(self, data: np.ndarray, timestamp_ns: int,
+                    now_ns: int | None) -> None:
         now_ns = time.monotonic_ns() if now_ns is None else now_ns
         cfg = self.cfg
         frames = data.shape[-1]

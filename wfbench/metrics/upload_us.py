@@ -1,0 +1,8 @@
+"""The upload's enqueue from inside the program: the span
+``serving.upload``, µs a recorded tick (host clock)."""
+
+from wfbench import program_trace
+
+
+def read(run):
+    return program_trace.span_us("serving.upload")
