@@ -4,16 +4,20 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+or with ``tail`` to run phases 1, 2 and 35 alone (``python3 chip_smoke.py
+tail``).
+
 Phases, one line each; any failure raises and the script exits non-zero:
 
 1. device  — a CUDA device of compute capability 9.0; prints its name and
    power limit as nvidia-smi reports them;
-2. build   — the exact FFT kernels compiled from ``waveform_tpu_torch/
-   csrc`` with nvcc (one process per source); prints ptxas's entry
-   function and register lines as nvcc gives them (no spills allowed),
-   and each kernel's IMMA / IGMMA / IDP.4A counts from its SASS: all 10
-   kernels (stage 1 and stage 2 of K2, K2-df, K1-gen, K1-df and K3) must
-   run on the int8 tensor cores (IMMA or IGMMA, no IDP.4A);
+2. build   — the exact FFT kernels and the spectrum tail's pair compiled
+   from ``waveform_tpu_torch/csrc`` with nvcc (one process per source);
+   prints ptxas's entry function and register lines as nvcc gives them
+   (no spills allowed), and each kernel's IMMA / IGMMA / IDP.4A counts
+   from its SASS: all 10 FFT kernels (stage 1 and stage 2 of K2, K2-df,
+   K1-gen, K1-df and K3) must run on the int8 tensor cores (IMMA or
+   IGMMA, no IDP.4A), beside the tail's 4 (two kernels, two widths);
 3. kernel  — K1-gen through the router (K1's body at K1's sizes) bit for
    bit against its plain PyTorch twin (NaN lanes by position) and against
    float64 numpy at N in {1024, 2048, 4096}, S in {1, 7, 256}, Hann df32
@@ -209,7 +213,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
    accuracy gate under 1e-4 dB, no roofline share over 100%, and each
    timed dispatch's ticks one launch each of the size's kernel and of no
    other (K1-gen at 1024 and 4096, K2 at 16384-65536, the packaged H100
-   plan's choice); prints the bench's lines.
+   plan's choice); prints the bench's lines;
+35. tail   — the spectrum tail's kernel pair (``kernels/tail_cuda.py``) at
+   (65536, 32) and (4096, 256), mono with 2 channels: bit for bit against
+   its plain version ``spectrum_tail_ref`` over 4 ticks, with every channel
+   voiced and with one silent (the gate's scan); the pair, the gate alone
+   and the fused tail alone beside the plain version, each captured in a
+   CUDA graph, on the device's clock, and beside their byte bound.
 
 Phases 13-15 and 16's K1-df sizes, 18's (16384, 256) and 27's 8192 and
 16384 looks test K1-gen (K1-df) at sizes the packaged H100 plan table
@@ -253,9 +263,14 @@ K1_SIZES = (1024, 2048, 4096)   # N1 = 8, 16, 32: K1's sizes, now K1-gen's
 # exact_cuda's launch counters: K2, K3, K1-gen, K1-df, K2-df
 COUNTERS = ("launches3", "launches_cfft", "launches_gen", "launches_gen_df",
             "launches3_df")
-# the library's kernels, all on the int8 tensor cores: stage 1 and stage 2
-# of exact_mag3.cu and exact_mag_gen.cu at both tiers and of exact_cfft.cu
+# the library's FFT kernels, all on the int8 tensor cores: stage 1 and
+# stage 2 of exact_mag3.cu and exact_mag_gen.cu at both tiers and of
+# exact_cfft.cu; and the spectrum tail's (spectrum_tail.cu: the gate and
+# the fused tail, each for 16-byte vectors and single floats)
 KERNELS = 10
+TAIL_KERNELS = 4
+# the tail's launches a spectrum step (its counter, exact_cuda.launches_tail)
+TAIL = {"launches_tail": 2}
 
 
 @contextlib.contextmanager
@@ -877,13 +892,15 @@ STAGE1 = {"launches_gen": ("exact_mag_gen_stage1", False),
           "launches_gen_df": ("exact_mag_gen_stage1", True),
           "launches3": ("exact_mag3_stage1", False),
           "launches3_df": ("exact_mag3_stage1", True),
-          "launches_cfft": ("exact_cfft_stage1", None)}
+          "launches_cfft": ("exact_cfft_stage1", None),
+          # the spectrum tail: both of its kernels, as its counter counts
+          "launches_tail": ("spectrum_tail_", None)}
 
 
 def profiled(profiler, one_tick, n: int = 5):
     """``n`` ticks under ``profiler.trace``: (device summary, device ops a
-    tick, {counter: our stage-1 kernels a tick}) read from the trace's
-    device kernels by name."""
+    tick, {counter: our kernels a tick}: each FFT kernel's stage 1, the
+    tail's two) read from the trace's device kernels by name."""
     torch.cuda.synchronize()
     with profiler.trace() as prof:
         t0 = time.perf_counter()
@@ -933,7 +950,7 @@ def phase_graph(wt, ServingEngine, profiler, exact_cuda, rng, cell):
                      (graph.state.last_silent, eager.state.last_silent),
                      (graph.ring.buf, eager.ring.buf)):
             check(torch.equal(a, b), f"graph {label}: state differs")
-        want = {counter: 1} if counter else {}
+        want = {counter: 1, **TAIL} if counter else dict(TAIL)
         per_replay = graph.kernels_per_replay
         check(per_replay == {("tick", True): want},
               f"graph {label}: kernels a replay {per_replay}, want {want}")
@@ -951,7 +968,7 @@ def phase_graph(wt, ServingEngine, profiler, exact_cuda, rng, cell):
         e_tick = ticker(eager, eager_tick)
         turns = [cuda_median_ms(f, reps=20, warmup=3)
                  for f in (e_tick, g_tick, g_tick, e_tick)]
-        before = {c: getattr(exact_cuda, c) for c in COUNTERS}
+        before = {c: getattr(exact_cuda, c) for c in (*COUNTERS, *TAIL)}
         g_sum, g_ops, g_ours = profiled(profiler, g_tick)
         moved = {c: (getattr(exact_cuda, c) - n) / 5
                  for c, n in before.items() if getattr(exact_cuda, c) != n}
@@ -2094,7 +2111,7 @@ def phase_matmul(wt, exact_cuda, card: str) -> None:
             exact_cuda, lambda: ServingEngine(cfg, S, device="cuda"), pk,
             now0, rows, cpu)
         check(not any(counts) and eng.kernels_per_replay
-              == {("tick", True): {}},
+              == {("tick", True): TAIL},
               f"matmul: exact kernels launched {counts}, "
               f"{eng.kernels_per_replay}")
         e_cpu = db_vs(wt, eng.read_decibels()[rows], cpu.read_decibels(),
@@ -2134,7 +2151,7 @@ def phase_rfft_fn(wt, exact_cuda, card: str) -> None:
     eng, counts = graph_vs_eager(
         exact_cuda, lambda: ServingEngine(cfg, S, rfft_fn=fn, device="cuda"),
         pk, now0)
-    check(not any(counts) and eng.kernels_per_replay == {("tick", True): {}},
+    check(not any(counts) and eng.kernels_per_replay == {("tick", True): TAIL},
           f"rfft_fn: exact kernels launched {counts}")
     e_fn = oracle_err(wt, ServingEngine, 4096, 8,
                       np.random.default_rng(SEED + 43), now0, rfft_fn=fn)
@@ -2456,7 +2473,8 @@ def phase_parallel(wt, exact_cuda, card: str) -> dict:
         check(got == only("launches_gen", 4 * ticks),
               f"parallel {shape}: launches {got} in {ticks} ticks")
         reps = eng.kernels_per_replay
-        check(reps == {("tick", True): {"launches_gen": 4}},
+        check(reps == {("tick", True): {"launches_gen": 4,
+                                        "launches_tail": 8}},
               f"parallel {shape}: kernels a replay {reps}")
         launched[f"k1_gen_{shape}"] = got[COUNTERS.index("launches_gen")]
         e, same = tiles_vs(wt, eng, single, f"parallel {shape}")
@@ -2515,7 +2533,8 @@ def phase_parallel(wt, exact_cuda, card: str) -> dict:
         check(got == only("launches_cfft", 4 * 3),
               f"parallel FUSED=never: launches {got}")
         reps = el.kernels_per_replay
-        check(reps == {("tick", True): {"launches_cfft": 4}},
+        check(reps == {("tick", True): {"launches_cfft": 4,
+                                        "launches_tail": 8}},
               f"parallel FUSED=never: kernels a replay {reps}")
         launched["k3_4x1"] = got[COUNTERS.index("launches_cfft")]
         e, same = tiles_vs(wt, el, sl, "parallel FUSED=never")
@@ -2753,9 +2772,99 @@ def phase_bench(card: str) -> None:
               in ln, f"bench N={n}: launches {launched!r} in {ticks} ticks")
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits (a bool tensor as it is)."""
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+def graph_ms(fn) -> float:
+    """``fn`` captured in a CUDA graph (as the tick captures it), its
+    replay's device time on CUDA events (the device kept busy ahead)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_median_ms(graph.replay, busy_ahead=True)
+
+
+def phase_tail(wt, exact_cuda, card: str, dev) -> None:
+    """The spectrum tail's kernel pair (``kernels/tail_cuda.py``) at
+    (65536, 32) and (4096, 256) on the benchmark's look (mono, 2
+    channels, EMA), with every channel voiced and with channel 1 silent in
+    every stream (the gate scans channel 0): bit for bit against
+    ``spectrum_tail_ref`` over 4 ticks, two launches a call; then the
+    pair, the gate alone and the fused tail alone against the plain
+    version, each captured in a CUDA graph as the tick captures it, on
+    the device's clock, beside the bytes these inputs need at 3.35 TB/s
+    (inputs read once, outputs written once)."""
+    from waveform_tpu_torch.dsp import spectrum as tspec
+    from waveform_tpu_torch.kernels import tail_cuda
+    for n, S in ((65536, 32), (4096, 256)):
+        cfg = wt.resolve(wt.Settings(fft_size=n, enable_large_fft=True,
+                                     window=wt.FFTWindow.HANN),
+                         wt.AudioInfo(SR, 2))
+        k = tail_cuda.tail_constants(cfg)
+        C, O, nb = k.channels, k.outputs, n // 2
+        slope, rolloff = tspec.tail_tables(cfg, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + n + S)
+        state = tspec.init_state(cfg, S, dev)
+        gravity = torch.from_numpy(tspec.gravity_pair(cfg, 1 / 60)).to(dev)
+        active = torch.ones(S, dtype=torch.bool, device=dev)
+        rms = torch.zeros(S, device=dev)
+        for label, silent in (("voiced", False), ("channel 1 silent", True)):
+            nz = torch.ones((S, C), dtype=torch.bool, device=dev)
+            nz[:, C - 1] = not silent
+            for t in range(4):
+                mag = torch.rand((S, C, nb), generator=gen, device=dev) * 40.0
+                mag[:, :, ::97] = 0.0
+                old = state
+                before = exact_cuda.launches_tail
+                got = tail_cuda.spectrum_tail(
+                    k, mag, nz, None, old.tsmooth, old.decibels,
+                    old.last_silent, gravity, active, None, None, slope,
+                    rolloff)
+                check(exact_cuda.launches_tail == before + 2,
+                      f"tail: {exact_cuda.launches_tail - before} launches")
+                state = tspec.spectrum_tail_ref(cfg, mag, nz, None, old,
+                                                gravity, active, rms, None,
+                                                slope, rolloff)
+                torch.cuda.synchronize()
+                check(all(torch.equal(bits(a), bits(b)) for a, b in zip(
+                    got, (state.tsmooth, state.decibels,
+                          state.last_silent))),
+                      f"tail ({n}, {S}) {label}: kernel vs plain version "
+                      f"not bit for bit at tick {t}")
+
+            def pair(stages=3):
+                return tail_cuda.spectrum_tail(
+                    k, mag, nz, None, old.tsmooth, old.decibels,
+                    old.last_silent, gravity, active, None, None, slope,
+                    rolloff, stages=stages)
+
+            ms = [graph_ms(lambda: pair(st)) for st in (3, 1, 2)]
+            ref_ms = graph_ms(lambda: tspec.spectrum_tail_ref(
+                cfg, mag, nz, None, old, gravity, active, rms, None, slope,
+                rolloff))
+            # mag and the old tsmooth read, tsmooth and m_decibels written;
+            # the gate reads channel 0 of the old m_decibels where a
+            # channel is silent
+            moved = 4 * S * nb * (3 * C + O + (1 if silent else 0))
+            bound_us = moved / exact_cuda.HBM_PEAK_BYTES * 1e6
+            print(f"tail [{card}]: (N, S) = ({n}, {S}) mono C={C}, {label}: "
+                  f"bit for bit vs spectrum_tail_ref in 4 ticks, 2 launches "
+                  f"a call; pair {ms[0] * 1e3:.1f} us (gate "
+                  f"{ms[1] * 1e3:.1f}, fused {ms[2] * 1e3:.1f}), plain "
+                  f"version {ref_ms * 1e3:.1f} us; bound "
+                  f"{bound_us:.1f} us ({moved / 1e6:.2f} MB at 3.35 TB/s), "
+                  f"{bound_us / (ms[0] * 1e3) * 100:.1f}% of it", flush=True)
+
+
 def kernel_label(fn: str) -> str:
     """A mangled kernel name as name<template arguments>."""
-    m = re.search(r"_cu_[0-9a-f]{8}\d+(exact_[a-z0-9_]+?)(I.*?E)?E", fn)
+    m = re.search(r"_cu_[0-9a-f]{8}\d+((?:exact|spectrum_tail)_[a-z0-9_]+?)"
+                  r"(I.*?E)?E", fn)
     if m is None:
         return fn
     return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) or ''))}>"
@@ -2788,16 +2897,20 @@ def main() -> None:
     for ln in exact_cuda.build_info.get("log", "").splitlines():
         if "entry function" in ln or "registers" in ln:
             print(f"build: {ln.strip()}", flush=True)
-    # every kernel runs its digit GEMMs on the int8 tensor cores
+    # every FFT kernel runs its digit GEMMs on the int8 tensor cores; the
+    # tail's kernels are elementwise
     sass = exact_cuda.sass_counts()
     for fn, c in sass.items():
         print(f"build: sass {kernel_label(fn)}: "
               + ", ".join(f"{op} {k}" for op, k in c.items()), flush=True)
-    check(len(sass) == KERNELS
+    fft = [c for fn, c in sass.items() if "exact_" in fn]
+    tail = [fn for fn in sass if "spectrum_tail_" in fn]
+    check(len(fft) == KERNELS and len(tail) == TAIL_KERNELS
+          and len(sass) == KERNELS + TAIL_KERNELS
           and all(c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0
-                  for c in sass.values()),
-          f"kernels not on the int8 tensor cores, or {KERNELS} expected: "
-          f"{sass}")
+                  for c in fft),
+          f"FFT kernels not on the int8 tensor cores, or {KERNELS} FFT and "
+          f"{TAIL_KERNELS} tail kernels expected: {sass}")
     props = [ln for ln in exact_cuda.build_info.get("log", "").splitlines()
              if "spill" in ln]
     spills = [ln for ln in props if not re.search(
@@ -2805,6 +2918,12 @@ def main() -> None:
     check(not spills, f"ptxas reports spills: {spills}")
     print(f"build: ptxas: {len(props)} functions, no spill stores or loads",
           flush=True)
+    if sys.argv[1:] == ["tail"]:
+        t0 = time.perf_counter()
+        phase_tail(wt, exact_cuda, card, dev)
+        print(f"seconds: build {secs['build']:.1f}, tail "
+              f"{time.perf_counter() - t0:.1f}", flush=True)
+        return
 
     # 3. kernel vs twin ---------------------------------------------------
     t0 = time.perf_counter()
@@ -3284,7 +3403,8 @@ def main() -> None:
             check(all(same_bits(mb.last_batch_pixels[i], singles[k - 3 + i])
                       for i in range(4)),
                   "microbatch: flush vs single ticks not bit for bit")
-    check(mb.kernels_per_replay[("mb", 4, True)] == {"launches_gen": 4},
+    check(mb.kernels_per_replay[("mb", 4, True)] == {"launches_gen": 4,
+                                                     "launches_tail": 8},
           f"microbatch: kernels a flush {mb.kernels_per_replay}")
     clock = [now, 0]
 
@@ -3478,6 +3598,11 @@ def main() -> None:
     phase_bench(card)
     secs["bench"] = time.perf_counter() - t0
     print(f"bench [{card}]: {secs['bench']:.1f} s", flush=True)
+
+    # 35. tail: the spectrum tail's kernel pair -------------------------------
+    t0 = time.perf_counter()
+    phase_tail(wt, exact_cuda, card, dev)
+    secs["tail"] = time.perf_counter() - t0
 
     jax_mods =[m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]

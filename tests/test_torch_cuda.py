@@ -133,12 +133,17 @@ def test_k2_matches_twin_and_f64(n, S, dev):
 
 
 def test_k2_runs_on_the_int8_tensor_cores(dev):
-    """The SASS of the built library: every kernel (stage 1 and stage 2 of
-    K2, K2-df, K1-gen, K1-df and K3) holds int8 tensor-core products (IMMA
-    from mma.sync, or IGMMA from wgmma) and no __dp4a (IDP.4A)."""
+    """The SASS of the built library: every FFT kernel (stage 1 and stage
+    2 of K2, K2-df, K1-gen, K1-df and K3) holds int8 tensor-core products
+    (IMMA from mma.sync, or IGMMA from wgmma) and no __dp4a (IDP.4A); the
+    library's other kernels are the spectrum tail's four (its gate and
+    fused tail, each for 16-byte vectors and single floats)."""
     counts = exact_cuda.sass_counts()
-    assert len(counts) == 10, counts
-    for fn, c in counts.items():
+    fft = {fn: c for fn, c in counts.items() if "exact_" in fn}
+    tail = [fn for fn in counts if "spectrum_tail_" in fn]
+    assert len(fft) == 10 and len(tail) == 4, counts
+    assert len(counts) == len(fft) + len(tail), counts
+    for fn, c in fft.items():
         assert c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0, (fn, c)
     cfft = [fn for fn in counts if "exact_cfft_stage" in fn]
     assert len(cfft) == 2, cfft
@@ -502,24 +507,28 @@ def _feed(eng, x, now):
         eng.feed_batch(x, now, now_ns=now)
 
 
+TAIL = {"launches_tail": 2}     # the spectrum tail's kernel pair a step
+
 GRAPH_PATHS = {
-    # path: (settings, channels, environment, kernels a replay)
-    "k1_gen": (dict(fft_size=4096), 2, {}, {"launches_gen": 1}),
+    # path: (settings, channels, environment, kernels a replay); every
+    # path's spectrum tail is one kernel pair (TAIL)
+    "k1_gen": (dict(fft_size=4096), 2, {}, {"launches_gen": 1, **TAIL}),
     "k1_gen_per_stream": (dict(fft_size=4096, normalize_volume=True), 2, {},
-                          {"launches_gen": 1}),
+                          {"launches_gen": 1, **TAIL}),
     "k1_df": (dict(fft_size=4096), 2, {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"},
-              {"launches_gen_df": 1}),
+              {"launches_gen_df": 1, **TAIL}),
     "k2": (dict(fft_size=32768, enable_large_fft=True), 2, {},
-           {"launches3": 1}),
+           {"launches3": 1, **TAIL}),
     "k2_df": (dict(fft_size=32768, enable_large_fft=True), 2,
-              {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"}, {"launches3_df": 1}),
+              {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"},
+              {"launches3_df": 1, **TAIL}),
     "k3": (dict(fft_size=1024), 2, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
-           {"launches_cfft": 1}),
+           {"launches_cfft": 1, **TAIL}),
     "k3_mono": (dict(fft_size=1024), 1, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
-                {"launches_cfft": 1}),
-    "lowering": (dict(auto_fft_size=True), 2, {}, {}),
+                {"launches_cfft": 1, **TAIL}),
+    "lowering": (dict(auto_fft_size=True), 2, {}, dict(TAIL)),
     "matmul": (dict(fft_size=4096), 2, {"WAVEFORM_TPU_FFT_BACKEND": "matmul"},
-               {}),
+               dict(TAIL)),
 }
 
 
@@ -528,7 +537,8 @@ def test_graph_tick_matches_eager_bitwise(path, dev, monkeypatch):
     """The graph tick against the eager packed tick on the same packets,
     bit for bit in every tick's pixels and in the final state, on every
     kernel path and the lowering (path c, N=800); each replay launches
-    its path's kernel once, counted from the capture."""
+    its path's kernel once and the tail's pair, counted from the
+    capture."""
     settings, channels, envs, want = GRAPH_PATHS[path]
     for k, v in envs.items():
         monkeypatch.setenv(k, v)
@@ -631,7 +641,8 @@ def test_microbatch_flush_matches_single_ticks(dev):
             batch = mb.last_batch_pixels
             for i in range(4):
                 assert torch.equal(batch[i], singles[k - 3 + i]), (k, i)
-    assert mb.kernels_per_replay[("mb", 4, True)] == {"launches_gen": 4}
+    assert mb.kernels_per_replay[("mb", 4, True)] == {"launches_gen": 4,
+                                                      "launches_tail": 8}
 
 
 def test_meter_graph_matches_eager(dev):
@@ -763,7 +774,8 @@ def test_waveform_resized_on_card(dev):
 
 def test_engine_spectrum_launches_k1_gen_once_a_tick(dev):
     """WaveformEngine's spectrum mode at N=4096 on the card: one K1-gen
-    launch a tick (warm-up, capture, replays) and no other kernel, within
+    launch and one tail pair a tick (warm-up, capture, replays) and no
+    other kernel, within
     1e-4 dB of the CPU port."""
     from waveform_tpu_torch.runtime.engine import WaveformEngine
     cfg = resolve(Settings(fft_size=4096, width=400, window=FFTWindow.HANN),
@@ -782,7 +794,7 @@ def test_engine_spectrum_launches_k1_gen_once_a_tick(dev):
         got = card.tick(now_ns=now).cpu().numpy()
         moved = {c: getattr(exact_cuda, c) - n for c, n in before.items()
                  if getattr(exact_cuda, c) != n}
-        assert moved == {"launches_gen": 1}, (k, moved)
+        assert moved == {"launches_gen": 1, **TAIL}, (k, moved)
         want = cpu.tick(now_ns=now).numpy()
         vis = want > -120.0
         np.testing.assert_allclose(got[vis], want[vis], rtol=0, atol=1e-4)
@@ -984,7 +996,7 @@ def test_bus_graph_matches_eager_bus(dev):
         _bus_tick((graph, eager), x, now, eager=eager)
         for a, b in zip(_bus_state(graph), _bus_state(eager)):
             assert torch.equal(a, b), k
-    assert graph._graph.launches == {"launches_gen": 2}
+    assert graph._graph.launches == {"launches_gen": 2, "launches_tail": 4}
 
 
 def test_bus_ring_growth_keeps_history(dev):
@@ -1113,7 +1125,7 @@ def test_rfft_fn_graph_tick_matches_eager(dev):
         eager.feed_batch(x, now, now_ns=now)
         assert torch.equal(graph.tick(now_ns=now), _eager_tick(eager, now))
     assert _counts() == before
-    assert graph.kernels_per_replay == {("tick", True): {}}
+    assert graph.kernels_per_replay == {("tick", True): dict(TAIL)}
 
     def syncs(x):
         z = torch.fft.rfft(x)
@@ -1177,7 +1189,8 @@ def test_sharded_mesh_on_one_card_matches_single_engine(dev):
     got = graph.read_pixels()
     vis = want > -120.0
     np.testing.assert_allclose(got[vis], want[vis], rtol=0, atol=1e-4)
-    assert graph.kernels_per_replay[("tick", True)] == {"launches_gen": 2}
+    assert graph.kernels_per_replay[("tick", True)] == {"launches_gen": 2,
+                                                        "launches_tail": 4}
 
 
 def test_graph_tick_generator_draws_anew_each_replay(dev):

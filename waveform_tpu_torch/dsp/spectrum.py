@@ -13,6 +13,10 @@ mixed-domain quirk: in mono downmix the fold writes dBFS into channel 0
 while channel 1 keeps the pre-fold linear magnitude.  Silence and timeout
 gating follow the JAX step line for line: channel-ordered latch, frozen
 old frame when every channel is silent below the floor gate.
+
+Everything after the FFT (the tail) runs on the card as one hand-written
+CUDA kernel pair (``kernels/tail_cuda.py``) and on the CPU as torch ops
+(:func:`spectrum_tail_ref`); both give the same bits.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from ..core.device import checked_device
 from ..core.enums import FFTWindow, TSmoothingMode
 from ..kernels.exactfft import rfft_mag_exact, two_prod, two_sum
 from ..kernels.matfft import rfft_mag
+from ..kernels.tail_cuda import spectrum_tail, tail_constants
 from ..runtime import profiler
 from .oracle import TV_EMA_DENOM, rolloff_modifiers, slope_modifiers
 from .windows import window_coefficients, window_sum
@@ -201,6 +206,153 @@ def _mag_tail(cfg: ResolvedConfig, mag: torch.Tensor,
     return mag
 
 
+def tail_tables(cfg: ResolvedConfig,
+                device: torch.device | str = "cuda"):
+    """The step's per-bin tables on ``device``: ``(slope, rolloff)``, each
+    an [nbins] f32 tensor or None where the config has none."""
+    nbins = cfg.fft_size // 2
+    slope = None
+    if cfg.slope > 0.0:
+        slope = torch.from_numpy(
+            slope_modifiers(nbins, cfg.slope).astype(np.float32)).to(device)
+    rolloff = None
+    if cfg.rolloff_q > 0.0 and cfg.rolloff_rate > 0.0:
+        rolloff = torch.from_numpy(rolloff_modifiers(
+            cfg.fft_size, cfg.audio.samples_per_sec, cfg.cutoff_low,
+            cfg.cutoff_high, cfg.rolloff_q,
+            cfg.rolloff_rate).astype(np.float32)).to(device)
+    return slope, rolloff
+
+
+def spectrum_tail_ref(cfg: ResolvedConfig, mag: torch.Tensor,
+                      nz_k: torch.Tensor, valid: torch.Tensor | None,
+                      state: SpectrumState, dt: float | torch.Tensor,
+                      active: torch.Tensor, input_rms: torch.Tensor,
+                      run: torch.Tensor | None = None,
+                      slope: torch.Tensor | None = None,
+                      rolloff: torch.Tensor | None = None) -> SpectrumState:
+    """The step after the |rFFT|, in torch ops: 2/Σw and the slope, the
+    EMA, silence and timeout gating, the channel fold, dBFS, volume
+    normalization, roll-off and the ``run`` freeze.  ``mag`` [S, C, nbins]
+    and ``nz_k`` [S, C] are the FFT's magnitudes and nonzero predicate,
+    ``slope`` and ``rolloff`` the step's :func:`tail_tables`; the rest as
+    the step takes them.  The step runs it on CPU tensors; on the card it
+    is the plain version of ``kernels/tail_cuda.spectrum_tail``, which
+    gives the same bits."""
+    C, O = _channels(cfg)
+    D = cfg.display_channels
+    floor_gate = float(np.float32(cfg.floor - 10))
+    if valid is None:
+        valid = torch.ones(nz_k.shape, dtype=torch.bool, device=nz_k.device)
+    g, g2 = gravity_terms(cfg, dt)
+    mag = _mag_tail(cfg, mag, slope)                  # [S, C, nbins]
+
+    if cfg.tsmoothing != TSmoothingMode.NONE:
+        old = state.tsmooth
+        if cfg.fast_peaks:
+            old = torch.maximum(mag, old)
+        mag_s = g * old + g2 * mag
+    else:
+        mag_s = mag
+
+    # --- silence gating (src/source_generic.cpp:63-95) ---
+    # channels whose ring lacked data neither scan nor count
+    nz = nz_k & valid
+    # latch value as seen by channel c: earlier channels may clear it
+    ls0 = state.last_silent
+    ls_seen_list = [ls0]
+    for c in range(1, C):
+        ls_seen_list.append(ls_seen_list[-1] & ~nz[:, c - 1])
+    ls_seen = torch.stack(ls_seen_list, dim=1)        # [S, C]
+
+    # outsilent: display-channel dB all <= floor-10 (channel 0 in mono)
+    disp_ch = [c if cfg.stereo else 0 for c in range(C)]
+    out_silent = torch.stack(
+        [torch.all(state.decibels[:, disp_ch[c]] <= floor_gate, dim=-1)
+         for c in range(C)], dim=1)                   # [S, C]
+
+    silent = ~nz
+    if not cfg.stereo and C > 1:
+        # sequential-channel parity: the reference scans m_decibels[0]
+        # MID-tick, so once an earlier channel processes, the buffer
+        # holds fresh LINEAR magnitudes (>= 0, above the negative gate)
+        # and a later silent channel can never read outsilent
+        os0 = out_silent[:, 0]
+        os_list = [os0]
+        proc_before = valid[:, 0] & ~(silent[:, 0]
+                                      & (ls_seen[:, 0] | os0))
+        for c in range(1, C):
+            osc = out_silent[:, c] & ~proc_before
+            os_list.append(osc)
+            proc_before = proc_before | (
+                valid[:, c] & ~(silent[:, c] & (ls_seen[:, c] | osc)))
+        out_silent = torch.stack(os_list, dim=1)
+    skip = ~valid | (silent & (ls_seen | out_silent))  # keeps old state
+    counted = valid & silent & ~ls_seen & out_silent   # adds to latch
+    latch_survives = ls0 & torch.all(~nz, dim=1)
+    latch_set = torch.all(counted, dim=1)
+    new_last_silent = latch_survives | latch_set      # [S]
+
+    pm = (~skip)[:, :, None]
+    new_tsmooth = torch.where(pm, mag_s, state.tsmooth)
+    # skipped channels keep their old m_decibels value verbatim
+    work = torch.where(pm, mag_s, state.decibels[:, :C])
+
+    # --- duplicate mono capture for stereo output (src:141-142) ---
+    if O > C:
+        work = torch.cat([work, work[:, :1]], dim=1)  # [S, O, nbins]
+
+    # --- channel fold (src/source_generic.cpp:144-159) ---
+    if cfg.stereo:
+        folded = dbfs(work)
+    elif C == 2:
+        d0 = dbfs((work[:, :1] + work[:, 1:2]) * 0.5)
+        folded = torch.cat([d0, work[:, 1:]], dim=1)
+    else:
+        folded = dbfs(work)
+
+    # --- volume normalization, display channels, bins>=1 (src:161-167)
+    if cfg.normalize_volume:
+        comp = torch.clamp_max(cfg.volume_target - dbfs(input_rms),
+                               cfg.max_gain)
+        folded[:, :D, 1:] += comp[:, None, None]
+
+    # --- roll-off, display channels, bins>=1 (src:169-179) ---
+    if rolloff is not None:
+        folded[:, :D, 1:] = torch.clamp_min(
+            folded[:, :D, 1:] - rolloff[1:], DB_MIN)
+
+    # streams that latched silent keep their previous frame verbatim
+    frozen = new_last_silent[:, None, None]
+    new_db = torch.where(frozen, state.decibels, folded)
+
+    # --- timeout / hidden: decay to DB_MIN unless already latched ---
+    # (src/source_generic.cpp:36-48); only display channels are cleared
+    timed_out = ~active
+    to_fresh = (timed_out & ~state.last_silent)[:, None, None]
+    to_bc = timed_out[:, None, None]
+    new_tsmooth = torch.where(
+        to_fresh, torch.zeros_like(new_tsmooth),
+        torch.where(to_bc, state.tsmooth, new_tsmooth))
+    cleared = state.decibels.clone()
+    cleared[:, :D] = DB_MIN
+    new_db = torch.where(to_fresh, cleared,
+                         torch.where(to_bc, state.decibels, new_db))
+    new_last_silent = timed_out | new_last_silent
+
+    if run is not None:
+        # streams whose tick never ran freeze verbatim
+        # (src/source.cpp:1333-1336 early return)
+        rb = run[:, None, None]
+        new_tsmooth = torch.where(rb, new_tsmooth, state.tsmooth)
+        new_db = torch.where(rb, new_db, state.decibels)
+        new_last_silent = torch.where(run, new_last_silent,
+                                      state.last_silent)
+
+    return SpectrumState(tsmooth=new_tsmooth, decibels=new_db,
+                         last_silent=new_last_silent)
+
+
 def make_spectrum_step(cfg: ResolvedConfig, rfft_fn=None,
                        device: torch.device | str = "cuda"):
     """Build the spectrum step for a resolved config on ``device`` (the
@@ -212,6 +364,10 @@ def make_spectrum_step(cfg: ResolvedConfig, rfft_fn=None,
     past N/2 are dropped (the exact kernels never run under it).  In a
     captured tick it is captured like any other op, so it must not
     synchronize with the host.
+
+    After the FFT, CUDA tensors run the tail as one hand-written kernel
+    pair (``kernels/tail_cuda.spectrum_tail``, two launches), CPU tensors
+    as torch ops (:func:`spectrum_tail_ref`); both give the same bits.
 
     Returns ``step(samples, state, dt, active, input_rms, valid=None,
     run=None) -> SpectrumState``:
@@ -228,9 +384,6 @@ def make_spectrum_step(cfg: ResolvedConfig, rfft_fn=None,
     check_config(cfg)
     device = checked_device(device, "make_spectrum_step")
     nbins = cfg.fft_size // 2
-    C, O = _channels(cfg)
-    D = cfg.display_channels
-    floor_gate = float(np.float32(cfg.floor - 10))
     backend = "rfft_fn" if rfft_fn is not None else resolve_fft_backend()
     window = window_pair(cfg, device) if backend == "exact" else None
     w32 = None
@@ -238,27 +391,14 @@ def make_spectrum_step(cfg: ResolvedConfig, rfft_fn=None,
         w32 = torch.from_numpy(window_coefficients(
             cfg.window, cfg.fft_size, cfg.sine_exponent,
             dtype=np.float32)).to(device)
-    slope = None
-    if cfg.slope > 0.0:
-        slope = torch.from_numpy(
-            slope_modifiers(nbins, cfg.slope).astype(np.float32)).to(device)
-    rolloff = None
-    if cfg.rolloff_q > 0.0 and cfg.rolloff_rate > 0.0:
-        rolloff = torch.from_numpy(rolloff_modifiers(
-            cfg.fft_size, cfg.audio.samples_per_sec, cfg.cutoff_low,
-            cfg.cutoff_high, cfg.rolloff_q,
-            cfg.rolloff_rate).astype(np.float32)).to(device)
+    slope, rolloff = tail_tables(cfg, device)
+    tail = tail_constants(cfg)
 
     def step(samples: torch.Tensor, state: SpectrumState,
              dt: float | torch.Tensor, active: torch.Tensor,
              input_rms: torch.Tensor, valid: torch.Tensor | None = None,
              run: torch.Tensor | None = None) -> SpectrumState:
         samples = samples.to(torch.float32)
-        if valid is None:
-            valid = torch.ones(samples.shape[:2], dtype=torch.bool,
-                               device=samples.device)
-        g, g2 = gravity_terms(cfg, dt)
-
         if backend == "exact":
             mag, nz_k = rfft_mag_exact(samples, window)
         else:
@@ -271,111 +411,15 @@ def make_spectrum_step(cfg: ResolvedConfig, rfft_fn=None,
                 mag = rfft_fn(x)[..., :nbins].abs().to(torch.float32)
             nz_k = torch.any(samples != 0.0, dim=-1)
         profiler.mark("tick.fft")
-        mag = _mag_tail(cfg, mag, slope)                  # [S, C, nbins]
-
-        if cfg.tsmoothing != TSmoothingMode.NONE:
-            old = state.tsmooth
-            if cfg.fast_peaks:
-                old = torch.maximum(mag, old)
-            mag_s = g * old + g2 * mag
-        else:
-            mag_s = mag
-
-        # --- silence gating (src/source_generic.cpp:63-95) ---
-        # channels whose ring lacked data neither scan nor count
-        nz = nz_k & valid
-        # latch value as seen by channel c: earlier channels may clear it
-        ls0 = state.last_silent
-        ls_seen_list = [ls0]
-        for c in range(1, C):
-            ls_seen_list.append(ls_seen_list[-1] & ~nz[:, c - 1])
-        ls_seen = torch.stack(ls_seen_list, dim=1)        # [S, C]
-
-        # outsilent: display-channel dB all <= floor-10 (channel 0 in mono)
-        disp_ch = [c if cfg.stereo else 0 for c in range(C)]
-        out_silent = torch.stack(
-            [torch.all(state.decibels[:, disp_ch[c]] <= floor_gate, dim=-1)
-             for c in range(C)], dim=1)                   # [S, C]
-
-        silent = ~nz
-        if not cfg.stereo and C > 1:
-            # sequential-channel parity: the reference scans m_decibels[0]
-            # MID-tick, so once an earlier channel processes, the buffer
-            # holds fresh LINEAR magnitudes (>= 0, above the negative gate)
-            # and a later silent channel can never read outsilent
-            os0 = out_silent[:, 0]
-            os_list = [os0]
-            proc_before = valid[:, 0] & ~(silent[:, 0]
-                                          & (ls_seen[:, 0] | os0))
-            for c in range(1, C):
-                osc = out_silent[:, c] & ~proc_before
-                os_list.append(osc)
-                proc_before = proc_before | (
-                    valid[:, c] & ~(silent[:, c] & (ls_seen[:, c] | osc)))
-            out_silent = torch.stack(os_list, dim=1)
-        skip = ~valid | (silent & (ls_seen | out_silent))  # keeps old state
-        counted = valid & silent & ~ls_seen & out_silent   # adds to latch
-        latch_survives = ls0 & torch.all(~nz, dim=1)
-        latch_set = torch.all(counted, dim=1)
-        new_last_silent = latch_survives | latch_set      # [S]
-
-        pm = (~skip)[:, :, None]
-        new_tsmooth = torch.where(pm, mag_s, state.tsmooth)
-        # skipped channels keep their old m_decibels value verbatim
-        work = torch.where(pm, mag_s, state.decibels[:, :C])
-
-        # --- duplicate mono capture for stereo output (src:141-142) ---
-        if O > C:
-            work = torch.cat([work, work[:, :1]], dim=1)  # [S, O, nbins]
-
-        # --- channel fold (src/source_generic.cpp:144-159) ---
-        if cfg.stereo:
-            folded = dbfs(work)
-        elif C == 2:
-            d0 = dbfs((work[:, :1] + work[:, 1:2]) * 0.5)
-            folded = torch.cat([d0, work[:, 1:]], dim=1)
-        else:
-            folded = dbfs(work)
-
-        # --- volume normalization, display channels, bins>=1 (src:161-167)
-        if cfg.normalize_volume:
-            comp = torch.clamp_max(cfg.volume_target - dbfs(input_rms),
-                                   cfg.max_gain)
-            folded[:, :D, 1:] += comp[:, None, None]
-
-        # --- roll-off, display channels, bins>=1 (src:169-179) ---
-        if rolloff is not None:
-            folded[:, :D, 1:] = torch.clamp_min(
-                folded[:, :D, 1:] - rolloff[1:], DB_MIN)
-
-        # streams that latched silent keep their previous frame verbatim
-        frozen = new_last_silent[:, None, None]
-        new_db = torch.where(frozen, state.decibels, folded)
-
-        # --- timeout / hidden: decay to DB_MIN unless already latched ---
-        # (src/source_generic.cpp:36-48); only display channels are cleared
-        timed_out = ~active
-        to_fresh = (timed_out & ~state.last_silent)[:, None, None]
-        to_bc = timed_out[:, None, None]
-        new_tsmooth = torch.where(
-            to_fresh, torch.zeros_like(new_tsmooth),
-            torch.where(to_bc, state.tsmooth, new_tsmooth))
-        cleared = state.decibels.clone()
-        cleared[:, :D] = DB_MIN
-        new_db = torch.where(to_fresh, cleared,
-                             torch.where(to_bc, state.decibels, new_db))
-        new_last_silent = timed_out | new_last_silent
-
-        if run is not None:
-            # streams whose tick never ran freeze verbatim
-            # (src/source.cpp:1333-1336 early return)
-            rb = run[:, None, None]
-            new_tsmooth = torch.where(rb, new_tsmooth, state.tsmooth)
-            new_db = torch.where(rb, new_db, state.decibels)
-            new_last_silent = torch.where(run, new_last_silent,
-                                          state.last_silent)
-
-        return SpectrumState(tsmooth=new_tsmooth, decibels=new_db,
-                             last_silent=new_last_silent)
+        if mag.device.type != "cuda":
+            return spectrum_tail_ref(cfg, mag, nz_k, valid, state, dt, active,
+                                     input_rms, run, slope, rolloff)
+        gravity = dt if isinstance(dt, torch.Tensor) else gravity_pair(cfg, dt)
+        return SpectrumState(*spectrum_tail(
+            tail, mag.contiguous(), nz_k.contiguous(),
+            None if valid is None else valid.contiguous(), state.tsmooth,
+            state.decibels, state.last_silent, gravity, active.contiguous(),
+            input_rms.contiguous() if tail.normalize else None,
+            None if run is None else run.contiguous(), slope, rolloff))
 
     return step

@@ -91,6 +91,9 @@ launches_cfft = 0
 launches_gen = 0
 launches_gen_df = 0
 launches3_df = 0
+# launches of the spectrum tail's kernel pair (kernels/tail_cuda.py): two a
+# step; not an FFT kernel, so not in COUNTER
+launches_tail = 0
 
 TIERS = ("f32", "df")
 

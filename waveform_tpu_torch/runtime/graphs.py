@@ -25,7 +25,8 @@ A capture runs with Python's garbage collector off (:func:`no_gc`): the
 collector frees the graphs of dropped engines, and freeing a graph during
 a capture invalidates it.
 
-Launch counts: ``exact_cuda``'s counters count kernel launches.  A replay
+Launch counts: ``exact_cuda``'s counters (:data:`COUNTERS`: each exact
+FFT kernel's and the spectrum tail's) count kernel launches.  A replay
 launches the kernels that the capture recorded, so a :class:`GraphTick`
 counts each wrapper call made during the capture (and takes those calls
 back out of the counters: a capture launches nothing) and adds that count
@@ -52,7 +53,8 @@ import torch
 from ..kernels import exact_cuda
 from . import profiler
 
-COUNTERS = tuple(exact_cuda.COUNTER.values())
+# the FFT kernels' counters and the spectrum tail's (kernels/tail_cuda.py)
+COUNTERS = (*exact_cuda.COUNTER.values(), "launches_tail")
 
 
 # the side stream of every warm-up and capture on a device: the libraries
