@@ -879,10 +879,11 @@ def eager_tick(eng, now: int):
     """One tick of ``eng`` with its device function run eagerly (every
     torch op launched from the host, as the first tick's warm-up runs it):
     the reference and the "before" of the graph tick."""
+    from waveform_tpu_torch.runtime.serving import upload
     eng._flip ^= 1
     eng._bind_buf(eng._flip)
     uniform = eng._stage(now, 1.0 / eng.cfg.fps)
-    eng._upload(eng._host[eng._flip], eng._dev_in, eng._events, eng._flip)
+    upload(eng._host[eng._flip], eng._dev_in, eng._events, eng._flip)
     return eng._graph_fn(("tick", uniform))()
 
 
@@ -984,8 +985,9 @@ def phase_graph(wt, ServingEngine, profiler, exact_cuda, rng, cell):
 
 
 # the engine methods a graph tick's host time is split over (HOST_PIECES
-# order), besides the rest of tick() and the wait for the device after it
-HOST_PIECES = ("feed_batch", "_bind_buf", "_assemble", "_upload", "_call",
+# order; "upload" is runtime/serving.py's function), besides the rest of
+# tick() and the wait for the device after it
+HOST_PIECES = ("feed_batch", "_bind_buf", "_stage", "upload", "_call",
                "_fresh")
 
 
@@ -995,6 +997,10 @@ def host_split(profiler, eng, one_tick, n: int = 60):
     p99 (ms) and {piece: median µs} of the tick's host pieces — each method
     of ``HOST_PIECES`` (``_call`` is the replay's enqueue), the rest of
     ``tick`` and the wait for the device after ``tick`` returned."""
+    from waveform_tpu_torch.runtime import serving
+    owner = {name: serving if name == "upload" else eng
+             for name in HOST_PIECES}
+    plain = {name: getattr(owner[name], name) for name in HOST_PIECES}
     acc = {name: [] for name in HOST_PIECES}
 
     def timed(name, fn):
@@ -1007,7 +1013,7 @@ def host_split(profiler, eng, one_tick, n: int = 60):
 
     tick = eng.tick
     for name in HOST_PIECES:
-        setattr(eng, name, timed(name, getattr(eng, name)))
+        setattr(owner[name], name, timed(name, plain[name]))
     frames = profiler.FrameProfiler(eng.S, eng.cfg.fft_size)
     rest, wait = [], []
     try:
@@ -1024,8 +1030,12 @@ def host_split(profiler, eng, one_tick, n: int = 60):
             rest.append(stamps[1] - stamps[0] - inside)
             wait.append(t3 - stamps[1])
     finally:
-        for name in (*HOST_PIECES, "tick"):
-            delattr(eng, name)
+        for name in HOST_PIECES:
+            if owner[name] is eng:
+                delattr(eng, name)
+            else:
+                setattr(owner[name], name, plain[name])
+        del eng.tick
     med = {name: statistics.median(v) * 1e6 for name, v in acc.items()}
     med["rest of tick"] = statistics.median(rest) * 1e6
     med["device wait"] = statistics.median(wait) * 1e6

@@ -23,9 +23,10 @@ from waveform_tpu_torch import (
     Settings,
     resolve,
 )
+from waveform_tpu_torch.dsp.spectrum import gravity_pair
 from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.runtime.graphs import COUNTERS
-from waveform_tpu_torch.runtime.serving import ServingEngine
+from waveform_tpu_torch.runtime.serving import ServingEngine, upload
 from waveform_tpu_torch.utils import plans
 
 pytestmark = pytest.mark.cuda
@@ -482,7 +483,7 @@ def _eager_tick(eng, now):
     eng._flip ^= 1
     eng._bind_buf(eng._flip)
     uniform = eng._stage(now, 1.0 / eng.cfg.fps)
-    eng._upload(eng._host[eng._flip], eng._dev_in, eng._events, eng._flip)
+    upload(eng._host[eng._flip], eng._dev_in, eng._events, eng._flip)
     return eng._graph_fn(("tick", uniform))()
 
 
@@ -570,6 +571,74 @@ def test_graph_tick_matches_eager_bitwise(path, dev, monkeypatch):
     assert ("tick", not per_stream) in replays
     assert set(replays) <= {("tick", True), ("tick", False)}
     assert all(launches == want for launches in replays.values())
+
+
+def _stage_in_pieces(eng, now, dt):
+    """``eng``'s stage as separate steps on the bound upload: the native
+    assembler's rows, then the count form and the scalars in Python."""
+    eng._assemble(now)
+    uniform, c0 = eng._uniform_count()
+    eng._tail[:2] = gravity_pair(eng.cfg, dt)
+    eng._tail[2] = c0
+    return uniform
+
+
+@pytest.mark.parametrize("traced", [False, True])
+@pytest.mark.parametrize("path", ["k2", "k1_gen", "k1_gen_per_stream"])
+def test_native_stage_tick_matches_the_stage_in_pieces(path, traced, dev,
+                                                       monkeypatch, tracing):
+    """Ticks whose stage is one native call against an engine twin that
+    stages in pieces, on the same packets: bit for bit in every tick's
+    pixels and in the final state, with the launch counters moving as a
+    replay moves them and every tick counted as ``ticks.native``.  The
+    ticks queue behind a 40 ms sleep on the stream with no synchronize,
+    so the third tick's stage must wait on the event that the first
+    tick's upload recorded (reused from tick to tick) before it rewrites
+    that buffer."""
+    settings, channels, envs, want = GRAPH_PATHS[path]
+    for k, v in envs.items():
+        monkeypatch.setenv(k, v)
+    cfg = resolve(Settings(width=400, window=FFTWindow.HANN,
+                           interp_mode=InterpMode.LANCZOS, **settings),
+                  AudioInfo(48000, channels))
+    S = 4
+    fast = ServingEngine(cfg, S, device=dev)
+    slow = ServingEngine(cfg, S, device=dev)
+    assert fast._native is not None
+    slow._stage = lambda now, dt: _stage_in_pieces(slow, now, dt)
+    tracing.set_tracing(traced)
+    rng = np.random.default_rng(21)
+    per_stream = path.endswith("per_stream")
+    outs = []
+    for k in range(8):
+        x = _packets(rng, S, channels, per_stream, k)
+        now = 10_000_000_000 + k * 16_666_667
+        _feed(fast, x, now)
+        _feed(slow, x, now)
+        if k == 1:
+            torch.cuda._sleep(40_000_000)
+        before = {c: getattr(exact_cuda, c) for c in COUNTERS}
+        a = fast.tick(now_ns=now)
+        moved = {c: getattr(exact_cuda, c) - n for c, n in before.items()
+                 if getattr(exact_cuda, c) != n}
+        assert moved == want, (k, moved)
+        outs.append((a, slow.tick(now_ns=now)))
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(outs):
+        assert torch.equal(a, b), k
+    for a, b in ((fast.state.tsmooth, slow.state.tsmooth),
+                 (fast.state.decibels, slow.state.decibels),
+                 (fast.state.last_silent, slow.state.last_silent),
+                 (fast.ring.buf, slow.ring.buf)):
+        assert torch.equal(a, b)
+    assert list(fast._ticks) == [("tick", not per_stream)]
+    counters = tracing.snapshot()["counters"]
+    if traced:
+        assert counters["ticks.native"] == 8
+        assert counters["ticks.uniform" if not per_stream
+                        else "ticks.gather"] == 16
+    else:
+        assert "ticks.native" not in counters
 
 
 def test_graph_pixels_survive_the_next_tick(dev):

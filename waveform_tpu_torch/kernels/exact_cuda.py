@@ -852,6 +852,11 @@ def _build() -> ctypes.CDLL:
                             (lib.wf_exact_cfft_stage, lib.wf_exact_cfft, 1)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * ints + whole.argtypes
+    # the served tick's upload (csrc/tick_host.cu, runtime/serving.py)
+    lib.wf_tick_upload.restype = ctypes.c_int
+    lib.wf_tick_upload.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_longlong, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_int]
     return lib
 
 

@@ -95,6 +95,11 @@ def load_library():
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_int]
+        lib.wf_stage_packed.restype = ctypes.c_int
+        lib.wf_stage_packed.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float]
         lib.wf_set_trim_cap.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
         lib.wf_assemble_waveform.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -231,6 +236,18 @@ class NativeAssembler:
             self._h, now_ns, hop_budget,
             flat.ctypes.data_as(ctypes.c_void_p), flat.shape[1],
             1 if with_rms else 0, 1 if split_active else 0)
+
+    def stage_packed(self, now_ns: int, hop_budget: int, flat: int,
+                     row_stride: int, with_rms: bool, split_active: bool,
+                     g: float, g1: float) -> bool:
+        """A single tick's whole stage at address ``flat`` (S rows of
+        ``row_stride`` floats and 3 more): the rows of
+        :meth:`assemble_hop_packed`, then the scalars (g, g1, the first
+        stream's count).  Returns whether every stream advances by the
+        same count."""
+        return bool(self._lib.wf_stage_packed(
+            self._h, now_ns, hop_budget, flat, row_stride,
+            1 if with_rms else 0, 1 if split_active else 0, g, g1))
 
     def set_trim_cap(self, cap: int) -> None:
         """Switch the feed-side queue trim to waveform mode: keep the

@@ -370,6 +370,28 @@ void wf_assemble_hop_packed(Engine* e, long long now_ns, int H, float* flat,
   wf_assemble_hop_packed2(e, now_ns, H, flat, row_stride, with_rms, 0);
 }
 
+// The whole stage of one single-tick upload (runtime/serving.py
+// ServingEngine._stage): the packed rows of wf_assemble_hop_packed2, then
+// the tick's three scalars behind the S rows — the gravity pair (g, g1)
+// and the first stream's count.  Returns 1 when every stream advances by
+// the same count (the ring's batch shift), else 0.
+int wf_stage_packed(Engine* e, long long now_ns, int H, float* flat,
+                    long long row_stride, int with_rms, int split_active,
+                    float g, float g1) {
+  wf_assemble_hop_packed2(e, now_ns, H, flat, row_stride, with_rms,
+                          split_active);
+  const size_t meta = (size_t)e->channels * H + (with_rms ? (size_t)H : 0);
+  const float c0 = e->num_streams > 0 ? flat[meta] : 0.0f;
+  int uniform = 1;
+  for (int i = 1; i < e->num_streams; ++i)
+    if (flat[(size_t)i * (size_t)row_stride + meta] != c0) uniform = 0;
+  float* tail = flat + (size_t)e->num_streams * (size_t)row_stride;
+  tail[0] = g;
+  tail[1] = g1;
+  tail[2] = c0;
+  return uniform;
+}
+
 // Waveform-mode packed assembly: the host half of the oscilloscope tick
 // (runtime/waveform_device.py::_assemble — itself the batched form of the
 // reference's per-source resample loop, src/source_generic.cpp:271-390).

@@ -128,17 +128,27 @@ class GraphTick:
                 return profiler.host_marks(self._fn)
             return self._fn()
         # the warm-up, the capture and each replay on the tick's own card
-        # (a mesh ticks one graph on each of its devices in turn)
-        with torch.cuda.device(self.device):
-            if self.graph is None:
-                return self._warm_and_capture()
-            if profiler.on and self.twin is not None:
-                self._stamps.replaying()
-                self.twin.replay()
-                out = self._twin_out
-            else:
-                self.graph.replay()
-                out = self._out
+        # (a mesh ticks one graph on each of its devices in turn); the
+        # device guard, a fixed host cost on every tick, only where another
+        # card is current
+        index = self.device.index
+        if index is not None and index != torch.cuda.current_device():
+            with torch.cuda.device(index):
+                return self._run()
+        return self._run()
+
+    def _run(self):
+        """The warm-up and capture at the first call, a replay after, on
+        the current card."""
+        if self.graph is None:
+            return self._warm_and_capture()
+        if profiler.on and self.twin is not None:
+            self._stamps.replaying()
+            self.twin.replay()
+            out = self._twin_out
+        else:
+            self.graph.replay()
+            out = self._out
         _add_counts(self.launches)
         return out
 

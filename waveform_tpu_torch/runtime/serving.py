@@ -24,6 +24,9 @@ written before the replay: the packed rows and the scalars behind them,
 routing variables are read when a graph is captured, at the first tick
 of its form: changing them later needs a new engine.
 
+With the native assembler (``native/``) a tick's whole stage is one
+call into it: the packed rows, the scalars and the count form.
+
 Host-side A/V sync follows the reference exactly: the window ends
 ``dtsamples`` behind the freshest audio when timestamps run ahead of the
 clock (src/source.hpp:279-285), mute zero-fills (src/source.cpp:1878-1879),
@@ -54,6 +57,7 @@ from ..dsp.spectrum import (
     init_state,
     make_spectrum_step,
 )
+from ..kernels import exact_cuda
 from ..rebin.apply import make_rebin_fn
 from . import profiler
 from .graphs import GraphTick
@@ -153,13 +157,26 @@ class _PendingStream:
 def upload(host: torch.Tensor, dev: torch.Tensor, events: list,
            i: int) -> None:
     """Copy ``host`` into ``dev`` on the current stream, asynchronously
-    from pinned memory; on CUDA record the event that frees ``host`` for
-    reuse in ``events[i]`` (wait on it before writing ``host`` again)."""
-    dev.copy_(host, non_blocking=True)
-    if dev.device.type == "cuda":
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(dev.device))
-        events[i] = ev
+    from pinned memory; on CUDA record ``events[i]``, the event that frees
+    ``host`` for reuse (wait on it before writing ``host`` again).  On CUDA
+    the copy and the record are one native call (``csrc/tick_host.cu``),
+    on the slot's event, which its first upload makes."""
+    if not dev.is_cuda:
+        dev.copy_(host, non_blocking=True)
+        return
+    if host.numel() != dev.numel():
+        raise ValueError(f"upload of {host.numel()} floats into "
+                         f"{dev.numel()}")
+    index = dev.get_device()
+    ev = events[i]
+    if ev is None:
+        ev = events[i] = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(index))   # makes its handle
+    err = exact_cuda.build().wf_tick_upload(
+        dev.data_ptr(), host.data_ptr(), dev.numel() * dev.element_size(),
+        torch._C._cuda_getCurrentRawStream(index), ev.cuda_event, index)
+    if err:
+        raise RuntimeError(f"the upload failed: CUDA error {err}")
 
 
 def assign(dst, src) -> None:
@@ -344,6 +361,7 @@ class PackedTickEngine(AutoMicrobatchMixin):
         buffers instead of one of its own)."""
         self._ticks: dict = {}       # (kind, ...) -> GraphTick
         self._host = [self._host_buffer(1) for _ in range(2)]
+        self._host_np = [h.numpy() for h in self._host]
         self._events: list = [None, None]
         self._flip = 0
         self._bind_buf(0)
@@ -367,14 +385,7 @@ class PackedTickEngine(AutoMicrobatchMixin):
         ev = self._events[i]
         if ev is not None:
             ev.synchronize()
-            self._events[i] = None
-        self._bind_external(self._host[i].numpy())
-
-    def _upload(self, host: torch.Tensor, dev: torch.Tensor,
-                events: list, i: int) -> None:
-        """Copy ``host`` into ``dev`` on the current stream; on CUDA record
-        the event that frees ``host`` for reuse in ``events[i]``."""
-        upload(host, dev, events, i)
+        self._bind_external(self._host_np[i])
 
     def _graph_fn(self, key):
         """The device function of one tick kind, over fixed tensors: a
@@ -447,8 +458,8 @@ class PackedTickEngine(AutoMicrobatchMixin):
         """Upload the staged host block ``_host[_flip]`` and run the tick
         on it; returns its output, a tensor of its own."""
         with profiler.span("serving.upload"):
-            self._upload(self._host[self._flip], self._dev_in, self._events,
-                         self._flip)
+            upload(self._host[self._flip], self._dev_in, self._events,
+                   self._flip)
         with profiler.span("serving.replay"):
             pixels = self._fresh(self._call(("tick", uniform)))
         self._last_pixels = pixels
@@ -466,7 +477,6 @@ class PackedTickEngine(AutoMicrobatchMixin):
             ev = self._mb_events[self._mb_flip]
             if ev is not None:
                 ev.synchronize()
-                self._mb_events[self._mb_flip] = None
             self._mb_uniform = []
         R = self._stride
         host = self._mb_bufs[self._mb_flip]
@@ -486,8 +496,7 @@ class PackedTickEngine(AutoMicrobatchMixin):
                           uniform: bool) -> None:
         """Upload the k staged slots of ``host`` and run them as one
         flush: sets ``_last_batch`` [k, ...] and ``_last_pixels``."""
-        self._upload(host, self._mb_buffer(k), self._mb_events,
-                     self._mb_flip)
+        upload(host, self._mb_buffer(k), self._mb_events, self._mb_flip)
         pxs = self._fresh(self._call(("mb", k, uniform)))
         self._last_batch = pxs
         self._last_pixels = pxs[-1]
@@ -644,6 +653,7 @@ class ServingEngine(PackedTickEngine):
                 if use_native:
                     raise
                 self._native = None
+        self._gravity = (None, 0.0, 0.0)   # (dt, g, 1 - g): _stage
 
         self._init_device_state()
         self._build_device_programs()
@@ -994,12 +1004,26 @@ class ServingEngine(PackedTickEngine):
     def _stage(self, now_ns: int, dt_f: float) -> bool:
         """Assemble the bound upload: packed rows, then the scalars (the
         gravity pair of ``dt_f`` and the uniform count).  Returns whether
-        every stream advances alike."""
-        self._assemble(now_ns)
-        uniform, c0 = self._uniform_count()
-        self._tail[:2] = gravity_pair(self.cfg, dt_f)
-        self._tail[2] = c0
-        return uniform
+        every stream advances alike.  With the native assembler it is one
+        call (counted as ``ticks.native``), the gravity pair kept for the
+        last ``dt_f``."""
+        if self._native is None:
+            self._assemble(now_ns)
+            uniform, c0 = self._uniform_count()
+            self._tail[:2] = gravity_pair(self.cfg, dt_f)
+            self._tail[2] = c0
+            return uniform
+        profiler.count("ticks.native")
+        g = self._gravity
+        if g[0] != dt_f:
+            g = self._gravity = (dt_f, *map(float,
+                                            gravity_pair(self.cfg, dt_f)))
+        uniform = self._native.stage_packed(
+            now_ns, self.H, self._in_buf.ctypes.data, self.packed_width,
+            self._normalize, self._split_meta, g[1], g[2])
+        # _uniform_count's rule for more than one process (the count
+        # behind the rows is then never read)
+        return uniform and process_count() == 1
 
     # ------------------------------------------------------------------
 
