@@ -255,22 +255,22 @@ import zlib
 import numpy as np
 import torch
 
+from waveform_tpu_torch.kernels import cuda_lib
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES
+
 SR, HOP = 48000, 800
 TOL = 2.5e-7          # kernel bound of the JAX package's tests
 TOL_SPLITS = 3e-7     # K2 vs K1's body (tests/test_exact_pallas.py:217-229)
 SEED = 0
 K1_SIZES = (1024, 2048, 4096)   # N1 = 8, 16, 32: K1's sizes, now K1-gen's
-# exact_cuda's launch counters: K2, K3, K1-gen, K1-df, K2-df
-COUNTERS = ("launches3", "launches_cfft", "launches_gen", "launches_gen_df",
-            "launches3_df")
 # the library's FFT kernels, all on the int8 tensor cores: stage 1 and
 # stage 2 of exact_mag3.cu and exact_mag_gen.cu at both tiers and of
 # exact_cfft.cu; and the spectrum tail's (spectrum_tail.cu: the gate and
 # the fused tail, each for 16-byte vectors and single floats)
 KERNELS = 10
 TAIL_KERNELS = 4
-# the tail's launches a spectrum step (its counter, exact_cuda.launches_tail)
-TAIL = {"launches_tail": 2}
+# the tail's launches a spectrum step, by its name in the launch table
+TAIL = {"tail": 2}
 
 
 @contextlib.contextmanager
@@ -341,10 +341,10 @@ def bad_streams(x: np.ndarray, rng) -> tuple:
     return (3, 4)
 
 
-def phase_kernel(exact_cuda, dev, kernel, twin, counter: str, sizes,
-                 streams, seed: int, versus=None, bitwise: bool = False):
+def phase_kernel(dev, kernel, twin, counter: str, sizes, streams,
+                 seed: int, versus=None, bitwise: bool = False):
     """``kernel`` vs ``twin`` vs float64 over the size/stream/window
-    matrix: each call adds one to ``exact_cuda.<counter>``, agrees with
+    matrix: each call adds one to ``LAUNCHES[counter]``, agrees with
     the twin within TOL (``bitwise``: bit for bit, NaN lanes by position)
     and float64 within TOL, counts nonzeros exactly, and keeps the
     1e20/NaN streams to themselves.  ``versus`` = (other kernel, its
@@ -366,10 +366,10 @@ def phase_kernel(exact_cuda, dev, kernel, twin, counter: str, sizes,
                 else:
                     w64, win = np.ones(n), None
                 xd = torch.from_numpy(x).to(dev)
-                before = getattr(exact_cuda, counter)
+                before = LAUNCHES[counter]
                 mag, nz = kernel(xd, win)
                 torch.cuda.synchronize()
-                check(getattr(exact_cuda, counter) == before + 1,
+                check(LAUNCHES[counter] == before + 1,
                       f"{counter} N={n} S={S}")
                 ref, nz_ref = twin(xd, win)
                 torch.cuda.synchronize()
@@ -427,7 +427,7 @@ def phase_df(exact_cuda, dev, cases, seed: int):
     n_cases = 0
     for entry, n, streams in cases:
         split = 3 if entry == "k2" else exact_cuda.stage1_split(n)
-        counter = "launches3_df" if split == 3 else "launches_gen_df"
+        counter = "K2-df" if split == 3 else "K1-df"
         twins = ((exact_cuda.rfft_pair_mag3_df_ref,
                   exact_cuda.rfft_pair_mag3_ref) if split == 3 else
                  (exact_cuda.rfft_pair_mag_df_ref,
@@ -445,19 +445,17 @@ def phase_df(exact_cuda, dev, cases, seed: int):
                 want = want[..., :n // 2]
                 scale = np.abs(want).max()
                 for tier, twin in zip(("df", "f32"), twins):
-                    before = [getattr(exact_cuda, c) for c in COUNTERS]
+                    before = fft_launches()
                     with env("WAVEFORM_TPU_KERNEL_TWIDDLE", tier):
                         mag, nz = (exact_cuda.rfft_pair_mag3(xd, win, tier)
                                    if entry == "k2" else
                                    exact_cuda.rfft_pair_mag(xd, win))
                     torch.cuda.synchronize()
-                    after = [getattr(exact_cuda, c) for c in COUNTERS]
-                    moved = [c for c, b, a in zip(COUNTERS, before, after)
-                             if a != b]
+                    after = fft_launches()
+                    moved = [c for c in after if after[c] != before.get(c)]
                     if tier == "df":
-                        check(moved == [counter]
-                              and after[COUNTERS.index(counter)]
-                              == before[COUNTERS.index(counter)] + 1,
+                        check(moved == [counter] and after[counter]
+                              == before.get(counter, 0) + 1,
                               f"df N={n} S={S}: counters moved {moved}")
                     else:
                         check(len(moved) == 1 and "df" not in moved[0],
@@ -524,7 +522,7 @@ def stage_ms(exact_cuda, body: str, n: int, S: int, dev, df: bool):
     after the other through the stage entry point must give the wrapper's
     output bit for bit."""
     entry, consts, keys, wrapper, _ = STAGED[body]
-    lib = exact_cuda.build()
+    lib = cuda_lib.build()
     wrap = getattr(exact_cuda, wrapper)
     tier = "df" if df else "f32"
     x = torch.from_numpy((0.5 * np.random.default_rng(SEED + 13)
@@ -592,7 +590,7 @@ def phase_cfft(exact_cuda, exactfft, dev, shapes, seed: int):
     inputs made from ``x`` [S, 2, N]: the channel pair as f32 tensors, as
     Hann-windowed df32 pairs (the packed pair's input), and channel 0 as
     a Hann-windowed df32 real part with a zero f32 imaginary part (the
-    mono input).  Each call adds one to ``exact_cuda.launches_cfft``,
+    mono input).  Each call adds one to ``LAUNCHES["K3"]``,
     matches the twin bit for bit in all four df32 outputs (NaN lanes by
     position) and float64 within TOL; a silent stream stays exactly 0, the
     1e20 stream finite, and the 1e20/NaN streams keep to themselves.
@@ -618,11 +616,10 @@ def phase_cfft(exact_cuda, exactfft, dev, shapes, seed: int):
                 x[:, 1] = 0.0
                 re = exactfft._windowed_df(xd[:, 0], *win)
                 im = torch.zeros_like(xd[:, 0])
-            before = exact_cuda.launches_cfft
+            before = LAUNCHES["K3"]
             z = exact_cuda.cfft_exact_kernel(re, im)
             torch.cuda.synchronize()
-            check(exact_cuda.launches_cfft == before + 1,
-                  f"launches_cfft N={n} S={S} {kind}")
+            check(LAUNCHES["K3"] == before + 1, f"K3 N={n} S={S} {kind}")
             ref = exact_cuda.cfft_exact_ref(re, im)
             check(all(same_bits(a, b) for a, b in zip((*z[0], *z[1]),
                                                        (*ref[0], *ref[1]))),
@@ -686,20 +683,19 @@ def oracle_gate(wt, ServingEngine, fft_size: int, ticks: int, rng, now0,
     return gate
 
 
-def drive_slice(wt, exact_cuda, eng, cpu, packets, now0):
+def drive_slice(wt, eng, cpu, packets, now0):
     """Feed ``packets`` through the card engine (counts set to 0 just
     before, read just after) and, for its first streams and the silent
     last one, through the CPU port; check pixels, silence, the tone's peak
-    and card vs CPU.  Returns (the launch counts in ``COUNTERS`` order,
+    and card vs CPU.  Returns (the launch counts (:func:`fft_launches`),
     pixel shape, peak Hz, card-vs-CPU dB)."""
-    for name in COUNTERS:
-        setattr(exact_cuda, name, 0)
+    LAUNCHES.clear()
     for k, x in enumerate(packets):
         now = now0 + k * 16_666_667
         eng.feed_batch(x, now, now_ns=now)
         eng.tick(now_ns=now)
     torch.cuda.synchronize()
-    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
+    counts = fft_launches()
     n_cpu = cpu.S - 1
     for k, x in enumerate(packets):
         now = now0 + k * 16_666_667
@@ -723,10 +719,17 @@ def drive_slice(wt, exact_cuda, eng, cpu, packets, now0):
     return counts, px.shape, peak_hz, e_cpu
 
 
-def only(counter: str, count: int) -> tuple:
-    """The launch counts (``COUNTERS`` order) of a run that launched
-    ``counter``'s kernel ``count`` times and no other kernel."""
-    return tuple(count if c == counter else 0 for c in COUNTERS)
+def fft_launches() -> dict:
+    """The exact FFT kernels' launches in the launch table
+    (``cuda_lib.LAUNCHES``), by kernel name: the tail's pair and zero
+    counts left out."""
+    return {k: n for k, n in LAUNCHES.items() if n and k != "tail"}
+
+
+def only(counter: str, count: int) -> dict:
+    """The launch counts (:func:`fft_launches`) of a run that launched the
+    kernel ``counter`` ``count`` times and no other kernel."""
+    return {counter: count} if count else {}
 
 
 def tick_ms(eng, packets, now0) -> float:
@@ -783,7 +786,7 @@ def cfft_stage_ms(exact_cuda, exactfft, n: int, S: int, dev):
     [S, n] (path a's input): (stage 1 ms, stage 2 ms, both ms, the wrapper
     ms).  The stages run apart must give the wrapper's four outputs bit
     for bit."""
-    lib = exact_cuda.build()
+    lib = cuda_lib.build()
     x = torch.from_numpy((0.5 * np.random.default_rng(SEED + 15)
                           .standard_normal((S, 2, n))).astype(np.float32)
                          ).to(dev)
@@ -889,13 +892,13 @@ def eager_tick(eng, now: int):
 
 # the stage-1 kernel of each launch counter's wrapper (one a launch), and
 # whether it is the df instance (a kernel template argument <true>)
-STAGE1 = {"launches_gen": ("exact_mag_gen_stage1", False),
-          "launches_gen_df": ("exact_mag_gen_stage1", True),
-          "launches3": ("exact_mag3_stage1", False),
-          "launches3_df": ("exact_mag3_stage1", True),
-          "launches_cfft": ("exact_cfft_stage1", None),
+STAGE1 = {"K1-gen": ("exact_mag_gen_stage1", False),
+          "K1-df": ("exact_mag_gen_stage1", True),
+          "K2": ("exact_mag3_stage1", False),
+          "K2-df": ("exact_mag3_stage1", True),
+          "K3": ("exact_cfft_stage1", None),
           # the spectrum tail: both of its kernels, as its counter counts
-          "launches_tail": ("spectrum_tail_", None)}
+          "tail": ("spectrum_tail_", None)}
 
 
 def profiled(profiler, one_tick, n: int = 5):
@@ -920,7 +923,7 @@ def profiled(profiler, one_tick, n: int = 5):
     return summ, ops, ours
 
 
-def phase_graph(wt, ServingEngine, profiler, exact_cuda, rng, cell):
+def phase_graph(wt, ServingEngine, profiler, rng, cell):
     """One slice path as a graph tick against its eager tick: bit for bit
     in 8 ticks' pixels and the final state; the kernels a replay launches,
     from the capture and from the profiler's kernel names (which must
@@ -969,10 +972,9 @@ def phase_graph(wt, ServingEngine, profiler, exact_cuda, rng, cell):
         e_tick = ticker(eager, eager_tick)
         turns = [cuda_median_ms(f, reps=20, warmup=3)
                  for f in (e_tick, g_tick, g_tick, e_tick)]
-        before = {c: getattr(exact_cuda, c) for c in (*COUNTERS, *TAIL)}
+        before = LAUNCHES.copy()
         g_sum, g_ops, g_ours = profiled(profiler, g_tick)
-        moved = {c: (getattr(exact_cuda, c) - n) / 5
-                 for c, n in before.items() if getattr(exact_cuda, c) != n}
+        moved = {c: n / 5 for c, n in (LAUNCHES - before).items()}
         check(g_ours == want and moved == want,
               f"graph {label}: profiled kernels a replay {g_ours}, counters "
               f"{moved}, want {want}")
@@ -1331,7 +1333,7 @@ def phase_waveform(wt, profiler, card: str, dev) -> None:
                   sums, ops, host), flush=True)
 
 
-def phase_engine(wt, exact_cuda, card: str) -> None:
+def phase_engine(wt, card: str) -> None:
     """``WaveformEngine`` (S ``StreamSource``s on the host, one device
     step): spectrum mode at the headline, 8 ticks, one K1-gen launch a
     tick and no other kernel, the oracle gate; meter and waveform modes
@@ -1346,16 +1348,15 @@ def phase_engine(wt, exact_cuda, card: str) -> None:
     eng = WaveformEngine(cfg, S, device="cuda")
     pk = [feed_signal(rng, S, k) for k in range(8)]
     now = time.monotonic_ns()
-    for name in COUNTERS:
-        setattr(exact_cuda, name, 0)
+    LAUNCHES.clear()
     for x in pk:
         now += 16_666_667
         for s in range(eng.S):
             eng.feed(s, x[s], now, now_ns=now)
         db = eng.tick(now_ns=now)
     torch.cuda.synchronize()
-    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
-    check(counts == only("launches_gen", len(pk)),
+    counts = fft_launches()
+    check(counts == only("K1-gen", len(pk)),
           f"engine: spectrum launches {counts}")
     db = db.cpu().numpy()
     check(np.isfinite(db).all() and (db[-1] == np.float32(wt.DB_MIN)).all()
@@ -1392,7 +1393,7 @@ def phase_engine(wt, exact_cuda, card: str) -> None:
     gate = float(np.abs(got[vis] - want[vis]).max())
     check(gate < 1e-4, f"engine: accuracy gate {gate} dB")
     print(f"engine [{card}]: spectrum N=4096 S={eng.S}: {len(pk)} ticks, "
-          f"launches {dict(zip(COUNTERS, counts))} (one K1-gen a tick, no "
+          f"launches {counts} (one K1-gen a tick, no "
           f"other kernel), the silent stream at DB_MIN and latched, pixels "
           f"{px.shape}; oracle gate {gate:.2e} dB; tick (S feeds + tick, "
           f"median of 5) {t_spec:.2f} ms", flush=True)
@@ -1554,7 +1555,7 @@ def recaptured(before: dict, scene) -> list:
     return out
 
 
-def phase_multi(wt, exact_cuda, profiler, card: str) -> None:
+def phase_multi(wt, profiler, card: str) -> None:
     """``MultiEngine``: the full scene of :func:`scene_cfgs`, 16 streams a
     group (304 streams, 19 groups, two upload cohorts)."""
     import gc
@@ -1595,8 +1596,7 @@ def phase_multi(wt, exact_cuda, profiler, card: str) -> None:
                 e.feed(r, x[g * S + r], now, now_ns=now)
 
     now0 = time.monotonic_ns()
-    for name in COUNTERS:
-        setattr(exact_cuda, name, 0)
+    LAUNCHES.clear()
     eng0 = None
     for k, x in enumerate(pk):
         now = now0 + (k + 1) * 16_666_667
@@ -1606,8 +1606,8 @@ def phase_multi(wt, exact_cuda, profiler, card: str) -> None:
             ts_prev = eng0.state.tsmooth[0].cpu().numpy().copy()
         scene.tick(now_ns=now)
     torch.cuda.synchronize()
-    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
-    check(counts == only("launches_gen", 16 * SCENE_TICKS),
+    counts = fft_launches()
+    check(counts == only("K1-gen", 16 * SCENE_TICKS),
           f"multi: launches {counts} in {SCENE_TICKS} scene ticks, want 16 "
           "K1-gen a tick and no other kernel")
     check(len(scene._cohorts) == 2 and not scene._solo
@@ -1640,7 +1640,7 @@ def phase_multi(wt, exact_cuda, profiler, card: str) -> None:
           f"N=4096, 1 meter, 2 waveform W=800; cohorts of "
           f"{[len(c['engines']) for c in scene._cohorts]} groups, "
           f"{[c['used'] * 4 / 1e6 for c in scene._cohorts]} MB uploads): "
-          f"{SCENE_TICKS} ticks, launches {dict(zip(COUNTERS, counts))} (16 "
+          f"{SCENE_TICKS} ticks, launches {counts} (16 "
           f"K1-gen a scene tick, no other kernel); every group = its "
           f"standalone card engine bit for bit (state, ring, latch); groups "
           f"{SCENE_CPU} vs the CPU port's scene {e_cpu:.2e} dB; oracle gate "
@@ -1833,7 +1833,7 @@ def bus_state(bus) -> list:
     return out
 
 
-def phase_bus(wt, exact_cuda, profiler, card: str) -> None:
+def phase_bus(wt, profiler, card: str) -> None:
     """``OutputBus``: one stereo bus, 500 consumers over the 12 looks of
     :func:`bus_cfgs`, then a live N=65536 subscriber."""
     from waveform_tpu_torch.runtime.bus import OutputBus
@@ -1851,15 +1851,14 @@ def phase_bus(wt, exact_cuda, profiler, card: str) -> None:
     rng = np.random.default_rng(SEED + 31)
     pk = [noise_tone(rng, (2, HOP), k) for k in range(BUS_TICKS + 80)]
     now0 = time.monotonic_ns()
-    for name in COUNTERS:
-        setattr(exact_cuda, name, 0)
+    LAUNCHES.clear()
     for k in range(BUS_TICKS):
         now = now0 + (k + 1) * 16_666_667
         bus.feed(pk[k], now, now_ns=now)
         bus.tick(now_ns=now)
     torch.cuda.synchronize()
-    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
-    check(counts == only("launches_gen", 8 * BUS_TICKS),
+    counts = fft_launches()
+    check(counts == only("K1-gen", 8 * BUS_TICKS),
           f"bus: launches {counts} in {BUS_TICKS} ticks, want 8 K1-gen a "
           "tick and no other kernel")
     for k in range(BUS_TICKS):
@@ -1885,7 +1884,7 @@ def phase_bus(wt, exact_cuda, profiler, card: str) -> None:
           f"N=4096 x6 / 8192 / 16384, 2 meters, 2 waveforms W=800 / 1920), "
           f"one ring [1, 2, {bus.L}] ({bus.ring.buf.numel() * 4 / 1e6:.2f} "
           f"MB), upload {bus._dev_in.numel() * 4 / 1e3:.1f} KB: {BUS_TICKS} "
-          f"ticks, launches {dict(zip(COUNTERS, counts))} (8 K1-gen a tick, "
+          f"ticks, launches {counts} (8 K1-gen a tick, "
           f"no other kernel); spectrum looks vs standalone card "
           f"ServingEngine(cfg, 1) max {e_eng:.2e} dB (bound 1e-3); every "
           f"look vs the CPU port's bus {e_cpu:.2e} dB, DB_MIN and latches "
@@ -1952,14 +1951,12 @@ def phase_bus(wt, exact_cuda, profiler, card: str) -> None:
           "bus: the grown ring does not hold the old ring as its tail")
     check(all(torch.equal(a, b) for a, b in zip(bus_state(bus), before)),
           "bus: the groups' state changed across the subscribe")
-    for name in COUNTERS:
-        setattr(exact_cuda, name, 0)
+    LAUNCHES.clear()
     for _ in range(3):
         bus_tick()
     torch.cuda.synchronize()
-    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
-    want = tuple({"launches_gen": 24, "launches3": 3}.get(c, 0)
-                 for c in COUNTERS)
+    counts = fft_launches()
+    want = {"K1-gen": 24, "K2": 3}
     check(counts == want, f"bus: launches after the N=65536 subscribe "
           f"{counts}, want 8 K1-gen + 1 K2 a tick")
     t_big = cuda_median_ms(bus_tick, reps=20, warmup=3)
@@ -1967,14 +1964,14 @@ def phase_bus(wt, exact_cuda, profiler, card: str) -> None:
     print(f"bus [{card}]: live subscribe of an N=65536 consumer: the ring "
           f"grew {old_L} -> {bus.L} samples with the old ring as its tail, "
           f"every look's state carried bit for bit; 3 ticks launch "
-          f"{dict(zip(COUNTERS, counts))} (8 K1-gen + 1 K2 a tick); tick "
+          f"{counts} (8 K1-gen + 1 K2 a tick); tick "
           f"{t_big:.3f} ms", flush=True)
 
 
 # --- plans, the matmul backend, rfft_fn, the demo, warm -----------------
 
 TUNE_SIZES = (4096, 16384, 32768)   # the tuner's sizes in the plans phase
-SPLIT_COUNTER = {2: "launches_gen", 3: "launches3"}
+SPLIT_COUNTER = {2: "K1-gen", 3: "K2"}
 
 
 @contextlib.contextmanager
@@ -1998,7 +1995,7 @@ def headline_cfg(wt):
                       wt.AudioInfo(SR, 2))
 
 
-def phase_plans(wt, exact_cuda, card: str) -> None:
+def phase_plans(wt, card: str) -> None:
     """The tuner on this card at TUNE_SIZES, S=64, 3 reps, into a
     temporary plan file; the packaged H100 table read here; an N=16384,
     S=64 engine steered by the table with no variable set, then by a plan
@@ -2051,8 +2048,7 @@ def phase_plans(wt, exact_cuda, card: str) -> None:
             cpu = ServingEngine(cfg, 2, device="cpu")
             pk = [feed_signal(rng, 64, k) for k in range(ticks)]
             now0 = time.monotonic_ns()
-            counts, _, peak, e_cpu = drive_slice(wt, exact_cuda, eng, cpu, pk,
-                                                 now0)
+            counts, _, peak, e_cpu = drive_slice(wt, eng, cpu, pk, now0)
             check(counts == only(SPLIT_COUNTER[split], ticks),
                   f"plans: {label}: launches {counts}, want split {split}'s "
                   f"kernel once a tick and no other")
@@ -2075,8 +2071,7 @@ def phase_plans(wt, exact_cuda, card: str) -> None:
           f"{turns[2] * 1e3:.1f} us", flush=True)
 
 
-def graph_vs_eager(exact_cuda, make, packets, now0, cpu_rows=None,
-                   cpu=None):
+def graph_vs_eager(make, packets, now0, cpu_rows=None, cpu=None):
     """Drive two engines from ``make()`` over ``packets``: one by its
     graph ticks (counts set to 0 just before, read just after), one by the
     eager device function; and ``cpu`` on ``cpu_rows``.  Checks the
@@ -2084,8 +2079,7 @@ def graph_vs_eager(exact_cuda, make, packets, now0, cpu_rows=None,
     graph engine, the launch counts)."""
     graph, eager = make(), make()
     same = True
-    for name in COUNTERS:
-        setattr(exact_cuda, name, 0)
+    LAUNCHES.clear()
     for k, x in enumerate(packets):
         now = now0 + k * 16_666_667
         graph.feed_batch(x, now, now_ns=now)
@@ -2095,14 +2089,14 @@ def graph_vs_eager(exact_cuda, make, packets, now0, cpu_rows=None,
             cpu.feed_batch(x[cpu_rows], now, now_ns=now)
             cpu.tick(now_ns=now)
     torch.cuda.synchronize()
-    counts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
+    counts = fft_launches()
     check(same and all(torch.equal(a, b) for a, b in
                        zip(engine_state(graph), engine_state(eager))),
           "graph ticks differ from eager ticks")
     return graph, counts
 
 
-def phase_matmul(wt, exact_cuda, card: str) -> None:
+def phase_matmul(wt, card: str) -> None:
     """The headline configuration under WAVEFORM_TPU_FFT_BACKEND=matmul."""
     from waveform_tpu_torch.runtime.serving import ServingEngine
     cfg = headline_cfg(wt)
@@ -2118,8 +2112,8 @@ def phase_matmul(wt, exact_cuda, card: str) -> None:
     with env("WAVEFORM_TPU_FFT_BACKEND", "matmul"):
         cpu = ServingEngine(cfg, 4, device="cpu")
         eng, counts = graph_vs_eager(
-            exact_cuda, lambda: ServingEngine(cfg, S, device="cuda"), pk,
-            now0, rows, cpu)
+            lambda: ServingEngine(cfg, S, device="cuda"), pk, now0, rows,
+            cpu)
         check(not any(counts) and eng.kernels_per_replay
               == {("tick", True): TAIL},
               f"matmul: exact kernels launched {counts}, "
@@ -2139,7 +2133,7 @@ def phase_matmul(wt, exact_cuda, card: str) -> None:
              for i, e in enumerate((exact, eng, eng, exact))]
     print(f"matmul [{card}]: S={S} N=4096 800px Lanczos, {ticks} graph "
           f"ticks bit for bit with eager ticks (pixels and state), no exact "
-          f"kernel launched ({dict(zip(COUNTERS, counts))}); card vs CPU "
+          f"kernel launched ({counts}); card vs CPU "
           f"port (4 streams) {e_cpu:.2e} dB (bound 1e-3); vs the float64 "
           f"oracle {err:.2e} dB (not gated: the f32 GEMM FFT); full tick "
           f"(feed_batch + tick, in turns) matmul {turns[1] * 1e3:.1f} / "
@@ -2147,7 +2141,7 @@ def phase_matmul(wt, exact_cuda, card: str) -> None:
           f"{turns[3] * 1e3:.1f} us", flush=True)
 
 
-def phase_rfft_fn(wt, exact_cuda, card: str) -> None:
+def phase_rfft_fn(wt, card: str) -> None:
     """``rfft_fn=torch.fft.rfft`` in ``ServingEngine`` and
     ``WaveformEngine`` at the headline configuration."""
     from waveform_tpu_torch.runtime.engine import WaveformEngine
@@ -2159,8 +2153,7 @@ def phase_rfft_fn(wt, exact_cuda, card: str) -> None:
     pk = [feed_signal(rng, S, k) for k in range(ticks)]
     now0 = time.monotonic_ns()
     eng, counts = graph_vs_eager(
-        exact_cuda, lambda: ServingEngine(cfg, S, rfft_fn=fn, device="cuda"),
-        pk, now0)
+        lambda: ServingEngine(cfg, S, rfft_fn=fn, device="cuda"), pk, now0)
     check(not any(counts) and eng.kernels_per_replay == {("tick", True): TAIL},
           f"rfft_fn: exact kernels launched {counts}")
     e_fn = oracle_err(wt, ServingEngine, 4096, 8,
@@ -2176,8 +2169,7 @@ def phase_rfft_fn(wt, exact_cuda, card: str) -> None:
     weng = WaveformEngine(cfg, S, rfft_fn=fn, device="cuda")
     wcpu = WaveformEngine(cfg, 4, rfft_fn=fn, device="cpu")
     rows = [0, 1, 2, S - 1]
-    for name in COUNTERS:
-        setattr(exact_cuda, name, 0)
+    LAUNCHES.clear()
     now = now0
     for x in pk:
         now += 16_666_667
@@ -2188,7 +2180,7 @@ def phase_rfft_fn(wt, exact_cuda, card: str) -> None:
         db_card = weng.tick(now_ns=now)
         db_cpu = wcpu.tick(now_ns=now)
     torch.cuda.synchronize()
-    wcounts = tuple(getattr(exact_cuda, name) for name in COUNTERS)
+    wcounts = fft_launches()
     check(not any(wcounts) and weng._device_tick.graph is not None,
           f"rfft_fn: WaveformEngine launches {wcounts}, or no graph")
     e_w = db_vs(wt, db_card.cpu().numpy()[rows], db_cpu.numpy(),
@@ -2221,7 +2213,7 @@ def read_png(path: str) -> np.ndarray:
     return rows[:, 1:].reshape(h, w, 4)
 
 
-def phase_demo(exact_cuda, card: str) -> None:
+def phase_demo(card: str) -> None:
     """``python -m waveform_tpu_torch.demo`` (its ``main``) on a 2-s
     stereo WAV of two tones plus noise, for a curve scene at N=4096, a
     level meter and a waveform, on the card and with ``--device cpu``."""
@@ -2265,15 +2257,14 @@ def phase_demo(exact_cuda, card: str) -> None:
                 outs = {dev: os.path.join(d, f"{name}_{dev}")
                         for dev in ("cuda", "cpu")}
                 args = [wav, "--settings", sp, "--every", "30"]
-                for name_c in COUNTERS:
-                    setattr(exact_cuda, name_c, 0)
+                LAUNCHES.clear()
                 said.clear()
                 check(demo.main(args + ["--out", outs["cuda"]]) == 0,
                       f"demo: {name} on the card")
                 torch.cuda.synchronize()
-                counts = tuple(getattr(exact_cuda, c) for c in COUNTERS)
+                counts = fft_launches()
                 stats = [m for m in said if "frames/s" in m]
-                want = only("launches_gen",
+                want = only("K1-gen",
                             ticks if name == "curve" else 0)
                 check(counts == want, f"demo: {name} launches {counts}, want "
                       f"{want}")
@@ -2293,7 +2284,7 @@ def phase_demo(exact_cuda, card: str) -> None:
                 check(worst <= 1, f"demo: {name} card vs CPU frames differ "
                       f"by {worst}/255")
                 lines.append(f"{name}: {len(names)} PNGs, "
-                             f"{dict(zip(COUNTERS, counts))['launches_gen']}"
+                             f"{counts.get('K1-gen', 0)}"
                              f" K1-gen launches in {ticks} ticks, card vs CPU "
                              f"port frames max {worst}/255; "
                              + (stats[0] if stats else "no profiler stats"))
@@ -2420,7 +2411,7 @@ def tiles_vs(wt, eng, single, what: str) -> tuple:
     return e, same
 
 
-def phase_parallel(wt, exact_cuda, card: str) -> dict:
+def phase_parallel(wt, card: str) -> dict:
     """The sharded engines (``waveform_tpu_torch.parallel``) at the
     headline's full width over a 4-entry mesh (the real devices when there
     are 4, else cuda:0 repeated), each against its single engine fed the
@@ -2462,13 +2453,6 @@ def phase_parallel(wt, exact_cuda, card: str) -> dict:
                 e.tick(now_ns=now)
         torch.cuda.synchronize()
 
-    def counts():
-        return tuple(getattr(exact_cuda, c) for c in COUNTERS)
-
-    def zero():
-        for c in COUNTERS:
-            setattr(exact_cuda, c, 0)
-
     # 4x1 and 2x2 at the headline, against the single engine
     single = ServingEngine(cfg, S)
     drive([single], packets)
@@ -2477,21 +2461,20 @@ def phase_parallel(wt, exact_cuda, card: str) -> dict:
         mesh = make_mesh(devs, pixel_parallel=pp)
         shape = f"{mesh.shape['stream']}x{mesh.shape['pixel']}"
         eng = ShardedServingEngine(cfg, S, mesh=mesh)
-        zero()
+        LAUNCHES.clear()
         drive([eng], packets)
-        got = counts()
-        check(got == only("launches_gen", 4 * ticks),
+        got = fft_launches()
+        check(got == only("K1-gen", 4 * ticks),
               f"parallel {shape}: launches {got} in {ticks} ticks")
         reps = eng.kernels_per_replay
-        check(reps == {("tick", True): {"launches_gen": 4,
-                                        "launches_tail": 8}},
+        check(reps == {("tick", True): {"K1-gen": 4, "tail": 8}},
               f"parallel {shape}: kernels a replay {reps}")
-        launched[f"k1_gen_{shape}"] = got[COUNTERS.index("launches_gen")]
+        launched[f"k1_gen_{shape}"] = got.get("K1-gen", 0)
         e, same = tiles_vs(wt, eng, single, f"parallel {shape}")
         tiles = {tuple(t.data.shape) for t in eng.pixels_sharded}
         print(f"parallel [{card}]: {shape} mesh on {where}, S={S} N=4096 "
               f"800px Lanczos, {ticks} ticks: tiles {sorted(tiles)}, "
-              f"{got[COUNTERS.index('launches_gen')]} K1-gen launches (4 a "
+              f"{got.get('K1-gen', 0)} K1-gen launches (4 a "
               f"replay, one an entry), no other kernel; pixels and dB vs "
               f"the single engine max |d| {e:.3e} dB, bit for bit: {same}",
               flush=True)
@@ -2514,12 +2497,12 @@ def phase_parallel(wt, exact_cuda, card: str) -> dict:
     sb = ServingEngine(big, 32)
     drive([sb], pk32)
     eb = ShardedServingEngine(big, 32, mesh=mesh41)
-    zero()
+    LAUNCHES.clear()
     drive([eb], pk32)
-    got = counts()
-    check(got == only("launches3", 4 * len(pk32)),
+    got = fft_launches()
+    check(got == only("K2", 4 * len(pk32)),
           f"parallel N=65536: launches {got}")
-    launched["k2_4x1"] = got[COUNTERS.index("launches3")]
+    launched["k2_4x1"] = got.get("K2", 0)
     e, same = tiles_vs(wt, eb, sb, "parallel N=65536")
     print(f"parallel [{card}]: 4x1 N=65536 S=32, {len(pk32)} ticks: "
           f"{launched['k2_4x1']} K2 launches (4 a tick), no other kernel; "
@@ -2531,22 +2514,21 @@ def phase_parallel(wt, exact_cuda, card: str) -> dict:
     # engine does (the JAX sharded engine takes its lowering there)
     with env("WAVEFORM_TPU_EXACT_FUSED", "never"):
         sl = ServingEngine(cfg, S)
-        zero()
+        LAUNCHES.clear()
         drive([sl], packets[:3])
-        one = counts()
-        check(one == only("launches_cfft", 3),
+        one = fft_launches()
+        check(one == only("K3", 3),
               f"parallel FUSED=never: single engine launches {one}")
         el = ShardedServingEngine(cfg, S, mesh=mesh41)
-        zero()
+        LAUNCHES.clear()
         drive([el], packets[:3])
-        got = counts()
-        check(got == only("launches_cfft", 4 * 3),
+        got = fft_launches()
+        check(got == only("K3", 4 * 3),
               f"parallel FUSED=never: launches {got}")
         reps = el.kernels_per_replay
-        check(reps == {("tick", True): {"launches_cfft": 4,
-                                        "launches_tail": 8}},
+        check(reps == {("tick", True): {"K3": 4, "tail": 8}},
               f"parallel FUSED=never: kernels a replay {reps}")
-        launched["k3_4x1"] = got[COUNTERS.index("launches_cfft")]
+        launched["k3_4x1"] = got.get("K3", 0)
         e, same = tiles_vs(wt, el, sl, "parallel FUSED=never")
     print(f"parallel [{card}]: EXACT_FUSED=never 4x1 S={S}, 3 ticks: "
           f"{launched['k3_4x1']} K3 launches (4 a replay, one an entry; the "
@@ -2602,10 +2584,10 @@ def phase_parallel(wt, exact_cuda, card: str) -> dict:
     bulk = np.stack([noise_tone(rng, (S, 2, HOP), k) for k in range(4)])
     tm = ShardedServingEngine(cfg, S, mesh=meshes[2][0])
     stm = ServingEngine(cfg, S)
-    zero()
+    LAUNCHES.clear()
     tiles = tm.tick_many(bulk)
     torch.cuda.synchronize()
-    n_bulk = exact_cuda.launches_gen
+    n_bulk = LAUNCHES["K1-gen"]
     got = np.empty((4, S, 1, 800), np.float32)
     for t in tiles:
         got[t.index] = t.data.cpu().numpy()
@@ -2830,13 +2812,13 @@ def phase_tail(wt, exact_cuda, card: str, dev) -> None:
                 mag = torch.rand((S, C, nb), generator=gen, device=dev) * 40.0
                 mag[:, :, ::97] = 0.0
                 old = state
-                before = exact_cuda.launches_tail
+                before = LAUNCHES["tail"]
                 got = tail_cuda.spectrum_tail(
                     k, mag, nz, None, old.tsmooth, old.decibels,
                     old.last_silent, gravity, active, None, None, slope,
                     rolloff)
-                check(exact_cuda.launches_tail == before + 2,
-                      f"tail: {exact_cuda.launches_tail - before} launches")
+                check(LAUNCHES["tail"] == before + 2,
+                      f"tail: {LAUNCHES['tail'] - before} launches")
                 state = tspec.spectrum_tail_ref(cfg, mag, nz, None, old,
                                                 gravity, active, rms, None,
                                                 slope, rolloff)
@@ -2899,17 +2881,17 @@ def main() -> None:
 
     # 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    exact_cuda.build()
+    cuda_lib.build()
     secs["build"] = time.perf_counter() - t0
     print(f"build: {secs['build']:.2f} s "
-          f"({exact_cuda.build_info['library']}; torch {torch.__version__}, "
+          f"({cuda_lib.build_info['library']}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, capability {cap})", flush=True)
-    for ln in exact_cuda.build_info.get("log", "").splitlines():
+    for ln in cuda_lib.build_info.get("log", "").splitlines():
         if "entry function" in ln or "registers" in ln:
             print(f"build: {ln.strip()}", flush=True)
     # every FFT kernel runs its digit GEMMs on the int8 tensor cores; the
     # tail's kernels are elementwise
-    sass = exact_cuda.sass_counts()
+    sass = cuda_lib.sass_counts()
     for fn, c in sass.items():
         print(f"build: sass {kernel_label(fn)}: "
               + ", ".join(f"{op} {k}" for op, k in c.items()), flush=True)
@@ -2921,7 +2903,7 @@ def main() -> None:
                   for c in fft),
           f"FFT kernels not on the int8 tensor cores, or {KERNELS} FFT and "
           f"{TAIL_KERNELS} tail kernels expected: {sass}")
-    props = [ln for ln in exact_cuda.build_info.get("log", "").splitlines()
+    props = [ln for ln in cuda_lib.build_info.get("log", "").splitlines()
              if "spill" in ln]
     spills = [ln for ln in props if not re.search(
         r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
@@ -2937,8 +2919,8 @@ def main() -> None:
 
     # 3. kernel vs twin ---------------------------------------------------
     t0 = time.perf_counter()
-    cases, worst = phase_kernel(exact_cuda, dev, exact_cuda.rfft_pair_mag,
-                                exact_cuda.rfft_pair_mag_ref, "launches_gen",
+    cases, worst = phase_kernel(dev, exact_cuda.rfft_pair_mag,
+                                exact_cuda.rfft_pair_mag_ref, "K1-gen",
                                 K1_SIZES, (1, 7, 256), SEED, bitwise=True)
     secs["kernel"] = time.perf_counter() - t0
     print(f"kernel: {cases} K1-gen cases at N in {K1_SIZES} through the "
@@ -2958,11 +2940,11 @@ def main() -> None:
     rng = np.random.default_rng(SEED + 1)
     packets = [feed_signal(rng, S, k) for k in range(ticks)]
     now0 = time.monotonic_ns()
-    counts, px_shape, peak_hz, e_cpu = drive_slice(wt, exact_cuda, eng, cpu,
-                                                   packets, now0)
-    launches = counts[COUNTERS.index("launches_gen")]
-    check(counts == only("launches_gen", ticks),
-          f"launches {counts} ({'/'.join(COUNTERS)}) in {ticks} ticks at "
+    counts, px_shape, peak_hz, e_cpu = drive_slice(wt, eng, cpu, packets,
+                                                   now0)
+    launches = counts.get("K1-gen", 0)
+    check(counts == only("K1-gen", ticks),
+          f"launches {counts} in {ticks} ticks at "
           "N=4096: want K1-gen's alone")
     gate = oracle_gate(wt, ServingEngine, 4096, 8, rng, now0)
     torch.cuda.synchronize()
@@ -2989,8 +2971,8 @@ def main() -> None:
     # 6. kernel3: K2 vs twin ----------------------------------------------
     t0 = time.perf_counter()
     cases3, worst3 = phase_kernel(
-        exact_cuda, dev, exact_cuda.rfft_pair_mag3,
-        exact_cuda.rfft_pair_mag3_ref, "launches3",
+        dev, exact_cuda.rfft_pair_mag3,
+        exact_cuda.rfft_pair_mag3_ref, "K2",
         (4096,) + exact_cuda.SIZES3, (1, 7, 32), SEED + 3,
         versus=(exact_cuda.rfft_pair_mag, (4096,)), bitwise=True)
     secs["kernel3"] = time.perf_counter() - t0
@@ -3013,17 +2995,17 @@ def main() -> None:
     cpu3 = ServingEngine(cfg3, 2, device="cpu")
     packets3 = [feed_signal(rng, S3, k) for k in range(ticks3)]
     now3 = time.monotonic_ns()
-    counts3, px3, peak3, e_cpu3 = drive_slice(wt, exact_cuda, eng3, cpu3,
-                                              packets3, now3)
-    launches3 = counts3[COUNTERS.index("launches3")]
-    check(counts3 == only("launches3", ticks3),
-          f"launches {counts3} ({'/'.join(COUNTERS)}) in {ticks3} ticks at "
+    counts3, px3, peak3, e_cpu3 = drive_slice(wt, eng3, cpu3, packets3,
+                                              now3)
+    k2_launches = counts3.get("K2", 0)
+    check(counts3 == only("K2", ticks3),
+          f"launches {counts3} in {ticks3} ticks at "
           "N=65536: want K2's alone")
     gate3 = oracle_gate(wt, ServingEngine, 65536, ticks3, rng, now3)
     torch.cuda.synchronize()
     secs["slice3"] = time.perf_counter() - t0
     print(f"slice3: S={S3} N=65536 800px Lanczos (gather rebin), {ticks3} "
-          f"ticks, {launches3} K2 launches, no other kernel, pixels "
+          f"ticks, {k2_launches} K2 launches, no other kernel, pixels "
           f"{px3} finite, silent stream at DB_MIN, peak {peak3:.2f} Hz, card "
           f"vs CPU port (2 streams) {e_cpu3:.2e} dB, oracle gate "
           f"{gate3:.2e} dB (< 1e-4)", flush=True)
@@ -3078,10 +3060,10 @@ def main() -> None:
             pk = [feed_signal(rng, S, k, channels) for k in range(ticks)]
             now_p = time.monotonic_ns()
             counts_p, px_p, peak_p, e_cpu_p = drive_slice(
-                wt, exact_cuda, eng_p, cpu_p, pk, now_p)
-            k3_p = counts_p[COUNTERS.index("launches_cfft")]
-            check(counts_p == only("launches_cfft", ticks),
-                  f"path {path}: launches {counts_p} ({'/'.join(COUNTERS)}) "
+                wt, eng_p, cpu_p, pk, now_p)
+            k3_p = counts_p.get("K3", 0)
+            check(counts_p == only("K3", ticks),
+                  f"path {path}: launches {counts_p} "
                   f"in {ticks} ticks: want K3's alone")
             gate_p = oracle_gate(wt, ServingEngine, 4096, 8, rng, now_p,
                                  channels)
@@ -3108,14 +3090,14 @@ def main() -> None:
         cpu_c = ServingEngine(cfg_c, 4, device="cpu")
         pk_c = [feed_signal(rng, S, k) for k in range(ticks)]
         now_c = time.monotonic_ns()
-        counts_c = drive_slice(wt, exact_cuda, eng_c, cpu_c, pk_c, now_c)
-        check(counts_c[0] == (0,) * len(COUNTERS), f"path c kernel "
+        counts_c = drive_slice(wt, eng_c, cpu_c, pk_c, now_c)
+        check(counts_c[0] == {}, f"path c kernel "
               f"launches {counts_c[0]}")
         gate_c = oracle_gate(wt, ServingEngine, 800, 2, rng, now_c)
     torch.cuda.synchronize()
     secs["slice_small"] = time.perf_counter() - t0
     print(f"slice_small: path c (auto FFT size) S={S} N=800 800px Lanczos, "
-          f"{ticks} ticks, K2/K3/K1-gen/K1-df/K2-df launches "
+          f"{ticks} ticks, exact kernel launches "
           f"{counts_c[0]}, pixels "
           f"{counts_c[1]} finite, silent stream at DB_MIN, peak "
           f"{counts_c[2]:.1f} Hz, card vs CPU port {counts_c[3]:.2e} dB, "
@@ -3167,19 +3149,19 @@ def main() -> None:
         check(all(exact_cuda.stage1_split(n) == 2 for n in sizes_g),
               "K1-gen sizes route to split 2")
         cases_g, worst_g = phase_kernel(
-            exact_cuda, dev, exact_cuda.rfft_pair_mag,
-            exact_cuda.rfft_pair_mag_ref, "launches_gen", sizes_g, (1, 7, 64),
+            dev, exact_cuda.rfft_pair_mag,
+            exact_cuda.rfft_pair_mag_ref, "K1-gen", sizes_g, (1, 7, 64),
             SEED + 7, versus=(exact_cuda.rfft_pair_mag3, (8192, 16384)))
         cases_s, worst_s = phase_kernel(
-            exact_cuda, dev, exact_cuda.rfft_pair_mag,
-            exact_cuda.rfft_pair_mag_ref, "launches_gen", (6144,), (S,),
+            dev, exact_cuda.rfft_pair_mag,
+            exact_cuda.rfft_pair_mag_ref, "K1-gen", (6144,), (S,),
             SEED + 8)
         with env("WAVEFORM_TPU_STAGE1_SPLIT", "2"):
             check(exact_cuda.supports(32768) and exact_cuda.stage1_split(32768)
                   == 2, "N=32768 under STAGE1_SPLIT=2")
             cases_32, worst_32 = phase_kernel(
-                exact_cuda, dev, exact_cuda.rfft_pair_mag,
-                exact_cuda.rfft_pair_mag_ref, "launches_gen", (32768,),
+                dev, exact_cuda.rfft_pair_mag,
+                exact_cuda.rfft_pair_mag_ref, "K1-gen", (32768,),
                 (1, 7, 64), SEED + 9)
         secs["kernel_gen"] = time.perf_counter() - t0
         for w in (worst_s, worst_32):
@@ -3208,10 +3190,10 @@ def main() -> None:
             pk_g = [feed_signal(rng, s_g, k) for k in range(ticks_g)]
             now_g = time.monotonic_ns()
             counts_g, px_g, peak_g, e_cpu_g = drive_slice(
-                wt, exact_cuda, eng_g, cpu_g, pk_g, now_g)
-            gen_g = counts_g[COUNTERS.index("launches_gen")]
-            check(counts_g == only("launches_gen", ticks_g),
-                  f"N={n_g}: launches {counts_g} ({'/'.join(COUNTERS)}) in "
+                wt, eng_g, cpu_g, pk_g, now_g)
+            gen_g = counts_g.get("K1-gen", 0)
+            check(counts_g == only("K1-gen", ticks_g),
+                  f"N={n_g}: launches {counts_g} in "
                   f"{ticks_g} ticks: want K1-gen's alone")
             gate_g = oracle_gate(wt, ServingEngine, n_g, ticks_g, rng, now_g)
             print(f"slice_gen: S={s_g} N={n_g} 800px Lanczos, {ticks_g} "
@@ -3248,7 +3230,7 @@ def main() -> None:
         print(f"times_gen [{card}]: K2 {k2_ms * 1e3:.1f} us, twin "
               f"{p2_ms * 1e3:.1f} us, bound {b2_ms * 1e3:.2f} us ({b2_by}) at "
               f"S={S} N=16384", flush=True)
-        eng_g, pk_g, now_g, launches_gen = gen_slice
+        eng_g, pk_g, now_g, gen_launches = gen_slice
         tg_ms = tick_ms(eng_g, pk_g, now_g)
         print(f"times_gen [{card}]: full tick (feed_batch + tick) "
               f"{tg_ms * 1e3:.1f} us at S={S} N=6144 = "
@@ -3288,23 +3270,23 @@ def main() -> None:
     df_slices = {}
     with env("WAVEFORM_TPU_KERNEL_TWIDDLE", "df"):
         for cfg_d, s_d, ticks_d, n_cpu, counter in (
-                (cfg, S, ticks, 4, "launches_gen_df"),
-                (cfg3, S3, ticks3, 2, "launches3_df")):
+                (cfg, S, ticks, 4, "K1-df"),
+                (cfg3, S3, ticks3, 2, "K2-df")):
             n_d = cfg_d.fft_size
             eng_d = ServingEngine(cfg_d, s_d, device="cuda")
             cpu_d = ServingEngine(cfg_d, n_cpu, device="cpu")
             pk_d = [feed_signal(rng, s_d, k) for k in range(ticks_d)]
             now_d = time.monotonic_ns()
             counts_d, px_d, peak_d, e_cpu_d = drive_slice(
-                wt, exact_cuda, eng_d, cpu_d, pk_d, now_d)
+                wt, eng_d, cpu_d, pk_d, now_d)
             want = only(counter, ticks_d)
-            check(counts_d == want, f"df N={n_d}: launches {counts_d} "
-                  f"({'/'.join(COUNTERS)}), want {want}")
+            check(counts_d == want, f"df N={n_d}: launches {counts_d}, "
+                  f"want {want}")
             gate_d = oracle_gate(wt, ServingEngine, n_d, ticks_d, rng, now_d)
             df_slices[n_d] = (eng_d, pk_d, now_d, counts_d)
             print(f"slice_df: S={s_d} N={n_d} 800px Lanczos, "
                   f"KERNEL_TWIDDLE=df, {ticks_d} ticks, "
-                  f"{'K2' if counter == 'launches3_df' else 'K1'}-df "
+                  f"{counter} "
                   f"launches {ticks_d}, the other kernels 0, pixels {px_d} "
                   f"finite, silent stream at DB_MIN, peak {peak_d:.2f} Hz, "
                   f"card vs CPU port ({n_cpu} streams) {e_cpu_d:.2e} dB, "
@@ -3367,16 +3349,16 @@ def main() -> None:
     from waveform_tpu_torch.runtime.serving import link_rtt
     df_env = {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"}
     large = dict(fft_size=65536, enable_large_fft=True)
-    for cell in (("slice", dict(fft_size=4096), 2, {}, S, "launches_gen"),
-                 ("slice3", large, 2, {}, S3, "launches3"),
+    for cell in (("slice", dict(fft_size=4096), 2, {}, S, "K1-gen"),
+                 ("slice3", large, 2, {}, S3, "K2"),
                  ("slice_df", dict(fft_size=4096), 2, df_env, S,
-                  "launches_gen_df"),
-                 ("slice3_df", large, 2, df_env, S3, "launches3_df"),
+                  "K1-df"),
+                 ("slice3_df", large, 2, df_env, S3, "K2-df"),
                  ("path a", dict(fft_size=4096), 2,
-                  {"WAVEFORM_TPU_EXACT_FUSED": "never"}, S, "launches_cfft"),
+                  {"WAVEFORM_TPU_EXACT_FUSED": "never"}, S, "K3"),
                  ("path c", dict(auto_fft_size=True), 2, {}, S, None)):
         turns, busy, busy_us, ops, host = phase_graph(
-            wt, ServingEngine, profiler, exact_cuda, rng, cell)
+            wt, ServingEngine, profiler, rng, cell)
         g_ms, e_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         print(f"graph [{card}]: {cell[0]} S={cell[4]}: graph tick = eager "
               f"tick bit for bit (8 ticks, pixels and state); tick "
@@ -3413,8 +3395,7 @@ def main() -> None:
             check(all(same_bits(mb.last_batch_pixels[i], singles[k - 3 + i])
                       for i in range(4)),
                   "microbatch: flush vs single ticks not bit for bit")
-    check(mb.kernels_per_replay[("mb", 4, True)] == {"launches_gen": 4,
-                                                     "launches_tail": 8},
+    check(mb.kernels_per_replay[("mb", 4, True)] == {"K1-gen": 4, "tail": 8},
           f"microbatch: kernels a flush {mb.kernels_per_replay}")
     clock = [now, 0]
 
@@ -3456,12 +3437,11 @@ def main() -> None:
     bulk = ServingEngine(cfg, S, device="cuda")
     cpu_b = ServingEngine(cfg, 4, device="cpu")
     rows = [0, 1, 2, S - 1]
-    for name in COUNTERS:
-        setattr(exact_cuda, name, 0)
+    LAUNCHES.clear()
     pxs = bulk.tick_many(bulk_in)
     torch.cuda.synchronize()
-    counts_b = tuple(getattr(exact_cuda, name) for name in COUNTERS)
-    check(counts_b == only("launches_gen", T),
+    counts_b = fft_launches()
+    check(counts_b == only("K1-gen", T),
           f"tick_many: launches {counts_b}")
     px_cpu = cpu_b.tick_many(bulk_in[:, rows]).numpy()
     px_b = pxs.cpu().numpy()[:, rows]
@@ -3556,12 +3536,12 @@ def main() -> None:
 
     # 25. engine: WaveformEngine in its three modes ------------------------
     t0 = time.perf_counter()
-    phase_engine(wt, exact_cuda, card)
+    phase_engine(wt, card)
     secs["engine"] = time.perf_counter() - t0
 
     # 26. multi: a MultiEngine scene of 304 streams -------------------------
     t0 = time.perf_counter()
-    phase_multi(wt, exact_cuda, profiler, card)
+    phase_multi(wt, profiler, card)
     secs["multi"] = time.perf_counter() - t0
 
     # 27. bus: an OutputBus with 500 consumers -------------------------------
@@ -3570,27 +3550,27 @@ def main() -> None:
     # its N=65536 subscriber runs K2)
     t0 = time.perf_counter()
     with plan_file({8192: 2, 16384: 2}):
-        phase_bus(wt, exact_cuda, profiler, card)
+        phase_bus(wt, profiler, card)
     secs["bus"] = time.perf_counter() - t0
 
     # 28. plans: the tuner, the packaged table and the route it steers ------
     t0 = time.perf_counter()
-    phase_plans(wt, exact_cuda, card)
+    phase_plans(wt, card)
     secs["plans"] = time.perf_counter() - t0
 
     # 29. matmul: the GEMM FFT backend at the headline -----------------------
     t0 = time.perf_counter()
-    phase_matmul(wt, exact_cuda, card)
+    phase_matmul(wt, card)
     secs["matmul"] = time.perf_counter() - t0
 
     # 30. rfft_fn: a caller's FFT captured in the tick ------------------------
     t0 = time.perf_counter()
-    phase_rfft_fn(wt, exact_cuda, card)
+    phase_rfft_fn(wt, card)
     secs["rfft_fn"] = time.perf_counter() - t0
 
     # 31. demo: python -m waveform_tpu_torch.demo on a WAV --------------------
     t0 = time.perf_counter()
-    phase_demo(exact_cuda, card)
+    phase_demo(card)
     secs["demo"] = time.perf_counter() - t0
 
     # 32. warm: wisdom.warm against a cold first tick ------------------------
@@ -3600,7 +3580,7 @@ def main() -> None:
 
     # 33. parallel: the sharded engines over a 4-entry mesh -------------------
     t0 = time.perf_counter()
-    par = phase_parallel(wt, exact_cuda, card)
+    par = phase_parallel(wt, card)
     secs["parallel"] = time.perf_counter() - t0
 
     # 34. bench: python -m waveform_tpu_torch.bench at its defaults -----------
@@ -3625,17 +3605,17 @@ def main() -> None:
     for name, source, line, n, s_n, count, row in (
             ("exact_mag", "exact_mag_gen", 525, 4096, S, launches,
              (k_ms, p_ms, max_abs, libs["exact_mag"])),
-            ("exact_mag3", "exact_mag3", 825, 65536, 32, launches3,
+            ("exact_mag3", "exact_mag3", 825, 65536, 32, k2_launches,
              (*mag3_row, libs["exact_mag3"])),
             ("exact_cfft", "exact_cfft", 479, 4096, S, launches_c,
              (*cfft_row, libs["exact_cfft"])),
-            ("exact_mag_gen", "exact_mag_gen", 525, 6144, S, launches_gen,
+            ("exact_mag_gen", "exact_mag_gen", 525, 6144, S, gen_launches,
              gen[6144]),
             ("exact_mag_df", "exact_mag_gen", 525, 4096, S,
-             df_slices[4096][3][COUNTERS.index("launches_gen_df")],
+             df_slices[4096][3].get("K1-df", 0),
              df_rows[4096]),
             ("exact_mag3_df", "exact_mag3", 825, 65536, 32,
-             df_slices[65536][3][COUNTERS.index("launches3_df")],
+             df_slices[65536][3].get("K2-df", 0),
              df_rows[65536])):
         b_ms, b_by = bound(source, n, s_n)
         lib = row[3]

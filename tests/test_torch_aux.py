@@ -20,7 +20,7 @@ from waveform_tpu.core import locale as jlocale
 from waveform_tpu.core import settings_io as jio
 import waveform_tpu_torch as wt
 from waveform_tpu_torch.core import locale, settings_io
-from waveform_tpu_torch.kernels import exact_cuda
+from waveform_tpu_torch.kernels import cuda_lib
 from waveform_tpu_torch.utils import log, wisdom
 
 
@@ -112,12 +112,12 @@ def test_startup_banner_names_the_cpu(records):
 
 
 def test_wisdom_enable_moves_the_build(tmp_path, monkeypatch):
-    monkeypatch.setattr(exact_cuda, "_BUILD", exact_cuda._BUILD)
+    monkeypatch.setattr(cuda_lib, "_BUILD", cuda_lib._BUILD)
     default = wisdom.enable()
-    assert default == str(exact_cuda._BUILD)
+    assert default == str(cuda_lib._BUILD)
     d = wisdom.enable(str(tmp_path / "kernels"))
     assert d == str(tmp_path / "kernels") and (tmp_path / "kernels").is_dir()
-    assert exact_cuda._BUILD == tmp_path / "kernels"
+    assert cuda_lib._BUILD == tmp_path / "kernels"
 
 
 def test_wisdom_warm_on_the_cpu_builds_nothing(monkeypatch):
@@ -126,7 +126,7 @@ def test_wisdom_warm_on_the_cpu_builds_nothing(monkeypatch):
     def no_build():
         raise AssertionError("built on the CPU")
 
-    monkeypatch.setattr(exact_cuda, "build", no_build)
+    monkeypatch.setattr(cuda_lib, "build", no_build)
     cfg = wt.resolve(wt.Settings(fft_size=1024, width=200),
                      wt.AudioInfo(48000, 2))
     wisdom.warm(cfg, num_streams=2, device="cpu")

@@ -19,6 +19,7 @@ from waveform_tpu.kernels import exact_pallas as jep
 from waveform_tpu.kernels import exactfft as jex
 from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.kernels import exactfft as tex
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES
 
 from test_torch_exact_mag3 import _unpack_b2
 from test_torch_exact_mag_gen import _unpack_a1
@@ -145,13 +146,13 @@ def test_silent_stream_is_exactly_zero():
 
 
 def test_cpu_tensors_take_the_twin_and_count_no_launch():
-    before = exact_cuda.launches_cfft
+    before = LAUNCHES["K3"]
     _, _, _, port, _ = _inputs(2048, 2, True, 3)
     z = exact_cuda.cfft_exact_kernel(*port)
     ref = exact_cuda.cfft_exact_ref(*port)
     for got, want in zip((*z[0], *z[1]), (*ref[0], *ref[1])):
         assert torch.equal(got, want)
-    assert exact_cuda.launches_cfft == before
+    assert LAUNCHES["K3"] == before
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -25,7 +25,7 @@ from waveform_tpu_torch import (
 )
 from waveform_tpu_torch.dsp.spectrum import gravity_pair
 from waveform_tpu_torch.kernels import exact_cuda
-from waveform_tpu_torch.runtime.graphs import COUNTERS
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES, sass_counts
 from waveform_tpu_torch.runtime.serving import ServingEngine, upload
 from waveform_tpu_torch.utils import plans
 
@@ -53,8 +53,7 @@ def default_split_rule(tmp_path, monkeypatch):
 
 def _counts():
     """(K2, K3, K1-gen) launch counts."""
-    return (exact_cuda.launches3, exact_cuda.launches_cfft,
-            exact_cuda.launches_gen)
+    return LAUNCHES["K2"], LAUNCHES["K3"], LAUNCHES["K1-gen"]
 
 
 def _hann(n, dev):
@@ -139,7 +138,7 @@ def test_k2_runs_on_the_int8_tensor_cores(dev):
     (IMMA from mma.sync, or IGMMA from wgmma) and no __dp4a (IDP.4A); the
     library's other kernels are the spectrum tail's four (its gate and
     fused tail, each for 16-byte vectors and single floats)."""
-    counts = exact_cuda.sass_counts()
+    counts = sass_counts()
     fft = {fn: c for fn, c in counts.items() if "exact_" in fn}
     tail = [fn for fn in counts if "spectrum_tail_" in fn]
     assert len(fft) == 10 and len(tail) == 4, counts
@@ -257,12 +256,12 @@ def test_k3_matches_twin_and_f64(n, dev):
     w64, win = _hann(n, dev)
     xd = torch.from_numpy(x).to(dev)
     re, im = (_windowed_df(xd[:, c], *win) for c in range(2))
-    before = exact_cuda.launches_cfft
+    before = LAUNCHES["K3"]
     z = exact_cuda.cfft_exact_kernel(re, im)
     torch.cuda.synchronize()
-    assert exact_cuda.launches_cfft == before + 1
+    assert LAUNCHES["K3"] == before + 1
     ref = exact_cuda.cfft_exact_ref(re, im)
-    assert exact_cuda.launches_cfft == before + 1
+    assert LAUNCHES["K3"] == before + 1
     for got, want in zip((*z[0], *z[1]), (*ref[0], *ref[1])):
         assert torch.equal(got, want)
     got = ((z[0][0].double() + z[0][1].double()).cpu().numpy()
@@ -402,7 +401,7 @@ def test_k1_gen_engine_on_card_matches_cpu_port(dev):
 
 def _df_counts():
     """(K1-df, K2-df) launch counts."""
-    return exact_cuda.launches_gen_df, exact_cuda.launches3_df
+    return LAUNCHES["K1-df"], LAUNCHES["K2-df"]
 
 
 @pytest.mark.parametrize("S", [1, 7, 32])
@@ -508,25 +507,25 @@ def _feed(eng, x, now):
         eng.feed_batch(x, now, now_ns=now)
 
 
-TAIL = {"launches_tail": 2}     # the spectrum tail's kernel pair a step
+TAIL = {"tail": 2}     # the spectrum tail's kernel pair a step
 
 GRAPH_PATHS = {
     # path: (settings, channels, environment, kernels a replay); every
     # path's spectrum tail is one kernel pair (TAIL)
-    "k1_gen": (dict(fft_size=4096), 2, {}, {"launches_gen": 1, **TAIL}),
+    "k1_gen": (dict(fft_size=4096), 2, {}, {"K1-gen": 1, **TAIL}),
     "k1_gen_per_stream": (dict(fft_size=4096, normalize_volume=True), 2, {},
-                          {"launches_gen": 1, **TAIL}),
+                          {"K1-gen": 1, **TAIL}),
     "k1_df": (dict(fft_size=4096), 2, {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"},
-              {"launches_gen_df": 1, **TAIL}),
+              {"K1-df": 1, **TAIL}),
     "k2": (dict(fft_size=32768, enable_large_fft=True), 2, {},
-           {"launches3": 1, **TAIL}),
+           {"K2": 1, **TAIL}),
     "k2_df": (dict(fft_size=32768, enable_large_fft=True), 2,
               {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"},
-              {"launches3_df": 1, **TAIL}),
+              {"K2-df": 1, **TAIL}),
     "k3": (dict(fft_size=1024), 2, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
-           {"launches_cfft": 1, **TAIL}),
+           {"K3": 1, **TAIL}),
     "k3_mono": (dict(fft_size=1024), 1, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
-                {"launches_cfft": 1, **TAIL}),
+                {"K3": 1, **TAIL}),
     "lowering": (dict(auto_fft_size=True), 2, {}, dict(TAIL)),
     "matmul": (dict(fft_size=4096), 2, {"WAVEFORM_TPU_FFT_BACKEND": "matmul"},
                dict(TAIL)),
@@ -556,10 +555,9 @@ def test_graph_tick_matches_eager_bitwise(path, dev, monkeypatch):
         now = 10_000_000_000 + k * 16_666_667
         _feed(graph, x, now)
         _feed(eager, x, now)
-        before = {c: getattr(exact_cuda, c) for c in COUNTERS}
+        before = LAUNCHES.copy()
         px = graph.tick(now_ns=now)
-        moved = {c: getattr(exact_cuda, c) - n for c, n in before.items()
-                 if getattr(exact_cuda, c) != n}
+        moved = dict(LAUNCHES - before)
         assert moved == want, (k, moved)
         assert torch.equal(px, _eager_tick(eager, now)), k
     for a, b in ((graph.state.tsmooth, eager.state.tsmooth),
@@ -617,10 +615,9 @@ def test_native_stage_tick_matches_the_stage_in_pieces(path, traced, dev,
         _feed(slow, x, now)
         if k == 1:
             torch.cuda._sleep(40_000_000)
-        before = {c: getattr(exact_cuda, c) for c in COUNTERS}
+        before = LAUNCHES.copy()
         a = fast.tick(now_ns=now)
-        moved = {c: getattr(exact_cuda, c) - n for c, n in before.items()
-                 if getattr(exact_cuda, c) != n}
+        moved = dict(LAUNCHES - before)
         assert moved == want, (k, moved)
         outs.append((a, slow.tick(now_ns=now)))
     torch.cuda.synchronize()
@@ -710,8 +707,7 @@ def test_microbatch_flush_matches_single_ticks(dev):
             batch = mb.last_batch_pixels
             for i in range(4):
                 assert torch.equal(batch[i], singles[k - 3 + i]), (k, i)
-    assert mb.kernels_per_replay[("mb", 4, True)] == {"launches_gen": 4,
-                                                      "launches_tail": 8}
+    assert mb.kernels_per_replay[("mb", 4, True)] == {"K1-gen": 4, "tail": 8}
 
 
 def test_meter_graph_matches_eager(dev):
@@ -859,11 +855,10 @@ def test_engine_spectrum_launches_k1_gen_once_a_tick(dev):
         for s in range(S):
             for e in (card, cpu):
                 e.feed(s, x[s], now, now_ns=now)
-        before = {c: getattr(exact_cuda, c) for c in COUNTERS}
+        before = LAUNCHES.copy()
         got = card.tick(now_ns=now).cpu().numpy()
-        moved = {c: getattr(exact_cuda, c) - n for c, n in before.items()
-                 if getattr(exact_cuda, c) != n}
-        assert moved == {"launches_gen": 1, **TAIL}, (k, moved)
+        moved = dict(LAUNCHES - before)
+        assert moved == {"K1-gen": 1, **TAIL}, (k, moved)
         want = cpu.tick(now_ns=now).numpy()
         vis = want > -120.0
         np.testing.assert_allclose(got[vis], want[vis], rtol=0, atol=1e-4)
@@ -935,10 +930,10 @@ def test_scene_cohort_matches_solo_engines(dev):
     rng = np.random.default_rng(17)
     now = _scene_drive(scene, sids, rng, 3, 10_000_000_000, solo)
     assert len(scene._cohorts) == 2 and not scene._solo
-    before = exact_cuda.launches_gen
+    before = LAUNCHES["K1-gen"]
     _scene_drive(scene, sids, rng, 4, now, solo)
     torch.cuda.synchronize()
-    assert exact_cuda.launches_gen - before == 2 * 4 * 2   # scene + solo
+    assert LAUNCHES["K1-gen"] - before == 2 * 4 * 2   # scene + solo
     for cfg, e in zip(cfgs, solo):
         got = scene._engines[cfg]
         np.testing.assert_array_equal(got.last_silent, e.last_silent)
@@ -1065,7 +1060,7 @@ def test_bus_graph_matches_eager_bus(dev):
         _bus_tick((graph, eager), x, now, eager=eager)
         for a, b in zip(_bus_state(graph), _bus_state(eager)):
             assert torch.equal(a, b), k
-    assert graph._graph.launches == {"launches_gen": 2, "launches_tail": 4}
+    assert graph._graph.launches == {"K1-gen": 2, "tail": 4}
 
 
 def test_bus_ring_growth_keeps_history(dev):
@@ -1241,9 +1236,9 @@ def test_sharded_mesh_on_one_card_matches_single_engine(dev):
         now = 10_000_000_000 + k * 16_666_667
         for eng in (graph, eager, single):
             eng.feed_batch(x, now, now_ns=now)
-        before = exact_cuda.launches_gen
+        before = LAUNCHES["K1-gen"]
         tiles = graph.tick(now_ns=now)
-        assert exact_cuda.launches_gen - before == 2, k
+        assert LAUNCHES["K1-gen"] - before == 2, k
         eager._flip ^= 1
         eager._bind_buf(eager._flip)
         uniform = eager._stage(now, 1.0 / cfg.fps)
@@ -1258,8 +1253,8 @@ def test_sharded_mesh_on_one_card_matches_single_engine(dev):
     got = graph.read_pixels()
     vis = want > -120.0
     np.testing.assert_allclose(got[vis], want[vis], rtol=0, atol=1e-4)
-    assert graph.kernels_per_replay[("tick", True)] == {"launches_gen": 2,
-                                                        "launches_tail": 4}
+    assert graph.kernels_per_replay[("tick", True)] == {"K1-gen": 2,
+                                                        "tail": 4}
 
 
 def test_graph_tick_generator_draws_anew_each_replay(dev):
@@ -1294,7 +1289,7 @@ def test_bench_dispatch_on_card(dev):
     from waveform_tpu_torch import bench
     cfg = bench.build_cfg(1024, 800)
     m = bench.measure(cfg, 8, 4, 1, 1, dev, seed=0, rounds=1)
-    assert m["launches"]["launches_gen"] == m["timed_ticks"] == 4
+    assert m["launches"]["K1-gen"] == m["timed_ticks"] == 4
     d = m["dispatch"]
     window = d.ring.buf[0].cpu().numpy().astype(np.float64)
     assert bench.accuracy_gate(cfg, window, dev)[0] < 1e-4

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 
 from waveform_tpu.kernels import exact_pallas as jep
 from waveform_tpu_torch.kernels import exact_cuda
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES
 
 TOL = 2.5e-7
 
@@ -175,9 +176,8 @@ def test_router_takes_the_tier_the_variable_names(n, split, monkeypatch):
     _, hi, lo = _hann(n)
     win = (torch.from_numpy(hi), torch.from_numpy(lo))
     df_twin, f32_twin = TWINS[split]
-    counts = (exact_cuda.launches3, exact_cuda.launches_cfft,
-              exact_cuda.launches_gen, exact_cuda.launches_gen_df,
-              exact_cuda.launches3_df)
+    counts = (LAUNCHES["K2"], LAUNCHES["K3"], LAUNCHES["K1-gen"],
+              LAUNCHES["K1-df"], LAUNCHES["K2-df"])
     monkeypatch.setenv("WAVEFORM_TPU_KERNEL_TWIDDLE", "df")
     mag, nz = exact_cuda.rfft_pair_mag(x, win)
     ref, nz_ref = df_twin(x, win)
@@ -191,9 +191,8 @@ def test_router_takes_the_tier_the_variable_names(n, split, monkeypatch):
             monkeypatch.setenv("WAVEFORM_TPU_KERNEL_TWIDDLE", env)
         mag, nz = exact_cuda.rfft_pair_mag(x, win)
         assert torch.equal(mag, f32_ref) and torch.equal(nz, nz_ref), env
-    assert (exact_cuda.launches3, exact_cuda.launches_cfft,
-            exact_cuda.launches_gen, exact_cuda.launches_gen_df,
-            exact_cuda.launches3_df) == counts
+    assert (LAUNCHES["K2"], LAUNCHES["K3"], LAUNCHES["K1-gen"],
+            LAUNCHES["K1-df"], LAUNCHES["K2-df"]) == counts
 
 
 @pytest.mark.parametrize("split", [2, 3])

@@ -20,6 +20,7 @@ from waveform_tpu.kernels import exactfft as jex
 from waveform_tpu.kernels import matfft as jmf
 from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.kernels import exactfft as tex
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES
 
 TOL = 2.5e-7
 ATOL = 2e-7
@@ -174,7 +175,7 @@ def test_rfft_mag_exact_fused_never_matches_jax(channels, fused_never,
     x[0] = 0.0                   # a silent stream
     x[1, -1, :50] = 0.0
     w64, w_hi, w_lo = _hann(n)
-    before = (exact_cuda.launches3, exact_cuda.launches_cfft)
+    before = (LAUNCHES["K2"], LAUNCHES["K3"])
     mag, nz = tex.rfft_mag_exact(
         torch.from_numpy(x), (torch.from_numpy(w_hi), torch.from_numpy(w_lo)))
     mag_j, nz_j = jex.rfft_mag_exact(
@@ -186,7 +187,7 @@ def test_rfft_mag_exact_fused_never_matches_jax(channels, fused_never,
     assert (mag.numpy()[0] == 0).all()
     np.testing.assert_array_equal(nz.numpy(), np.asarray(nz_j))
     np.testing.assert_array_equal(nz.numpy(), np.any(x != 0, axis=-1))
-    assert (exact_cuda.launches3, exact_cuda.launches_cfft) == before
+    assert (LAUNCHES["K2"], LAUNCHES["K3"]) == before
 
 
 @pytest.mark.parametrize("n", [128, 512, 800, 1040, 4112, 16496])

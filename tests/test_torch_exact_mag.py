@@ -17,6 +17,7 @@ from waveform_tpu.kernels import exact_pallas as jep
 from waveform_tpu.kernels import exactfft as jex
 from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.kernels import exactfft as tex
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES
 
 TOL = 2.5e-7
 
@@ -153,14 +154,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_cpu_tensors_take_the_twin_and_count_no_launch():
-    before = (exact_cuda.launches_gen, exact_cuda.launches_gen_df)
+    before = (LAUNCHES["K1-gen"], LAUNCHES["K1-df"])
     x = torch.from_numpy(
         np.random.default_rng(2).standard_normal((2, 2, 2048))
         .astype(np.float32))
     mag, nz = exact_cuda.rfft_pair_mag(x)
     ref, nz_ref = exact_cuda.rfft_pair_mag_ref(x)
     assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
-    assert (exact_cuda.launches_gen, exact_cuda.launches_gen_df) == before
+    assert (LAUNCHES["K1-gen"], LAUNCHES["K1-df"]) == before
 
 
 @pytest.mark.parametrize("tier", ["f32", "df"])

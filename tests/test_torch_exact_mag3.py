@@ -34,6 +34,7 @@ from waveform_tpu.kernels import exact_pallas as jep
 from waveform_tpu.kernels import exactfft as jex
 from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.kernels import exactfft as tex
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES
 
 TOL = 2.5e-7
 TOL_SPLITS = 3e-7
@@ -304,7 +305,7 @@ def test_lone_channels_pair_streams_at_8192(streams, channels, monkeypatch):
 
 def test_cpu_tensors_take_the_k2_twin_and_count_no_launch(monkeypatch):
     monkeypatch.setenv("WAVEFORM_TPU_STAGE1_SPLIT", "3")
-    before = (exact_cuda.launches3, exact_cuda.launches_gen)
+    before = (LAUNCHES["K2"], LAUNCHES["K1-gen"])
     x = torch.from_numpy(
         np.random.default_rng(3).standard_normal((2, 2, 8192))
         .astype(np.float32))
@@ -315,4 +316,4 @@ def test_cpu_tensors_take_the_k2_twin_and_count_no_launch(monkeypatch):
     mag, nz = exact_cuda.rfft_pair_mag3(y)
     ref, nz_ref = exact_cuda.rfft_pair_mag3_ref(y)
     assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
-    assert (exact_cuda.launches3, exact_cuda.launches_gen) == before
+    assert (LAUNCHES["K2"], LAUNCHES["K1-gen"]) == before

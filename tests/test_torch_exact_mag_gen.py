@@ -35,6 +35,7 @@ from waveform_tpu.runtime.serving import ServingEngine as JaxEngine
 import waveform_tpu_torch as wt
 from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.kernels import exactfft as tex
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES
 from waveform_tpu_torch.runtime.serving import ServingEngine
 
 from test_torch_exact_mag3 import _unpack_b2
@@ -261,8 +262,7 @@ def test_direct_entry_and_constants():
     """``rfft_pair_mag_gen`` takes every 2-factor size, N1 in {8, 16, 32}
     included, runs the twin on a CPU tensor and counts no launch; K1-gen's
     stage-2 B fragments are K2's at every size (one f2 block)."""
-    before = (exact_cuda.launches3, exact_cuda.launches_cfft,
-              exact_cuda.launches_gen)
+    before = (LAUNCHES["K2"], LAUNCHES["K3"], LAUNCHES["K1-gen"])
     rng = np.random.default_rng(3)
     f2b = exact_cuda._consts3(4096, torch.device("cpu"))["f2b"]
     for n in (1024, 3072, 4096):
@@ -272,8 +272,7 @@ def test_direct_entry_and_constants():
         assert torch.equal(mag, ref) and torch.equal(nz, nz_ref)
         assert torch.equal(exact_cuda._consts(n, torch.device("cpu"))["f2b"],
                            f2b)
-    assert (exact_cuda.launches3, exact_cuda.launches_cfft,
-            exact_cuda.launches_gen) == before
+    assert (LAUNCHES["K2"], LAUNCHES["K3"], LAUNCHES["K1-gen"]) == before
     for n in (1040, 512, 65536):
         with pytest.raises(NotImplementedError):
             exact_cuda.rfft_pair_mag_gen(torch.zeros((1, 2, n)))

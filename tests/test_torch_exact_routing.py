@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from waveform_tpu.kernels import exactfft as jex
 from waveform_tpu_torch.kernels import exact_cuda
 from waveform_tpu_torch.kernels import exactfft as tex
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES
 
 TOL = 2.5e-7
 GATES = ("WAVEFORM_TPU_EXACT_KERNEL", "WAVEFORM_TPU_EXACT_FUSED",
@@ -81,9 +82,8 @@ def _both(x, hi, lo):
 
 
 def _launches():
-    return (exact_cuda.launches3, exact_cuda.launches_cfft,
-            exact_cuda.launches_gen, exact_cuda.launches_gen_df,
-            exact_cuda.launches3_df)
+    return (LAUNCHES["K2"], LAUNCHES["K3"], LAUNCHES["K1-gen"],
+            LAUNCHES["K1-df"], LAUNCHES["K2-df"])
 
 
 @pytest.mark.parametrize("mode,on", [(None, True), ("auto", True),

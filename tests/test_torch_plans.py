@@ -21,7 +21,7 @@ import torch
 
 from waveform_tpu.kernels import exact_pallas
 from waveform_tpu.utils import plans as jplans
-from waveform_tpu_torch.kernels import exact_cuda
+from waveform_tpu_torch.kernels import cuda_lib, exact_cuda
 from waveform_tpu_torch.utils import plans
 
 SIZES = (1024, 2048, 4096, 6144, 8192, 12288, 16384, 24576, 28672, 31744,
@@ -196,7 +196,7 @@ def test_measure_bookkeeping_with_fake_timer(plan_file, monkeypatch):
 
     monkeypatch.setattr(plans, "_graph_timer", timer)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(exact_cuda, "build", lambda: None)
+    monkeypatch.setattr(cuda_lib, "build", lambda: None)
     entry = plans.measure(16384, streams=4, ticks=2, reps=3, verbose=False)
     assert entry == {"split": 2, "streams": 4, "us_per_frame": 2.5,
                      "xla_us_per_frame": 8.0}

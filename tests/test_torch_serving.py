@@ -30,6 +30,7 @@ from waveform_tpu_torch import (
     resolve,
 )
 from waveform_tpu_torch.kernels import exact_cuda
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES
 from waveform_tpu_torch.runtime.serving import ServingEngine
 
 SR, HOP, T0 = 48000, 800, 10_000_000_000
@@ -223,7 +224,7 @@ def test_packed_pair_slice_matches_jax(n, channels, fused, kernel_on,
     S = 3
     port, ref = _engines(cfg, S)
     rng = np.random.default_rng(70 + n + channels)
-    before = (exact_cuda.launches3, exact_cuda.launches_cfft)
+    before = (LAUNCHES["K2"], LAUNCHES["K3"])
     for k in range(4):
         x = _audio(rng, S, k, silent=[2])[:, :channels]
         now = T0 + k * FRAME_NS
@@ -232,7 +233,7 @@ def test_packed_pair_slice_matches_jax(n, channels, fused, kernel_on,
             eng.tick(now_ns=now)
         _assert_same(port, ref)
     assert port.last_silent[2] and not port.last_silent[:2].any()
-    assert (exact_cuda.launches3, exact_cuda.launches_cfft) == before
+    assert (LAUNCHES["K2"], LAUNCHES["K3"]) == before
 
 
 def _oracle_gate(settings, ticks, seed):

@@ -18,7 +18,7 @@ import torch
 import waveform_tpu_torch as wt
 from waveform_tpu_torch.core.config import DB_MIN
 from waveform_tpu_torch.dsp import spectrum as tspec
-from waveform_tpu_torch.kernels import exact_cuda, tail_cuda
+from waveform_tpu_torch.kernels import cuda_lib, tail_cuda
 
 SRC = (Path(tspec.__file__).resolve().parent.parent / "csrc"
        / "spectrum_tail.cu")
@@ -141,7 +141,7 @@ def test_wrapper_checks_raise(fault, monkeypatch):
     (the step sends CPU tensors to the plain version)."""
     def no_build():
         raise AssertionError("the library was built")
-    monkeypatch.setattr(exact_cuda, "build", no_build)
+    monkeypatch.setattr(cuda_lib, "build", no_build)
     k = tail_cuda.tail_constants(_cfg(dict(normalize_volume=True), 2))
     args = _args(k)
     name, bad = FAULTS[fault]
@@ -181,7 +181,7 @@ def test_cpu_step_runs_the_plain_tail(branch, monkeypatch):
     never builds or loads the library; no tail launch is counted."""
     def no_build():
         raise AssertionError("the library was built")
-    monkeypatch.setattr(exact_cuda, "build", no_build)
+    monkeypatch.setattr(cuda_lib, "build", no_build)
     calls = []
     ref = tspec.spectrum_tail_ref
 
@@ -195,12 +195,12 @@ def test_cpu_step_runs_the_plain_tail(branch, monkeypatch):
     step = tspec.make_spectrum_step(cfg, device="cpu")
     state = tspec.init_state(cfg, S, "cpu")
     rng = np.random.default_rng(5)
-    before = exact_cuda.launches_tail
+    before = cuda_lib.LAUNCHES["tail"]
     for _ in range(3):
         x = torch.from_numpy(rng.standard_normal((S, C, 256))
                              .astype(np.float32))
         state = step(x, state, 1 / 60, torch.ones(S, dtype=torch.bool),
                      torch.full((S,), 0.1))
     assert calls == [(S, C, 128)] * 3
-    assert exact_cuda.launches_tail == before
+    assert cuda_lib.LAUNCHES["tail"] == before
     assert state.decibels.shape == (S, max(cfg.output_channels, C), 128)

@@ -22,7 +22,8 @@ import torch
 
 import waveform_tpu_torch as wt
 from waveform_tpu_torch.dsp import spectrum as tspec
-from waveform_tpu_torch.kernels import exact_cuda, tail_cuda
+from waveform_tpu_torch.kernels import tail_cuda
+from waveform_tpu_torch.kernels.cuda_lib import LAUNCHES
 from waveform_tpu_torch.runtime.serving import ServingEngine
 from waveform_tpu_torch.utils import plans
 
@@ -135,11 +136,11 @@ def _run_matrix(cfg, S, n, dev, tables=None):
         gravity = (torch.from_numpy(pair).to(dev) if t % 2 else
                    (float(pair[0]), float(pair[1])))
         v, r = (None, None) if t == 0 else (valid, run)
-        before = exact_cuda.launches_tail
+        before = LAUNCHES["tail"]
         got = tail_cuda.spectrum_tail(
             k, mag, nz, v, state.tsmooth, state.decibels, state.last_silent,
             gravity, active, rms if k.normalize else None, r, slope, rolloff)
-        assert exact_cuda.launches_tail == before + 2
+        assert LAUNCHES["tail"] == before + 2
         want = tspec.spectrum_tail_ref(
             cfg, mag, nz, v, state, gravity if t % 2 else dt, active, rms,
             r, slope, rolloff)
@@ -197,9 +198,8 @@ def test_serving_tick_replays_one_tail_pair(dev, tmp_path, monkeypatch):
         now = 10_000_000_000 + k * 16_666_667
         x = (0.3 * rng.standard_normal((32, 2, 800))).astype(np.float32)
         eng.feed_batch(x, now, now_ns=now)
-        before = exact_cuda.launches_tail
+        before = LAUNCHES["tail"]
         eng.tick(now_ns=now)
-        assert exact_cuda.launches_tail == before + 2, k
-    assert eng.kernels_per_replay == {("tick", True): {"launches3": 1,
-                                                        "launches_tail": 2}}
+        assert LAUNCHES["tail"] == before + 2, k
+    assert eng.kernels_per_replay == {("tick", True): {"K2": 1, "tail": 2}}
     assert torch.isfinite(eng.state.decibels).all()

@@ -193,20 +193,19 @@ def measure(cfg, s: int, ticks: int, reps: int, warmup: int,
     """Best-of-``rounds`` throughput of ``reps`` dispatches of ``ticks``
     ticks at (cfg, s): ``elapsed`` (s, the best round), the
     :class:`Dispatch` (its ring holds the last window) and the kernel
-    launches of each exact kernel counter over the timed rounds."""
-    from .runtime.graphs import _counts
+    launches over the timed rounds, a ``Counter`` by kernel name."""
+    from .kernels.cuda_lib import LAUNCHES
     d = Dispatch(cfg, s, dev, seed)
     for _ in range(max(warmup, 1)):
         d.run(ticks)
     d.check_draws()
     sync(dev)
-    before = _counts()
+    before = LAUNCHES.copy()
     elapsed = min(timed(dev, lambda: [d.run(ticks) for _ in range(reps)])
                   for _ in range(rounds))
-    after = _counts()
     return {"elapsed": elapsed, "dispatch": d, "timed_ticks":
             rounds * reps * ticks,
-            "launches": {c: after[c] - before[c] for c in after}}
+            "launches": LAUNCHES - before}
 
 
 def accuracy_gate(cfg, window: np.ndarray, device="cuda"
@@ -287,11 +286,10 @@ def roofline(cfg, s: int, ticks_per_sec: float) -> tuple[str, dict]:
 def mfu_line(cfg, s: int, m: dict, ticks_per_sec: float, card: str) -> str:
     """One ``# MFU`` line: the roofline, each exact kernel's launches over
     the timed ticks, frames/s and the card."""
-    from .kernels.exact_cuda import COUNTER
+    from .kernels.exact_cuda import KERNELS
     text, _ = roofline(cfg, s, ticks_per_sec)
-    launched = ", ".join(f"{k} {m['launches'][ctr]}"
-                         for k, ctr in COUNTER.items()
-                         if m["launches"][ctr]) or "none"
+    launched = ", ".join(f"{k} {m['launches'][k]}" for k in KERNELS.values()
+                         if m["launches"][k]) or "none"
     return (f"# MFU N={cfg.fft_size} S={s}: {text} [launches: {launched}; "
             f"{m['timed_ticks']} timed ticks] [{s * ticks_per_sec:,.0f} "
             f"frames/s] [{card}]")

@@ -56,7 +56,7 @@ def dryrun(n_devices: int, device: str = "cuda") -> str:
 def _body(devices: list) -> str:
     from . import AudioInfo, Settings, resolve
     from .core.enums import DisplayMode, FFTWindow, InterpMode, TSmoothingMode
-    from .kernels import exact_cuda
+    from .kernels import cuda_lib
     from .parallel import (
         PIXEL_AXIS,
         STREAM_AXIS,
@@ -81,14 +81,14 @@ def _body(devices: list) -> str:
     rng = np.random.default_rng(0)
     sr, hop = 48000, 800
     step_ns = hop * 1_000_000_000 // sr
-    before = exact_cuda.launches_gen
+    before = cuda_lib.LAUNCHES["K1-gen"]
     now = 1_000_000_000
     for _ in range(3):
         pkt = (0.4 * rng.standard_normal((S, 2, hop))).astype(np.float32)
         eng.feed_batch(pkt, now, now_ns=now)
         now += step_ns
         eng.tick(now_ns=now)
-    launches = exact_cuda.launches_gen - before
+    launches = cuda_lib.LAUNCHES["K1-gen"] - before
 
     # every entry holds exactly its (S/stream_axis, D, W/pixel_axis) tile
     D = cfg.display_channels

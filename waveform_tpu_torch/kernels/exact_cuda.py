@@ -1,4 +1,5 @@
-"""Exact FFT kernels: the Hopper kernels, their plain twins, the build.
+"""Exact FFT kernels: the Hopper kernels' routing, plans and launchers,
+and their plain twins.
 
 The PyTorch counterpart of ``waveform_tpu/kernels/exact_pallas.py``: its
 routing predicates (:func:`stage1_split`, :func:`supports`,
@@ -17,9 +18,9 @@ its digit GEMMs on the int8 tensor cores.  Entry points:
 
 * a CUDA tensor launches the hand-written kernel,
   ``csrc/exact_mag_gen.cu`` (K1-gen, K1-df), ``csrc/exact_mag3.cu`` (K2,
-  K2-df) or ``csrc/exact_cfft.cu`` (K3), built with ``nvcc`` at first use
-  into ``build/waveform_tpu_torch/`` and bound with ``ctypes``; a build or
-  launch failure raises;
+  K2-df) or ``csrc/exact_cfft.cu`` (K3), from the port's CUDA library
+  (``kernels/cuda_lib.py``: the build, and the launch counts by the names
+  of :data:`KERNELS`); a build or launch failure raises;
 * a CPU tensor runs the twin, :func:`rfft_pair_mag_ref` (K1-gen),
   :func:`rfft_pair_mag_df_ref` (K1-df), :func:`rfft_pair_mag3_ref`,
   :func:`rfft_pair_mag3_df_ref` or :func:`cfft_exact_ref`: the same
@@ -50,20 +51,14 @@ df magnitude.  K3 always runs the df arithmetic.
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import hashlib
 import os
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..runtime import profiler
 from ..utils.plans import plan_for
+from . import cuda_lib
 from .exactfft import (_CLAMP, DIGIT_BITS, FIRST_SHIFT, N_DIGITS,
                        _df_cmul, _df_pair, _digit_gemm, _digit_planes, _left,
                        _right, _slice_df, _windowed_df, df_add, df_mul, df_neg,
@@ -82,18 +77,6 @@ K3_CONSTS = ("f1f", "f2b", "tw")      # K3's
 _SLICE_TOP = FIRST_SHIFT + (N_DIGITS - 1) * DIGIT_BITS            # 27
 _SLICE_BIAS = sum(64 << (_SLICE_TOP - FIRST_SHIFT - DIGIT_BITS * k)
                   for k in range(N_DIGITS))
-
-# counts of kernel launches (not of twin calls), K2, K3, K1-gen, K1-df and
-# K2-df apart: a run reads them to show that its main path went through
-# the kernel it expects
-launches3 = 0
-launches_cfft = 0
-launches_gen = 0
-launches_gen_df = 0
-launches3_df = 0
-# launches of the spectrum tail's kernel pair (kernels/tail_cuda.py): two a
-# step; not an FFT kernel, so not in COUNTER
-launches_tail = 0
 
 TIERS = ("f32", "df")
 
@@ -193,11 +176,9 @@ def _tier(twiddle: str | None) -> str:
 INT8_PEAK_OPS = 1979e12
 HBM_PEAK_BYTES = 3.35e12
 
+# each (split, tier)'s kernel: the names that cuda_lib.LAUNCHES counts
 KERNELS = {(2, "f32"): "K1-gen", (2, "df"): "K1-df", (3, "f32"): "K2",
            (3, "df"): "K2-df", ("cfft", "df"): "K3"}
-# each kernel's launch counter
-COUNTER = {"K1-gen": "launches_gen", "K1-df": "launches_gen_df",
-           "K2": "launches3", "K2-df": "launches3_df", "K3": "launches_cfft"}
 
 
 def kernel_cost(n: int, streams: int, split=None,
@@ -760,133 +741,8 @@ def _window_pair(window, n: int, device: torch.device):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernels: build, bind, launch
+# the CUDA kernels: launch (the library: kernels/cuda_lib.py)
 # ---------------------------------------------------------------------------
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD = Path(__file__).resolve().parents[2] / "build" / "waveform_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
-
-_lib = None
-build_info: dict = {}    # "library": the .so path; "log": nvcc's output
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
-    return found
-
-
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/*.cu`` into a shared library (once per source hash)
-    and bind it: one ``nvcc`` per source, all started together, then one
-    link.  Raises on a failed build.  Timed as the profiler's set-up
-    phase ``library.exact_cuda``."""
-    global _lib
-    if _lib is None:
-        with profiler.setup("library.exact_cuda"):
-            _lib = _build()
-    return _lib
-
-
-def _build() -> ctypes.CDLL:
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(_CSRC.glob("*.cu*")):
-        digest.update(p.name.encode() + p.read_bytes())
-    out = _BUILD / f"libwf_exact_{digest.hexdigest()[:16]}.so"
-    if not out.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        nvcc = _nvcc()
-        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                                   str(src)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(sources, objs)]
-        logs = [proc.communicate()[0] for proc in procs]
-        try:
-            for src, proc, log in zip(sources, procs, logs):
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
-            r = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
-                                str(tmp), *map(str, objs)],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
-                                   f"{r.stderr}")
-        finally:
-            for obj in objs:
-                obj.unlink(missing_ok=True)
-        os.replace(tmp, out)
-        build_info["log"] = "".join(logs)
-    build_info["library"] = str(out)
-    lib = ctypes.CDLL(str(out))
-    lib.wf_exact_mag3.restype = ctypes.c_int
-    lib.wf_exact_mag3.argtypes = ([ctypes.c_void_p] * 12
-                                  + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p])
-    lib.wf_exact_cfft.restype = ctypes.c_int
-    lib.wf_exact_cfft.argtypes = ([ctypes.c_void_p] * 9
-                                  + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p])
-    # K1-gen and K1-df, K2 and K2-df: one signature a pair
-    for fn in (lib.wf_exact_mag_gen, lib.wf_exact_mag_gen_df):
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 11
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    lib.wf_exact_mag3_df.restype = ctypes.c_int
-    lib.wf_exact_mag3_df.argtypes = lib.wf_exact_mag3.argtypes
-    # one stage alone (chip_smoke times the stages apart): (stage, df, ...)
-    # for the pair kernels, (stage, ...) for K3
-    for fn, whole, ints in ((lib.wf_exact_mag3_stage, lib.wf_exact_mag3, 2),
-                            (lib.wf_exact_mag_gen_stage, lib.wf_exact_mag_gen,
-                             2),
-                            (lib.wf_exact_cfft_stage, lib.wf_exact_cfft, 1)):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] * ints + whole.argtypes
-    # the served tick's upload (csrc/tick_host.cu, runtime/serving.py)
-    lib.wf_tick_upload.restype = ctypes.c_int
-    lib.wf_tick_upload.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_longlong, ctypes.c_void_p,
-                                   ctypes.c_void_p, ctypes.c_int]
-    return lib
-
-
-def sass_counts(ops=("IMMA", "IGMMA", "IDP.4A")) -> dict:
-    """Instruction counts of each kernel in the built library, read from
-    its SASS (``cuobjdump -sass``, beside ``nvcc``): ``{mangled kernel
-    name: {op: count}}``, an instruction counting for ``op`` when its
-    opcode is ``op`` or starts with ``op.`` (``IGMMA``: the int8
-    ``wgmma``; ``IMMA.16832.S8.S8``: the int8 ``mma.sync``;
-    ``IDP.4A.S8.S8``: ``__dp4a``)."""
-    build()
-    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", build_info["library"]],
-                          capture_output=True, text=True, check=True).stdout
-    counts: dict = {}
-    fn = None
-    for line in sass.splitlines():
-        head = re.match(r"\s*Function : (\S+)", line)
-        if head:
-            fn = head.group(1)
-            counts[fn] = dict.fromkeys(ops, 0)
-            continue
-        ins = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-        if fn is not None and ins:
-            opcode = ins.group(1)
-            for op in ops:
-                if opcode == op or opcode.startswith(op + "."):
-                    counts[fn][op] += 1
-    return counts
-
 
 def _check_pair(x: torch.Tensor) -> None:
     if x.dtype != torch.float32 or x.dim() != 3 or x.shape[1] != 2:
@@ -970,7 +826,6 @@ def rfft_pair_mag_gen(x: torch.Tensor, window=None,
     :func:`rfft_pair_mag`; a CPU tensor takes :func:`rfft_pair_mag_ref` or
     :func:`rfft_pair_mag_df_ref`.
     """
-    global launches_gen, launches_gen_df
     _check_pair(x)
     df = _tier(twiddle) == "df"
     n = x.shape[-1]
@@ -981,14 +836,11 @@ def rfft_pair_mag_gen(x: torch.Tensor, window=None,
     w_hi, w_lo = _checked_window(x, window)
     if x.device.type == "cpu":
         return _pair_mag(x, (w_hi, w_lo), df)
-    lib = build()
+    lib = cuda_lib.build()
     out = _launch_two_stage(
         lib.wf_exact_mag_gen_df if df else lib.wf_exact_mag_gen, x, w_hi,
         w_lo, K1GEN_CONSTS, _consts(n, x.device), df)
-    if df:
-        launches_gen_df += 1
-    else:
-        launches_gen += 1
+    cuda_lib.launched("K1-df" if df else "K1-gen")
     return out
 
 
@@ -1000,7 +852,6 @@ def rfft_pair_mag3(x: torch.Tensor, window=None, twiddle: str | None = None):
     CPU tensor takes :func:`rfft_pair_mag3_ref` or
     :func:`rfft_pair_mag3_df_ref`.
     """
-    global launches3, launches3_df
     _check_pair(x)
     df = _tier(twiddle) == "df"
     n = x.shape[-1]
@@ -1011,14 +862,11 @@ def rfft_pair_mag3(x: torch.Tensor, window=None, twiddle: str | None = None):
     w_hi, w_lo = _checked_window(x, window)
     if x.device.type == "cpu":
         return _pair_mag3(x, (w_hi, w_lo), df)
-    lib = build()
+    lib = cuda_lib.build()
     out = _launch_two_stage(
         lib.wf_exact_mag3_df if df else lib.wf_exact_mag3, x, w_hi, w_lo,
         K2_CONSTS, _consts3(n, x.device), df)
-    if df:
-        launches3_df += 1
-    else:
-        launches3 += 1
+    cuda_lib.launched("K2-df" if df else "K2")
     return out
 
 
@@ -1029,7 +877,6 @@ def cfft_exact_kernel(re, im):
     ``((zr_hi, zr_lo), (zi_hi, zi_lo))`` [..., N] df32, bins in natural
     order.  A CUDA tensor launches ``csrc/exact_cfft.cu`` (two kernels,
     one count), a CPU tensor takes :func:`cfft_exact_ref`."""
-    global launches_cfft
     re, im = _df_pair(re), _df_pair(im)
     parts = (*re, *im)
     shp, n = parts[0].shape[:-1], parts[0].shape[-1]
@@ -1046,7 +893,7 @@ def cfft_exact_kernel(re, im):
         return cfft_exact_ref(re, im)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = build()
+    lib = cuda_lib.build()
     S = int(np.prod(shp)) if shp else 1
     flat = [p.reshape(S, n).contiguous() for p in parts]
     c = _consts_cfft(n, dev)
@@ -1062,6 +909,6 @@ def cfft_exact_kernel(re, im):
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"exact_cfft kernel launch failed: cudaError {err}")
-    launches_cfft += 1
+    cuda_lib.launched("K3")
     z = out.reshape(4, *shp, n)
     return (z[0], z[1]), (z[2], z[3])

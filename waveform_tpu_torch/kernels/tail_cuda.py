@@ -3,8 +3,8 @@
 Everything the spectrum step does after the |rFFT| (``dsp/spectrum.py``:
 2/Σw and the slope, the EMA, silence and timeout gating, the mono or
 stereo fold, dBFS, volume normalization, roll-off, the ``run`` freeze) as
-two launches of ``csrc/spectrum_tail.cu``, built into the exact kernels'
-library (``exact_cuda.build``) and bound with ``ctypes``.
+two launches of ``csrc/spectrum_tail.cu``, built into the port's CUDA
+library (``cuda_lib.build``) and counted there as ``LAUNCHES["tail"]``.
 
 It replaces no Pallas kernel: the JAX package's tail
 (``waveform_tpu/dsp/spectrum.py``) is jnp code that XLA fuses.  Run op by
@@ -25,7 +25,6 @@ never builds the library.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from dataclasses import dataclass
 
@@ -35,7 +34,7 @@ import torch
 from ..core.config import ResolvedConfig
 from ..core.enums import TSmoothingMode
 from ..dsp.windows import window_sum
-from . import exact_cuda
+from . import cuda_lib
 
 THREADS = 256                   # a block's threads (csrc: kThreads)
 GATE_BLOCKS = 132 * 2           # the gate's blocks over all streams: two on
@@ -107,17 +106,6 @@ def _check(name: str, t, shape, dtype) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _bound():
-    lib = exact_cuda.build()
-    fn = lib.wf_spectrum_tail
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 6
-                       + [ctypes.c_int, ctypes.c_void_p])
-    return fn
-
-
 def spectrum_tail(k: TailConstants, mag, nz_k, valid, tsmooth, decibels,
                   last_silent, gravity, active, input_rms, run=None,
                   slope=None, rolloff=None, stages: int = 3):
@@ -179,7 +167,7 @@ def spectrum_tail(k: TailConstants, mag, nz_k, valid, tsmooth, decibels,
     out = (torch.empty_like(tsmooth), torch.empty_like(decibels),
            torch.empty_like(last_silent))
     with torch.cuda.device(dev):
-        err = _bound()(
+        err = cuda_lib.build().wf_spectrum_tail(
             *(None if t is None else t.data_ptr() for t in inputs),
             partial.data_ptr(), *(t.data_ptr() for t in out), S, n, C,
             k.outputs, k.display, k.flags, vec, blocks, g, g2, k.coeff,
@@ -188,5 +176,5 @@ def spectrum_tail(k: TailConstants, mag, nz_k, valid, tsmooth, decibels,
     if err != 0:
         raise RuntimeError(f"spectrum_tail kernel launch failed: cudaError "
                            f"{err}")
-    exact_cuda.launches_tail += (stages & 1) + (stages >> 1)
+    cuda_lib.launched("tail", (stages & 1) + (stages >> 1))
     return out

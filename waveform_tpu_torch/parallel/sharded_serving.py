@@ -236,8 +236,9 @@ class ShardedMixin:
 
     @property
     def kernels_per_replay(self) -> dict:
-        """{tick kind: {exact_cuda counter: kernels one replay of every
-        shard's graph launches}} (empty on the CPU)."""
+        """{tick kind: {kernel name (``cuda_lib.LAUNCHES``'s): launches of
+        one replay of every shard's graph}}, the shards' counts summed
+        (empty on the CPU)."""
         out: dict = {}
         for sh in self._shards:
             for key, d in sh.eng.kernels_per_replay.items():

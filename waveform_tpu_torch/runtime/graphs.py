@@ -25,12 +25,12 @@ A capture runs with Python's garbage collector off (:func:`no_gc`): the
 collector frees the graphs of dropped engines, and freeing a graph during
 a capture invalidates it.
 
-Launch counts: ``exact_cuda``'s counters (:data:`COUNTERS`: each exact
-FFT kernel's and the spectrum tail's) count kernel launches.  A replay
+Launch counts: ``kernels/cuda_lib.LAUNCHES`` counts kernel launches by
+kernel name (each exact FFT kernel's and the spectrum tail's).  A replay
 launches the kernels that the capture recorded, so a :class:`GraphTick`
-counts each wrapper call made during the capture (and takes those calls
-back out of the counters: a capture launches nothing) and adds that count
-to the counters at every replay.
+keeps what the table gained during the capture as :attr:`launches` (and
+takes it back out: a capture launches nothing) and adds it to the table
+at every replay.
 
 Stage marks (``runtime/profiler.mark``): where the warm-up passed marks
 that make a stage, a :class:`GraphTick` captures a second graph of the
@@ -50,12 +50,8 @@ import gc
 
 import torch
 
-from ..kernels import exact_cuda
+from ..kernels import cuda_lib
 from . import profiler
-
-# the FFT kernels' counters and the spectrum tail's (kernels/tail_cuda.py)
-COUNTERS = (*exact_cuda.COUNTER.values(), "launches_tail")
-
 
 # the side stream of every warm-up and capture on a device: the libraries
 # keep a workspace for each stream they run on (cuBLAS's lives as long as
@@ -88,15 +84,6 @@ def no_gc():
             gc.enable()
 
 
-def _counts() -> dict:
-    return {c: getattr(exact_cuda, c) for c in COUNTERS}
-
-
-def _add_counts(delta: dict) -> None:
-    for c, n in delta.items():
-        setattr(exact_cuda, c, getattr(exact_cuda, c) + n)
-
-
 class GraphTick:
     """``fn()`` run eagerly on the CPU; on a CUDA device run eagerly once
     on a side stream (that call's output is returned), then captured and
@@ -120,7 +107,7 @@ class GraphTick:
         self.twin = None           # the stamped twin, where marks make stages
         self._twin_out = None
         self._stamps = None
-        self.launches: dict = {}   # exact_cuda counter -> kernels a replay
+        self.launches: dict = {}   # kernel name -> launches a replay
 
     def __call__(self):
         if self.device.type != "cuda":
@@ -149,26 +136,25 @@ class GraphTick:
         else:
             self.graph.replay()
             out = self._out
-        _add_counts(self.launches)
+        cuda_lib.LAUNCHES.update(self.launches)
         return out
 
     def _capture(self, graph, side, sink, **kw):
         """Capture ``fn`` into ``graph`` on ``side`` with its marks sent to
         ``sink``; returns its output.  The capture launches nothing, so
-        the launch counters are set back, and the count it made is
-        returned beside the output."""
+        what the launch table gained is taken back out, and returned
+        beside the output."""
         for g in self._generators:
             graph.register_generator_state(g)
-        before = _counts()
+        before = cuda_lib.LAUNCHES.copy()
         try:
             with no_gc(), profiler.marking(sink), torch.cuda.graph(
                     graph, stream=side, capture_error_mode="global", **kw):
                 out = self._fn()
         finally:
-            after = _counts()
-            _add_counts({c: before[c] - after[c] for c in COUNTERS})
-        return out, {c: after[c] - before[c] for c in COUNTERS
-                     if after[c] != before[c]}
+            gained = cuda_lib.LAUNCHES - before
+            cuda_lib.LAUNCHES.subtract(gained)
+        return out, dict(gained)
 
     def _warm_and_capture(self):
         dev = self.device

@@ -57,7 +57,7 @@ from ..dsp.spectrum import (
     init_state,
     make_spectrum_step,
 )
-from ..kernels import exact_cuda
+from ..kernels import cuda_lib
 from ..rebin.apply import make_rebin_fn
 from . import profiler
 from .graphs import GraphTick
@@ -172,7 +172,7 @@ def upload(host: torch.Tensor, dev: torch.Tensor, events: list,
     if ev is None:
         ev = events[i] = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(index))   # makes its handle
-    err = exact_cuda.build().wf_tick_upload(
+    err = cuda_lib.build().wf_tick_upload(
         dev.data_ptr(), host.data_ptr(), dev.numel() * dev.element_size(),
         torch._C._cuda_getCurrentRawStream(index), ev.cuda_event, index)
     if err:
@@ -426,7 +426,7 @@ class PackedTickEngine(AutoMicrobatchMixin):
 
     @property
     def kernels_per_replay(self) -> dict:
-        """{tick kind: {exact_cuda counter: kernels one replay launches}}
+        """{tick kind: {kernel name: launches of one replay}}
         of every graph captured so far (empty on the CPU)."""
         return {key: dict(t.launches) for key, t in self._ticks.items()
                 if t.graph is not None}

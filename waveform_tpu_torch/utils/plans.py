@@ -211,7 +211,7 @@ def measure(n: int, streams: int = 64, ticks: int = 0, reps: int = 8,
     ``ticks <= 0`` sizes each graph to ~2^28 samples of work (>= 8
     calls), so a replay lasts milliseconds at every size.  The entry keeps
     the minimum over ``reps`` of each candidate's µs a frame."""
-    from ..kernels.exact_cuda import build
+    from ..kernels.cuda_lib import build
 
     if not torch.cuda.is_available():
         raise RuntimeError("the plan tuner times the kernels on a CUDA "

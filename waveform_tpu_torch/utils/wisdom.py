@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of ``waveform_tpu/utils/wisdom.py`` (FFTW's
 wisdom files, the JAX package's persistent compilation cache).  Here the
-kept plan is the kernel build: ``kernels/exact_cuda.build`` compiles
+kept plan is the kernel build: ``kernels/cuda_lib.build`` compiles
 ``csrc/`` with nvcc once per source hash into a build directory and later
 processes load the library from there.  :func:`enable` names that
 directory; :func:`warm` does a config's first-tick work before serving
@@ -17,7 +17,7 @@ from pathlib import Path
 import torch
 
 from ..core.device import checked_device
-from ..kernels import exact_cuda
+from ..kernels import cuda_lib
 
 
 def enable(cache_dir: str | None = None) -> str:
@@ -25,9 +25,9 @@ def enable(cache_dir: str | None = None) -> str:
     moves the build there (for builds made after this call); None keeps
     the current one (``build/waveform_tpu_torch`` beside the package)."""
     if cache_dir is not None:
-        exact_cuda._BUILD = Path(cache_dir)
-    os.makedirs(exact_cuda._BUILD, exist_ok=True)
-    return str(exact_cuda._BUILD)
+        cuda_lib._BUILD = Path(cache_dir)
+    os.makedirs(cuda_lib._BUILD, exist_ok=True)
+    return str(cuda_lib._BUILD)
 
 
 def warm(cfg, num_streams: int,
@@ -44,7 +44,7 @@ def warm(cfg, num_streams: int,
 
     dev = checked_device(device, "warm")
     if dev.type == "cuda":
-        exact_cuda.build()
+        cuda_lib.build()
         a = torch.ones((8, 8), dtype=torch.float32, device=dev)
         torch.mm(a, a)
         torch.fft.rfft(a)
