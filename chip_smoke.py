@@ -4,8 +4,8 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-or with ``tail`` to run phases 1, 2 and 35 alone (``python3 chip_smoke.py
-tail``).
+or with ``tail`` or ``ring`` to run phases 1, 2 and 35 or 36 alone
+(``python3 chip_smoke.py tail``).
 
 Phases, one line each; any failure raises and the script exits non-zero:
 
@@ -15,9 +15,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
    from ``waveform_tpu_torch/csrc`` with nvcc (one process per source);
    prints ptxas's entry function and register lines as nvcc gives them
    (no spills allowed), and each kernel's IMMA / IGMMA / IDP.4A counts
-   from its SASS: all 10 FFT kernels (stage 1 and stage 2 of K2, K2-df,
-   K1-gen, K1-df and K3) must run on the int8 tensor cores (IMMA or
-   IGMMA, no IDP.4A), beside the tail's 4 (two kernels, two widths);
+   from its SASS: all 14 FFT kernels (stage 1 and stage 2 of K2, K2-df,
+   K1-gen, K1-df and K3, the pair kernels' stage 1 with and without the
+   rows' heads) must run on the int8 tensor cores (IMMA or IGMMA, no
+   IDP.4A), beside the tail's 4 (two kernels, two widths) and the ring's
+   push;
 3. kernel  — K1-gen through the router (K1's body at K1's sizes) bit for
    bit against its plain PyTorch twin (NaN lanes by position) and against
    float64 numpy at N in {1024, 2048, 4096}, S in {1, 7, 256}, Hann df32
@@ -25,8 +27,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and a NaN stream;
 4. slice   — ``ServingEngine`` at the headline configuration (stereo 48 kHz,
    N=4096, Hann, 800-px Lanczos rebin, S=256) fed a 440 Hz tone plus noise
-   for 8 ticks: one K1-gen launch per tick and no other kernel, finite
-   pixels, a silent stream at exactly DB_MIN, agreement with the CPU port
+   for 8 ticks: one K1-gen launch and one ring push per tick and no
+   other kernel, finite pixels, a silent stream at exactly DB_MIN, agreement with the CPU port
    on the first streams, and the bench's accuracy gate against the
    float64 oracle;
 5. times   — K1-gen, its twin and the full tick at S=256, N=4096 on the
@@ -39,7 +41,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
 7. slice3  — ``ServingEngine`` on the large-FFT configuration (stereo
    48 kHz, N=65536 behind enable_large_fft, Hann, 800-px Lanczos rebin in
    its gather form, S=32) for 84 ticks, enough to fill the 65536-sample
-   window: one K2 launch per tick and no other kernel, finite pixels, the
+   window: one K2 launch and one ring push per tick and no other kernel
+   (the launch table read after the run), finite pixels, the
    silent stream at DB_MIN, the 440 Hz peak within one bin, agreement with
    the CPU port on 2 streams and the accuracy gate against the float64
    oracle;
@@ -78,7 +81,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    3; against K2 at 8192 and 16384;
 14. slice_gen — ``ServingEngine`` at N=6144 (an FFT-size slider position),
    the headline configuration otherwise, S=256, 8 ticks: one K1-gen launch
-   per tick and no other kernel, with the checks of phase 4; then
+   and one ring push per tick and no other kernel, with the checks of
+   phase 4; then
    N=16384 behind enable_large_fft, S=64, 21 ticks, which the JAX split
    rule sends to K1-gen too;
 15. times_gen — K1-gen, its twin and the library call
@@ -219,7 +223,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
    its plain version ``spectrum_tail_ref`` over 4 ticks, with every channel
    voiced and with one silent (the gate's scan); the pair, the gate alone
    and the fused tail alone beside the plain version, each captured in a
-   CUDA graph, on the device's clock, and beside their byte bound.
+   CUDA graph, on the device's clock, and beside their byte bound;
+36. ring   — the rotating ring's push (``kernels/ring_cuda.py``) at the
+   benchmark's (S, C, L, H) = (32, 2, 65536, 1616), its count a host int,
+   a 0-d and an [S] float32 tensor on the card (the upload's own form):
+   24 pushes each (counts 0, 1, H, H + 5, 1024 and 800; per stream from
+   -3 to H + 7; random heads, so rows wrap), buffer and heads bit for
+   bit against ``ring_push_ref`` on the same inputs, one launch a push;
+   the push captured in a CUDA graph beside the plain version and the
+   shifting ring's push on the device's clock and beside its byte
+   bound; and K2 at (65536, 32) and K1-gen at (4096, 256) with the rows'
+   heads and without, on the device's clock.
 
 Phases 13-15 and 16's K1-df sizes, 18's (16384, 256) and 27's 8192 and
 16384 looks test K1-gen (K1-df) at sizes the packaged H100 plan table
@@ -264,13 +278,27 @@ TOL_SPLITS = 3e-7     # K2 vs K1's body (tests/test_exact_pallas.py:217-229)
 SEED = 0
 K1_SIZES = (1024, 2048, 4096)   # N1 = 8, 16, 32: K1's sizes, now K1-gen's
 # the library's FFT kernels, all on the int8 tensor cores: stage 1 and
-# stage 2 of exact_mag3.cu and exact_mag_gen.cu at both tiers and of
-# exact_cfft.cu; and the spectrum tail's (spectrum_tail.cu: the gate and
-# the fused tail, each for 16-byte vectors and single floats)
-KERNELS = 10
+# stage 2 of exact_mag3.cu and exact_mag_gen.cu at both tiers (stage 1 in
+# two instances, reading the rows in order or at a rotating ring's heads)
+# and of exact_cfft.cu; the spectrum tail's (spectrum_tail.cu: the gate
+# and the fused tail, each for 16-byte vectors and single floats); and
+# the rotating ring's push (ring_push.cu)
+KERNELS = 14
 TAIL_KERNELS = 4
+RING_KERNELS = 1
 # the tail's launches a spectrum step, by its name in the launch table
 TAIL = {"tail": 2}
+# the pair kernels, which read a rotating sample ring in place: a
+# spectrum engine whose step runs one pushes with one "ring" launch a tick
+PAIR_KERNELS = ("K1-gen", "K1-df", "K2", "K2-df")
+
+
+def replay_launches(counter: str | None, ticks: int = 1) -> dict:
+    """The launches a replay of ``ticks`` spectrum ticks makes where its
+    FFT is ``counter`` (None: no exact kernel): one of it, the tail's two
+    and, where ``counter`` is a pair kernel, the rotating ring's push."""
+    want = served_launches(counter, ticks) if counter else {}
+    return {**want, **{k: n * ticks for k, n in TAIL.items()}}
 
 
 @contextlib.contextmanager
@@ -540,6 +568,7 @@ def stage_ms(exact_cuda, body: str, n: int, S: int, dev, df: bool):
                                    *(c[k] for k in (*getattr(exact_cuda,
                                                              keys), *tw)),
                                    rows, nz_int, mag, nz)]
+    ptrs.insert(1, None)                  # no head: the rows in order
 
     def launch(stage):
         err = getattr(lib, entry)(
@@ -720,9 +749,9 @@ def drive_slice(wt, eng, cpu, packets, now0):
 
 
 def fft_launches() -> dict:
-    """The exact FFT kernels' launches in the launch table
-    (``cuda_lib.LAUNCHES``), by kernel name: the tail's pair and zero
-    counts left out."""
+    """The launches in the launch table (``cuda_lib.LAUNCHES``) of the
+    exact FFT kernels and the rotating ring's push, by kernel name: the
+    tail's pair and zero counts left out."""
     return {k: n for k, n in LAUNCHES.items() if n and k != "tail"}
 
 
@@ -730,6 +759,16 @@ def only(counter: str, count: int) -> dict:
     """The launch counts (:func:`fft_launches`) of a run that launched the
     kernel ``counter`` ``count`` times and no other kernel."""
     return {counter: count} if count else {}
+
+
+def served_launches(counter: str, ticks: int) -> dict:
+    """The launch counts (:func:`fft_launches`) of ``ticks`` spectrum
+    engine ticks whose FFT is ``counter``: one of it a tick and, where it
+    is a pair kernel (the engine's ring rotates), one ring push."""
+    want = only(counter, ticks)
+    if want and counter in PAIR_KERNELS:
+        want["ring"] = ticks
+    return want
 
 
 def tick_ms(eng, packets, now0) -> float:
@@ -891,14 +930,16 @@ def eager_tick(eng, now: int):
 
 
 # the stage-1 kernel of each launch counter's wrapper (one a launch), and
-# whether it is the df instance (a kernel template argument <true>)
+# whether it is the df instance (its first template argument true)
 STAGE1 = {"K1-gen": ("exact_mag_gen_stage1", False),
           "K1-df": ("exact_mag_gen_stage1", True),
           "K2": ("exact_mag3_stage1", False),
           "K2-df": ("exact_mag3_stage1", True),
           "K3": ("exact_cfft_stage1", None),
           # the spectrum tail: both of its kernels, as its counter counts
-          "tail": ("spectrum_tail_", None)}
+          "tail": ("spectrum_tail_", None),
+          # the rotating ring's push
+          "ring": ("ring_push", None)}
 
 
 def profiled(profiler, one_tick, n: int = 5):
@@ -916,7 +957,7 @@ def profiled(profiler, one_tick, n: int = 5):
     ours = {}
     for counter, (stem, df) in STAGE1.items():
         k = sum(c for name, (c, _) in summ["kernels"].items()
-                if stem in name and (df is None or ("<true>" in name) == df))
+                if stem in name and (df is None or ("<true" in name) == df))
         if k:
             ours[counter] = k / n
     ops = sum(c for c, _ in summ["kernels"].values()) / n
@@ -954,7 +995,7 @@ def phase_graph(wt, ServingEngine, profiler, rng, cell):
                      (graph.state.last_silent, eager.state.last_silent),
                      (graph.ring.buf, eager.ring.buf)):
             check(torch.equal(a, b), f"graph {label}: state differs")
-        want = {counter: 1, **TAIL} if counter else dict(TAIL)
+        want = replay_launches(counter)
         per_replay = graph.kernels_per_replay
         check(per_replay == {("tick", True): want},
               f"graph {label}: kernels a replay {per_replay}, want {want}")
@@ -972,13 +1013,23 @@ def phase_graph(wt, ServingEngine, profiler, rng, cell):
         e_tick = ticker(eager, eager_tick)
         turns = [cuda_median_ms(f, reps=20, warmup=3)
                  for f in (e_tick, g_tick, g_tick, e_tick)]
-        before = LAUNCHES.copy()
-        g_sum, g_ops, g_ours = profiled(profiler, g_tick)
-        moved = {c: n / 5 for c, n in (LAUNCHES - before).items()}
+        # a trace can lose a tick's records (h2d_copies) and never shows a
+        # kernel the device did not run: up to three traces, the first
+        # that shows the launch table's counts ending the search
+        for _ in range(3):
+            before = LAUNCHES.copy()
+            g_sum, g_ops, g_ours = profiled(profiler, g_tick)
+            moved = {c: n / 5 for c, n in (LAUNCHES - before).items()}
+            if g_ours == moved:
+                break
         check(g_ours == want and moved == want,
               f"graph {label}: profiled kernels a replay {g_ours}, counters "
               f"{moved}, want {want}")
-        e_sum, e_ops, e_ours = profiled(profiler, e_tick)
+        for _ in range(3):
+            before = LAUNCHES.copy()
+            e_sum, e_ops, e_ours = profiled(profiler, e_tick)
+            if e_ours == {c: n / 5 for c, n in (LAUNCHES - before).items()}:
+                break
         check(e_ours == want, f"graph {label}: eager kernels {e_ours}")
         host = host_split(profiler, graph, g_tick)
     return (turns, (g_sum["busy_share"], e_sum["busy_share"]),
@@ -1607,9 +1658,9 @@ def phase_multi(wt, profiler, card: str) -> None:
         scene.tick(now_ns=now)
     torch.cuda.synchronize()
     counts = fft_launches()
-    check(counts == only("K1-gen", 16 * SCENE_TICKS),
+    check(counts == served_launches("K1-gen", 16 * SCENE_TICKS),
           f"multi: launches {counts} in {SCENE_TICKS} scene ticks, want 16 "
-          "K1-gen a tick and no other kernel")
+          "K1-gen and 16 ring pushes a tick and no other kernel")
     check(len(scene._cohorts) == 2 and not scene._solo
           and [len(c["engines"]) for c in scene._cohorts] == [17, 2],
           f"multi: cohorts {[len(c['engines']) for c in scene._cohorts]}")
@@ -2049,7 +2100,7 @@ def phase_plans(wt, card: str) -> None:
             pk = [feed_signal(rng, 64, k) for k in range(ticks)]
             now0 = time.monotonic_ns()
             counts, _, peak, e_cpu = drive_slice(wt, eng, cpu, pk, now0)
-            check(counts == only(SPLIT_COUNTER[split], ticks),
+            check(counts == served_launches(SPLIT_COUNTER[split], ticks),
                   f"plans: {label}: launches {counts}, want split {split}'s "
                   f"kernel once a tick and no other")
             gate = oracle_gate(wt, ServingEngine, 16384, ticks, rng, now0)
@@ -2264,7 +2315,7 @@ def phase_demo(card: str) -> None:
                 torch.cuda.synchronize()
                 counts = fft_launches()
                 stats = [m for m in said if "frames/s" in m]
-                want = only("K1-gen",
+                want = served_launches("K1-gen",
                             ticks if name == "curve" else 0)
                 check(counts == want, f"demo: {name} launches {counts}, want "
                       f"{want}")
@@ -2464,10 +2515,10 @@ def phase_parallel(wt, card: str) -> dict:
         LAUNCHES.clear()
         drive([eng], packets)
         got = fft_launches()
-        check(got == only("K1-gen", 4 * ticks),
+        check(got == served_launches("K1-gen", 4 * ticks),
               f"parallel {shape}: launches {got} in {ticks} ticks")
         reps = eng.kernels_per_replay
-        check(reps == {("tick", True): {"K1-gen": 4, "tail": 8}},
+        check(reps == {("tick", True): replay_launches("K1-gen", 4)},
               f"parallel {shape}: kernels a replay {reps}")
         launched[f"k1_gen_{shape}"] = got.get("K1-gen", 0)
         e, same = tiles_vs(wt, eng, single, f"parallel {shape}")
@@ -2500,7 +2551,7 @@ def phase_parallel(wt, card: str) -> dict:
     LAUNCHES.clear()
     drive([eb], pk32)
     got = fft_launches()
-    check(got == only("K2", 4 * len(pk32)),
+    check(got == served_launches("K2", 4 * len(pk32)),
           f"parallel N=65536: launches {got}")
     launched["k2_4x1"] = got.get("K2", 0)
     e, same = tiles_vs(wt, eb, sb, "parallel N=65536")
@@ -2526,7 +2577,7 @@ def phase_parallel(wt, card: str) -> dict:
         check(got == only("K3", 4 * 3),
               f"parallel FUSED=never: launches {got}")
         reps = el.kernels_per_replay
-        check(reps == {("tick", True): {"K3": 4, "tail": 8}},
+        check(reps == {("tick", True): replay_launches("K3", 4)},
               f"parallel FUSED=never: kernels a replay {reps}")
         launched["k3_4x1"] = got.get("K3", 0)
         e, same = tiles_vs(wt, el, sl, "parallel FUSED=never")
@@ -2853,10 +2904,92 @@ def phase_tail(wt, exact_cuda, card: str, dev) -> None:
                   f"{bound_us / (ms[0] * 1e3) * 100:.1f}% of it", flush=True)
 
 
+def phase_ring(exact_cuda, card: str, dev) -> dict:
+    """The rotating ring's push at the benchmark's shape in its three
+    count forms, bit for bit against its plain version; its time beside
+    the plain version's, the shifting push's and its bound; the pair
+    kernels with and without the rows' heads.  Returns the push's record
+    for the kernels line."""
+    from waveform_tpu_torch.dsp import devring
+    from waveform_tpu_torch.kernels import ring_cuda
+    S, C, L, H = 32, 2, 65536, 1616
+    rng = np.random.default_rng(SEED + 36)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+
+    for form in ("host int", "0-d float", "[S] float"):
+        buf, head_ref = rand(S, C, L), torch.from_numpy(
+            rng.integers(0, L, (S, C)).astype(np.int32))
+        buf_d, head = buf.to(dev), head_ref.to(dev)
+        LAUNCHES.clear()
+        for k in range(24):
+            count = (0, 1, H, H + 5, 1024, 800)[k % 6]
+            new = rand(S, C, H)
+            if form == "host int":
+                host = counts = count
+            elif form == "0-d float":
+                host = torch.tensor(float(count))
+                counts = host.to(dev)
+            else:
+                host = torch.from_numpy(
+                    rng.integers(-3, H + 8, S).astype(np.float32))
+                counts = host.to(dev)
+            ring_cuda.ring_push(buf_d, head, new.to(dev), counts)
+            ring_cuda.ring_push_ref(buf, head_ref, new, host)
+        torch.cuda.synchronize()
+        check(fft_launches() == {"ring": 24},
+              f"ring {form}: launches {fft_launches()} in 24 pushes")
+        check(torch.equal(bits(buf_d.cpu()), bits(buf))
+              and torch.equal(head.cpu(), head_ref),
+              f"ring {form}: kernel vs ring_push_ref not bit for bit")
+    # the benchmark's packet: 1024 samples a row, the 0-d count
+    new = rand(S, C, H).to(dev)
+    count = torch.tensor(1024.0, device=dev)
+    ms = graph_ms(lambda: ring_cuda.ring_push(buf_d, head, new, count))
+    plain_ms = cuda_median_ms(
+        lambda: ring_cuda.ring_push_ref(buf_d, head, new, count))
+    shifted = devring.DeviceRing(buf=buf_d)
+    shift_ms = graph_ms(lambda: devring.push(shifted, new, count))
+    moved = 2 * S * C * 1024 * 4           # the new samples read, written
+    bound_ms = moved / exact_cuda.HBM_PEAK_BYTES * 1e3
+    print(f"ring [{card}]: (S, C, L, H) = ({S}, {C}, {L}, {H}), host int, "
+          f"0-d and [S] float counts: bit for bit vs ring_push_ref in 24 "
+          f"pushes each, 1 launch a push; push of 1024 {ms * 1e3:.2f} us "
+          f"(graph), plain version {plain_ms * 1e3:.1f} us, shifting push "
+          f"{shift_ms * 1e3:.1f} us (graph); bound {bound_ms * 1e3:.2f} us "
+          f"({moved / 1e6:.2f} MB at 3.35 TB/s)", flush=True)
+    # the pair kernels with the rows' heads and without
+    for name, fn, n, s_n in (("K2", exact_cuda.rfft_pair_mag3, 65536, 32),
+                             ("K1-gen", exact_cuda.rfft_pair_mag_gen, 4096,
+                              256)):
+        x = (0.4 * rand(s_n, 2, n)).to(dev)
+        heads = torch.from_numpy(
+            rng.integers(0, n, (s_n, 2)).astype(np.int32)).to(dev)
+        _, win = hann_pair(n, dev)
+        t = {}
+        for label, h in (("none", None), ("0", torch.zeros_like(heads)),
+                         ("random", heads), ("none", None)):
+            t.setdefault(label, []).append(
+                graph_ms(lambda: fn(x, win, head=h)) * 1e3)
+        print(f"ring [{card}]: {name} at (N, S) = ({n}, {s_n}) on the "
+              f"device's clock: no head " + " / ".join(
+                  f"{v:.1f}" for v in t["none"])
+              + f" us, heads 0 {t['0'][0]:.1f} us, random heads "
+              f"{t['random'][0]:.1f} us", flush=True)
+    return {"name": "ring_push", "route": "cuda",
+            "source": "waveform_tpu_torch/csrc/ring_push.cu",
+            "replaces": "waveform_tpu/dsp/devring.py (a dynamic_slice)",
+            "launches": 72, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "hbm",
+            "library_ms": shift_ms}
+
+
 def kernel_label(fn: str) -> str:
     """A mangled kernel name as name<template arguments>."""
-    m = re.search(r"_cu_[0-9a-f]{8}\d+((?:exact|spectrum_tail)_[a-z0-9_]+?)"
-                  r"(I.*?E)?E", fn)
+    m = re.search(r"_cu_[0-9a-f]{8}\d+((?:exact|spectrum_tail|ring)_"
+                  r"[a-z0-9_]+?)(I.*?E)?E", fn)
     if m is None:
         return fn
     return f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) or ''))}>"
@@ -2897,12 +3030,15 @@ def main() -> None:
               + ", ".join(f"{op} {k}" for op, k in c.items()), flush=True)
     fft = [c for fn, c in sass.items() if "exact_" in fn]
     tail = [fn for fn in sass if "spectrum_tail_" in fn]
+    ring = [fn for fn in sass if "ring_push" in fn]
     check(len(fft) == KERNELS and len(tail) == TAIL_KERNELS
-          and len(sass) == KERNELS + TAIL_KERNELS
+          and len(ring) == RING_KERNELS
+          and len(sass) == KERNELS + TAIL_KERNELS + RING_KERNELS
           and all(c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0
                   for c in fft),
-          f"FFT kernels not on the int8 tensor cores, or {KERNELS} FFT and "
-          f"{TAIL_KERNELS} tail kernels expected: {sass}")
+          f"FFT kernels not on the int8 tensor cores, or {KERNELS} FFT, "
+          f"{TAIL_KERNELS} tail and {RING_KERNELS} ring kernels expected: "
+          f"{sass}")
     props = [ln for ln in cuda_lib.build_info.get("log", "").splitlines()
              if "spill" in ln]
     spills = [ln for ln in props if not re.search(
@@ -2915,6 +3051,13 @@ def main() -> None:
         phase_tail(wt, exact_cuda, card, dev)
         print(f"seconds: build {secs['build']:.1f}, tail "
               f"{time.perf_counter() - t0:.1f}", flush=True)
+        return
+    if sys.argv[1:] == ["ring"]:
+        t0 = time.perf_counter()
+        record = phase_ring(exact_cuda, card, dev)
+        print(f"seconds: build {secs['build']:.1f}, ring "
+              f"{time.perf_counter() - t0:.1f}", flush=True)
+        print(json.dumps({"kernels": [record]}))
         return
 
     # 3. kernel vs twin ---------------------------------------------------
@@ -2943,14 +3086,15 @@ def main() -> None:
     counts, px_shape, peak_hz, e_cpu = drive_slice(wt, eng, cpu, packets,
                                                    now0)
     launches = counts.get("K1-gen", 0)
-    check(counts == only("K1-gen", ticks),
+    check(counts == served_launches("K1-gen", ticks),
           f"launches {counts} in {ticks} ticks at "
-          "N=4096: want K1-gen's alone")
+          "N=4096: want K1-gen's and the ring's alone")
     gate = oracle_gate(wt, ServingEngine, 4096, 8, rng, now0)
     torch.cuda.synchronize()
     secs["slice"] = time.perf_counter() - t0
     print(f"slice: S={S} N=4096 800px Lanczos, {ticks} ticks, {launches} "
-          f"K1-gen launches, no other kernel, pixels {px_shape} finite, "
+          f"K1-gen launches and {counts.get('ring', 0)} ring pushes, no "
+          f"other kernel, pixels {px_shape} finite, "
           f"silent stream at DB_MIN, peak {peak_hz:.1f} Hz, card vs CPU port {e_cpu:.2e} dB, "
           f"oracle gate {gate:.2e} dB (< 1e-4), assembler "
           f"{'native' if eng._native is not None else 'python'}", flush=True)
@@ -2998,14 +3142,15 @@ def main() -> None:
     counts3, px3, peak3, e_cpu3 = drive_slice(wt, eng3, cpu3, packets3,
                                               now3)
     k2_launches = counts3.get("K2", 0)
-    check(counts3 == only("K2", ticks3),
+    check(counts3 == served_launches("K2", ticks3),
           f"launches {counts3} in {ticks3} ticks at "
-          "N=65536: want K2's alone")
+          "N=65536: want K2's and the ring's alone")
     gate3 = oracle_gate(wt, ServingEngine, 65536, ticks3, rng, now3)
     torch.cuda.synchronize()
     secs["slice3"] = time.perf_counter() - t0
     print(f"slice3: S={S3} N=65536 800px Lanczos (gather rebin), {ticks3} "
-          f"ticks, {k2_launches} K2 launches, no other kernel, pixels "
+          f"ticks, {k2_launches} K2 launches and {counts3.get('ring', 0)} "
+          f"ring pushes, no other kernel, pixels "
           f"{px3} finite, silent stream at DB_MIN, peak {peak3:.2f} Hz, card "
           f"vs CPU port (2 streams) {e_cpu3:.2e} dB, oracle gate "
           f"{gate3:.2e} dB (< 1e-4)", flush=True)
@@ -3192,13 +3337,14 @@ def main() -> None:
             counts_g, px_g, peak_g, e_cpu_g = drive_slice(
                 wt, eng_g, cpu_g, pk_g, now_g)
             gen_g = counts_g.get("K1-gen", 0)
-            check(counts_g == only("K1-gen", ticks_g),
+            check(counts_g == served_launches("K1-gen", ticks_g),
                   f"N={n_g}: launches {counts_g} in "
-                  f"{ticks_g} ticks: want K1-gen's alone")
+                  f"{ticks_g} ticks: want K1-gen's and the ring's alone")
             gate_g = oracle_gate(wt, ServingEngine, n_g, ticks_g, rng, now_g)
             print(f"slice_gen: S={s_g} N={n_g} 800px Lanczos, {ticks_g} "
                   f"ticks, "
-                  f"{gen_g} K1-gen launches, no other kernel, "
+                  f"{gen_g} K1-gen launches and "
+                  f"{counts_g.get('ring', 0)} ring pushes, no other kernel, "
                   f"pixels {px_g} finite, silent stream at DB_MIN, peak "
                   f"{peak_g:.2f} Hz, card vs CPU port ({n_cpu} streams) "
                   f"{e_cpu_g:.2e} dB, oracle gate {gate_g:.2e} dB (< 1e-4)",
@@ -3279,7 +3425,7 @@ def main() -> None:
             now_d = time.monotonic_ns()
             counts_d, px_d, peak_d, e_cpu_d = drive_slice(
                 wt, eng_d, cpu_d, pk_d, now_d)
-            want = only(counter, ticks_d)
+            want = served_launches(counter, ticks_d)
             check(counts_d == want, f"df N={n_d}: launches {counts_d}, "
                   f"want {want}")
             gate_d = oracle_gate(wt, ServingEngine, n_d, ticks_d, rng, now_d)
@@ -3395,7 +3541,8 @@ def main() -> None:
             check(all(same_bits(mb.last_batch_pixels[i], singles[k - 3 + i])
                       for i in range(4)),
                   "microbatch: flush vs single ticks not bit for bit")
-    check(mb.kernels_per_replay[("mb", 4, True)] == {"K1-gen": 4, "tail": 8},
+    check(mb.kernels_per_replay[("mb", 4, True)]
+          == replay_launches("K1-gen", 4),
           f"microbatch: kernels a flush {mb.kernels_per_replay}")
     clock = [now, 0]
 
@@ -3441,7 +3588,7 @@ def main() -> None:
     pxs = bulk.tick_many(bulk_in)
     torch.cuda.synchronize()
     counts_b = fft_launches()
-    check(counts_b == only("K1-gen", T),
+    check(counts_b == served_launches("K1-gen", T),
           f"tick_many: launches {counts_b}")
     px_cpu = cpu_b.tick_many(bulk_in[:, rows]).numpy()
     px_b = pxs.cpu().numpy()[:, rows]
@@ -3594,6 +3741,11 @@ def main() -> None:
     phase_tail(wt, exact_cuda, card, dev)
     secs["tail"] = time.perf_counter() - t0
 
+    # 36. ring: the rotating ring's push --------------------------------------
+    t0 = time.perf_counter()
+    ring_record = phase_ring(exact_cuda, card, dev)
+    secs["ring"] = time.perf_counter() - t0
+
     jax_mods =[m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]
     check(not jax_mods, f"the JAX package or jax was imported: {jax_mods}")
@@ -3635,6 +3787,7 @@ def main() -> None:
               f"{row[0] * 1e3:.1f} us, twin {row[1] * 1e3:.1f} us, library "
               f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})",
               flush=True)
+    records.append(ring_record)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

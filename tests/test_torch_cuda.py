@@ -134,15 +134,19 @@ def test_k2_matches_twin_and_f64(n, S, dev):
 
 def test_k2_runs_on_the_int8_tensor_cores(dev):
     """The SASS of the built library: every FFT kernel (stage 1 and stage
-    2 of K2, K2-df, K1-gen, K1-df and K3) holds int8 tensor-core products
+    2 of K2, K2-df, K1-gen, K1-df and K3; the pair kernels' stage 1 in two
+    instances, reading the rows in order or at a rotating ring's heads)
+    holds int8 tensor-core products
     (IMMA from mma.sync, or IGMMA from wgmma) and no __dp4a (IDP.4A); the
     library's other kernels are the spectrum tail's four (its gate and
-    fused tail, each for 16-byte vectors and single floats)."""
+    fused tail, each for 16-byte vectors and single floats) and the
+    rotating ring's push."""
     counts = sass_counts()
     fft = {fn: c for fn, c in counts.items() if "exact_" in fn}
     tail = [fn for fn in counts if "spectrum_tail_" in fn]
-    assert len(fft) == 10 and len(tail) == 4, counts
-    assert len(counts) == len(fft) + len(tail), counts
+    ring = [fn for fn in counts if "ring_push" in fn]
+    assert len(fft) == 14 and len(tail) == 4 and len(ring) == 1, counts
+    assert len(counts) == len(fft) + len(tail) + len(ring), counts
     for fn, c in fft.items():
         assert c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0, (fn, c)
     cfft = [fn for fn in counts if "exact_cfft_stage" in fn]
@@ -508,20 +512,22 @@ def _feed(eng, x, now):
 
 
 TAIL = {"tail": 2}     # the spectrum tail's kernel pair a step
+RING = {"ring": 1}     # the rotating ring's push, where a pair kernel reads it
 
 GRAPH_PATHS = {
     # path: (settings, channels, environment, kernels a replay); every
-    # path's spectrum tail is one kernel pair (TAIL)
-    "k1_gen": (dict(fft_size=4096), 2, {}, {"K1-gen": 1, **TAIL}),
+    # path's spectrum tail is one kernel pair (TAIL); the pair kernels'
+    # paths push into a rotating ring (RING)
+    "k1_gen": (dict(fft_size=4096), 2, {}, {"K1-gen": 1, **RING, **TAIL}),
     "k1_gen_per_stream": (dict(fft_size=4096, normalize_volume=True), 2, {},
-                          {"K1-gen": 1, **TAIL}),
+                          {"K1-gen": 1, **RING, **TAIL}),
     "k1_df": (dict(fft_size=4096), 2, {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"},
-              {"K1-df": 1, **TAIL}),
+              {"K1-df": 1, **RING, **TAIL}),
     "k2": (dict(fft_size=32768, enable_large_fft=True), 2, {},
-           {"K2": 1, **TAIL}),
+           {"K2": 1, **RING, **TAIL}),
     "k2_df": (dict(fft_size=32768, enable_large_fft=True), 2,
               {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"},
-              {"K2-df": 1, **TAIL}),
+              {"K2-df": 1, **RING, **TAIL}),
     "k3": (dict(fft_size=1024), 2, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
            {"K3": 1, **TAIL}),
     "k3_mono": (dict(fft_size=1024), 1, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
@@ -707,7 +713,8 @@ def test_microbatch_flush_matches_single_ticks(dev):
             batch = mb.last_batch_pixels
             for i in range(4):
                 assert torch.equal(batch[i], singles[k - 3 + i]), (k, i)
-    assert mb.kernels_per_replay[("mb", 4, True)] == {"K1-gen": 4, "tail": 8}
+    assert mb.kernels_per_replay[("mb", 4, True)] == {"K1-gen": 4, "ring": 4,
+                                                      "tail": 8}
 
 
 def test_meter_graph_matches_eager(dev):
@@ -1254,6 +1261,7 @@ def test_sharded_mesh_on_one_card_matches_single_engine(dev):
     vis = want > -120.0
     np.testing.assert_allclose(got[vis], want[vis], rtol=0, atol=1e-4)
     assert graph.kernels_per_replay[("tick", True)] == {"K1-gen": 2,
+                                                        "ring": 2,
                                                         "tail": 4}
 
 
@@ -1440,3 +1448,125 @@ def test_program_ranges_label_idle_gaps_and_leave_no_device_op(dev,
         "serving.feed", "serving.stage", "serving.upload", "serving.replay",
         tracing.CALLER}
     assert tracing.snapshot()["marks"]["tick.fft"]["count"] == 10
+
+
+# --- the rotating sample ring ----------------------------------------------
+
+@pytest.mark.parametrize("form", ["host", "device", "per_stream"])
+def test_ring_push_kernel_matches_its_twin(form, dev):
+    """The ring's push kernel at (S, C, L, H) = (32, 2, 65536, 1616)
+    against its CPU twin over 40 pushes (counts 0, 1, H and H + 5 among
+    them, heads past a wrap of the ring), buffer and heads bit for bit,
+    one ``ring`` launch a push; its window equals the shifting ring's."""
+    from waveform_tpu_torch.dsp import devring
+    from waveform_tpu_torch.kernels.ring_cuda import ring_push_ref
+
+    S, C, L, H = 32, 2, 65536, 1616
+    rng = np.random.default_rng(len(form))
+    ring = devring.init_ring(S, C, L, device=dev, rotating=True)
+    shifted = devring.init_ring(S, C, L, device=dev)
+    buf, head = ring.buf.cpu(), ring.head.cpu()
+    for k in range(40):
+        count = [0, 1, H, H + 5, 1024, 800][k % 6]
+        new = torch.from_numpy(rng.standard_normal((S, C, H))
+                               .astype(np.float32))
+        if form == "host":
+            counts, host = count, count
+        elif form == "device":
+            counts = torch.tensor(count, dtype=torch.int64, device=dev)
+            host = counts.cpu()
+        else:
+            host = torch.from_numpy(rng.integers(-3, H + 8, S))
+            counts = host.to(dev)
+        before = LAUNCHES["ring"]
+        devring.push_rotating(ring, new.to(dev), counts)
+        assert LAUNCHES["ring"] == before + 1
+        ring_push_ref(buf, head, new, host)
+        devring.push(shifted, new.to(dev), counts)
+    torch.cuda.synchronize()
+    assert torch.equal(ring.buf.cpu(), buf) and torch.equal(ring.head.cpu(),
+                                                            head)
+    assert head.any() and torch.equal(devring.window(ring), shifted.buf)
+
+
+@pytest.mark.parametrize("kernel,n,S", [("K2", 65536, 32),
+                                        ("K2-df", 65536, 32),
+                                        ("K1-gen", 4096, 256),
+                                        ("K1-df", 4096, 256)])
+def test_pair_kernels_read_the_heads(kernel, n, S, dev):
+    """Each pair kernel given random heads equals the same kernel on the
+    windows put in order, bit for bit in magnitudes and nonzero counts;
+    zero heads equal no heads."""
+    from waveform_tpu_torch.kernels.ring_cuda import unrolled
+
+    fn = (exact_cuda.rfft_pair_mag3 if kernel.startswith("K2")
+          else exact_cuda.rfft_pair_mag_gen)
+    tier = "df" if kernel.endswith("df") else "f32"
+    rng = np.random.default_rng(n + S + len(kernel))
+    x = torch.from_numpy((0.4 * rng.standard_normal((S, 2, n)))
+                         .astype(np.float32)).to(dev)
+    x[1, 0, : n // 3] = 0.0
+    x[-1, -1] = 0.0
+    head = torch.from_numpy(rng.integers(0, n, (S, 2)).astype(np.int32))
+    head[0, 0], head[-1, 0] = 0, n - 1
+    head = head.to(dev)
+    _, win = _hann(n, dev)
+    before = LAUNCHES[kernel]
+    mag, nz = fn(x, win, twiddle=tier, head=head)
+    want, want_nz = fn(unrolled(x, head), win, twiddle=tier)
+    zero, zero_nz = fn(x, win, twiddle=tier, head=torch.zeros_like(head))
+    plain, plain_nz = fn(x, win, twiddle=tier)
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel] == before + 4
+    assert torch.equal(mag, want) and torch.equal(nz, want_nz)
+    assert torch.equal(zero, plain) and torch.equal(zero_nz, plain_nz)
+
+
+@pytest.mark.parametrize("per_stream", [False, True],
+                         ids=["synced", "per_stream"])
+def test_rotating_engine_equals_the_shifting_engine(per_stream, dev,
+                                                    monkeypatch):
+    """A ``ServingEngine`` at (65536, 32) on the rotating ring and one put
+    on the shifting ring: the same pixels bit for bit over 50 ticks of
+    1024-frame packets, fed in one batch (about one tick in five without
+    a packet) or stream by stream at each stream's own phase; the
+    rotating engine's replay launches the ring's push in place of the
+    shifting ring's torch ops."""
+    from waveform_tpu_torch.dsp import devring
+    from waveform_tpu_torch.runtime import serving
+
+    cfg = resolve(Settings(fft_size=65536, enable_large_fft=True, width=800,
+                           window=FFTWindow.HANN,
+                           interp_mode=InterpMode.CATROM),
+                  AudioInfo(48000, 2))
+    S = 32
+    rot = ServingEngine(cfg, S, device=dev)
+    monkeypatch.setattr(serving, "reads_rotating_ring", lambda *args: False)
+    shift = ServingEngine(cfg, S, device=dev)
+    assert rot._ring.head is not None and shift._ring.head is None
+    rng = np.random.default_rng(24 + per_stream)
+    for k in range(50):
+        now = 10_000_000_000 + k * 16_666_667
+        x = (0.3 * rng.standard_normal((S, 2, 1024))).astype(np.float32)
+        x[-1] = 0.0
+        for eng in (rot, shift):
+            if per_stream:
+                for s in range(S):
+                    if (k + s) % 4:
+                        eng.feed(s, x[s, :, :1024 - 16 * (s % 8)], now,
+                                 now_ns=now)
+            elif k % 9 not in (4, 8):
+                eng.feed_batch(x, now, now_ns=now)
+        a, b = rot.tick(now_ns=now), shift.tick(now_ns=now)
+        assert torch.equal(a, b), k
+    torch.cuda.synchronize()
+    # the public ring is the windows in order on both layouts
+    assert rot._ring.head.any() and rot.ring.head is None
+    assert torch.equal(rot.ring.buf, shift.ring.buf)
+    assert torch.equal(rot.ring.buf, devring.window(rot._ring))
+    assert not torch.equal(rot.ring.buf, rot._ring.buf)
+    replays = rot.kernels_per_replay
+    assert all(r == {"K2": 1, "ring": 1, "tail": 2}
+               for r in replays.values()), replays
+    assert all(r == {"K2": 1, "tail": 2}
+               for r in shift.kernels_per_replay.values())

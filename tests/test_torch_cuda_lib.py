@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 import waveform_tpu_torch as wt
+from waveform_tpu_torch.dsp import devring
 from waveform_tpu_torch.dsp import spectrum as tspec
 from waveform_tpu_torch.kernels import cuda_lib, exact_cuda
 
@@ -53,18 +54,20 @@ def _imported(tree: ast.Module) -> set:
 
 
 def test_launchers_count_the_kernel_tables_names():
-    """Every kernel of ``exact_cuda.KERNELS``, and the tail's pair, is a
-    name that a launcher counts, and no launcher counts another name."""
+    """Every kernel of ``exact_cuda.KERNELS``, the tail's pair and the
+    rotating ring's push is a name that a launcher counts, and no launcher
+    counts another name."""
     counted = set()
     for path in sorted((PKG / "kernels").glob("*.py")):
         counted |= _launched_names(_tree(path))
-    assert counted == {*exact_cuda.KERNELS.values(), "tail"}
+    assert counted == {*exact_cuda.KERNELS.values(), "tail", "ring"}
 
 
 def test_cpu_twins_count_no_launch_and_build_nothing(monkeypatch):
-    """The CPU twins of every exact kernel and the spectrum step on CPU
-    tensors (its FFT twin and the plain tail) leave the launch table as
-    it was and never ask for the library."""
+    """The CPU twins of every exact kernel (with and without heads), the
+    rotating ring's push and the spectrum step on CPU tensors (its FFT
+    twin and the plain tail) leave the launch table as it was and never
+    ask for the library."""
     def no_build():
         raise AssertionError("the library was built on the CPU")
     monkeypatch.setattr(cuda_lib, "build", no_build)
@@ -76,7 +79,10 @@ def test_cpu_twins_count_no_launch_and_build_nothing(monkeypatch):
         exact_cuda.rfft_pair_mag_gen(x, twiddle=twiddle)
         exact_cuda.rfft_pair_mag3(x, twiddle=twiddle)
     exact_cuda.rfft_pair_mag(x)
+    exact_cuda.rfft_pair_mag(x, head=torch.ones((2, 2), dtype=torch.int32))
     exact_cuda.cfft_exact_kernel(x[:, 0, :1024], x[:, 1, :1024])
+    ring = devring.init_ring(2, 2, 4096, device="cpu", rotating=True)
+    devring.push_rotating(ring, x[..., :100], torch.tensor(100))
     cfg = wt.resolve(wt.Settings(fft_size=1024, window=wt.FFTWindow.HANN),
                      wt.AudioInfo(48000, 2))
     step = tspec.make_spectrum_step(cfg, device="cpu")

@@ -175,9 +175,9 @@ def test_k1_sizes_route_to_k1_gen(n, tier, monkeypatch):
     calls = []
     gen = exact_cuda.rfft_pair_mag_gen
 
-    def record(x, window=None, twiddle=None):
+    def record(x, window=None, twiddle=None, head=None):
         calls.append((x.shape[-1], twiddle))
-        return gen(x, window, twiddle)
+        return gen(x, window, twiddle, head)
 
     monkeypatch.setattr(exact_cuda, "rfft_pair_mag_gen", record)
     x = torch.from_numpy(np.random.default_rng(n).standard_normal(

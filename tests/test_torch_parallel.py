@@ -389,7 +389,8 @@ def test_sharded_engine_runs_the_pair_kernel_shard_local(monkeypatch):
     calls = []
     real = exact_cuda.rfft_pair_mag
     monkeypatch.setattr(exact_cuda, "rfft_pair_mag",
-                        lambda x, w=None: calls.append(x.shape) or real(x, w))
+                        lambda x, w=None, head=None: calls.append(x.shape)
+                        or real(x, w, head))
     cfg = _cfg(fft_size=1024)
     S = 16
     port, single, ref = _three(cfg, S, 2)

@@ -34,9 +34,9 @@ def df_kernel_on(monkeypatch):
     for name in ("_pair_mag", "_pair_mag3"):
         body = getattr(exact_cuda, name)
 
-        def spy(x, window, df, _body=body, _name=name):
+        def spy(x, window, df, head=None, _body=body, _name=name):
             seen.append((_name, df))
-            return _body(x, window, df)
+            return _body(x, window, df, head)
         monkeypatch.setattr(exact_cuda, name, spy)
     rows_mag = jep.rfft_rows_mag_packed
 

@@ -201,5 +201,6 @@ def test_serving_tick_replays_one_tail_pair(dev, tmp_path, monkeypatch):
         before = LAUNCHES["tail"]
         eng.tick(now_ns=now)
         assert LAUNCHES["tail"] == before + 2, k
-    assert eng.kernels_per_replay == {("tick", True): {"K2": 1, "tail": 2}}
+    assert eng.kernels_per_replay == {("tick", True): {"K2": 1, "ring": 1,
+                                                       "tail": 2}}
     assert torch.isfinite(eng.state.decibels).all()

@@ -119,17 +119,27 @@ __device__ __forceinline__ int widx(int g, int k, int col, int w, int ksteps) {
 
 // Window and radix-4 butterfly of four consecutive jp of column j2:
 // u[i][b] = u_i at jp0 + b as df32 (uh, ul); counts the raw nonzeros.
+// Under kHead sample j of the row's window is xs[(j + hd) mod n] (a
+// rotating ring's head hd in [0, n)); its window coefficient is that of j.
+template <bool kHead>
 __device__ __forceinline__ void butterfly_quad(
-    const float* __restrict__ xs, const float* __restrict__ w_hi,
+    const float* __restrict__ xs, int hd, const float* __restrict__ w_hi,
     const float* __restrict__ w_lo, int a, int jp0, int j2, float uh[4][4],
     float ul[4][4], int* count) {
+  const int n = 4 * a * kLanes;
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
     float h[4], l[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int j = (q * a + jp0 + b) * kLanes + j2;
-      const float v = xs[j];
+      float v;
+      if constexpr (kHead) {
+        const int p = j + hd;
+        v = xs[p < n ? p : p - n];
+      } else {
+        v = xs[j];
+      }
       *count += (v != 0.0f);
       windowed_df(v, w_hi[j], w_lo[j], &h[q], &l[q]);
     }
@@ -141,10 +151,13 @@ __device__ __forceinline__ void butterfly_quad(
 }
 
 // twr and twi are [N1][128] at the f32 tier and [3][N1][128] (hi, lo,
-// Veltkamp-high half of hi) under kDf, rows in chunk-major order.
-template <bool kDf>
+// Veltkamp-high half of hi) under kDf, rows in chunk-major order.  kHead:
+// the rows are a rotating ring's, read at their heads (head [S, 2]); the
+// instance without it reads them in order and takes no head.
+template <bool kDf, bool kHead>
 __global__ void __launch_bounds__(kThreads)
-exact_mag3_stage1(const float* __restrict__ x, const float* __restrict__ w_hi,
+exact_mag3_stage1(const float* __restrict__ x, const int* __restrict__ head,
+                  const float* __restrict__ w_hi,
                   const float* __restrict__ w_lo, const int* __restrict__ c02f,
                   const int* __restrict__ c13f, const float* __restrict__ twr,
                   const float* __restrict__ twi, float* __restrict__ rows,
@@ -166,13 +179,14 @@ exact_mag3_stage1(const float* __restrict__ x, const float* __restrict__ w_hi,
   const int sc = blockIdx.x / kColTiles;    // stream * 2 + channel
   const int j2 = (blockIdx.x % kColTiles) * kCols + lane;
   const float* xs = x + static_cast<size_t>(sc) * n;
+  const int hd = kHead ? head[sc] : 0;
 
   // ---- pass 1: raw nonzero count and the U02/U13 column maxima ---------
   int count = 0;
   float m02 = 0.0f, m13 = 0.0f;
   for (int qd = warp; qd < a / 4; qd += kWarps) {
     float uh[4][4], ul[4][4];
-    butterfly_quad(xs, w_hi, w_lo, a, 4 * qd, j2, uh, ul, &count);
+    butterfly_quad<kHead>(xs, hd, w_hi, w_lo, a, 4 * qd, j2, uh, ul, &count);
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       m02 = nanmax(nanmax(m02, fabsf(uh[0][b])), fabsf(uh[2][b]));
@@ -218,7 +232,7 @@ exact_mag3_stage1(const float* __restrict__ x, const float* __restrict__ w_hi,
   for (int qd = warp; qd < a / 4; qd += kWarps) {
     float uh[4][4], ul[4][4];
     int ignored = 0;
-    butterfly_quad(xs, w_hi, w_lo, a, 4 * qd, j2, uh, ul, &ignored);
+    butterfly_quad<kHead>(xs, hd, w_hi, w_lo, a, 4 * qd, j2, uh, ul, &ignored);
 #pragma unroll
     for (int ui = 0; ui < 4; ++ui) {
       const int g = ui & 1;                 // u0, u2 -> U02; u1, u3 -> U13
@@ -381,10 +395,10 @@ exact_mag3_stage2(const float* __restrict__ rows_g, const int* __restrict__ f2b,
 // Launch stage 1 (stages & 1) and stage 2 (stages & 2) on `stream`; the
 // entry points launch both, the stage entry points one for timing.
 template <bool kDf>
-int run(const float* x, const float* w_hi, const float* w_lo, const int* c02f,
-        const int* c13f, const int* f2b, const float* twr, const float* twi,
-        float* rows, int* nz_int, float* mag, float* nz, int streams, int n,
-        void* stream, int stages) {
+int run(const float* x, const int* head, const float* w_hi, const float* w_lo,
+        const int* c02f, const int* c13f, const int* f2b, const float* twr,
+        const float* twi, float* rows, int* nz_int, float* mag, float* nz,
+        int streams, int n, void* stream, int stages) {
   if (streams <= 0) return static_cast<int>(cudaSuccess);
   const int n1 = n / kLanes;
   const int a = n1 / 4;
@@ -400,9 +414,14 @@ int run(const float* x, const float* w_hi, const float* w_lo, const int* c02f,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[device]) {
-    err = cudaFuncSetAttribute(exact_mag3_stage1<kDf>,
+    // both instances: with and without the rows' heads
+    err = cudaFuncSetAttribute(exact_mag3_stage1<kDf, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                stage1_smem_bytes(kMaxN / 512));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(exact_mag3_stage1<kDf, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 stage1_smem_bytes(kMaxN / 512));
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[device] = true;
   }
@@ -410,8 +429,10 @@ int run(const float* x, const float* w_hi, const float* w_lo, const int* c02f,
     const int bytes = stage1_smem_bytes(a);
     err = cudaMemsetAsync(nz_int, 0, sizeof(int) * 2 * streams, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    exact_mag3_stage1<kDf><<<streams * 2 * kColTiles, kThreads, bytes, st>>>(
-        x, w_hi, w_lo, c02f, c13f, twr, twi, rows, nz_int, a, streams);
+    const auto stage1 = head ? exact_mag3_stage1<kDf, true>
+                             : exact_mag3_stage1<kDf, false>;
+    stage1<<<streams * 2 * kColTiles, kThreads, bytes, st>>>(
+        x, head, w_hi, w_lo, c02f, c13f, twr, twi, rows, nz_int, a, streams);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -425,49 +446,53 @@ int run(const float* x, const float* w_hi, const float* w_lo, const int* c02f,
 
 }  // namespace
 
-// C entry points: x [S, 2, n], w_hi/w_lo [n], c02f/c13f [4][a/4][k][32][4]
-// (k = 2a/32 rounded up) and f2b [4][8][16][32][2] int8x4 digit words in
-// A- and B-fragment order (exact_cuda._frag_a3, _frag_b2), nz_int [S, 2]
-// int32, outputs mag [S, 2, n/2] and nz [S, 2].  n = 512*a with a % 8 == 0
-// and n <= 65536.  Return the first failing call's cudaError_t.
+// C entry points: x [S, 2, n], head null or [S, 2] int32 (each row's
+// logical sample j at x[(j + head) mod n], a rotating ring's layout; null:
+// in order), w_hi/w_lo [n], c02f/c13f [4][a/4][k][32][4] (k = 2a/32
+// rounded up) and f2b [4][8][16][32][2] int8x4 digit words in A- and
+// B-fragment order (exact_cuda._frag_a3, _frag_b2), nz_int [S, 2] int32,
+// outputs mag [S, 2, n/2] and nz [S, 2].  n = 512*a with a % 8 == 0 and
+// n <= 65536.  Return the first failing call's cudaError_t.
 //
 // K2 (f32 tier): twr/twi [N1][128] in chunk-major row order, scratch rows
 // [S, 2, N1, 256] f32.
-extern "C" int wf_exact_mag3(const float* x, const float* w_hi,
-                             const float* w_lo, const int* c02f,
-                             const int* c13f, const int* f2b, const float* twr,
-                             const float* twi, float* rows, int* nz_int,
-                             float* mag, float* nz, int streams, int n,
-                             void* stream) {
-  return run<false>(x, w_hi, w_lo, c02f, c13f, f2b, twr, twi, rows, nz_int,
-                    mag, nz, streams, n, stream, 3);
+extern "C" int wf_exact_mag3(const float* x, const int* head,
+                             const float* w_hi, const float* w_lo,
+                             const int* c02f, const int* c13f, const int* f2b,
+                             const float* twr, const float* twi, float* rows,
+                             int* nz_int, float* mag, float* nz, int streams,
+                             int n, void* stream) {
+  return run<false>(x, head, w_hi, w_lo, c02f, c13f, f2b, twr, twi, rows,
+                    nz_int, mag, nz, streams, n, stream, 3);
 }
 
 // K2-df (df tier): twr/twi [3][N1][128] (hi, lo, Veltkamp-high half of hi)
 // in chunk-major row order, scratch rows [2][S, 2, N1, 256] f32 (hi, lo).
-extern "C" int wf_exact_mag3_df(const float* x, const float* w_hi,
-                                const float* w_lo, const int* c02f,
-                                const int* c13f, const int* f2b,
-                                const float* twr, const float* twi,
-                                float* rows, int* nz_int, float* mag,
-                                float* nz, int streams, int n, void* stream) {
-  return run<true>(x, w_hi, w_lo, c02f, c13f, f2b, twr, twi, rows, nz_int,
-                   mag, nz, streams, n, stream, 3);
+extern "C" int wf_exact_mag3_df(const float* x, const int* head,
+                                const float* w_hi, const float* w_lo,
+                                const int* c02f, const int* c13f,
+                                const int* f2b, const float* twr,
+                                const float* twi, float* rows, int* nz_int,
+                                float* mag, float* nz, int streams, int n,
+                                void* stream) {
+  return run<true>(x, head, w_hi, w_lo, c02f, c13f, f2b, twr, twi, rows,
+                   nz_int, mag, nz, streams, n, stream, 3);
 }
 
 // One stage of K2 (df != 0: K2-df) alone, for timing the stages apart:
 // stage 1 or 2, the arguments of wf_exact_mag3; stage 2 reads the scratch
 // and counts that an earlier stage 1 left.
 extern "C" int wf_exact_mag3_stage(int stage, int df, const float* x,
-                                   const float* w_hi, const float* w_lo,
-                                   const int* c02f, const int* c13f,
-                                   const int* f2b, const float* twr,
-                                   const float* twi, float* rows, int* nz_int,
-                                   float* mag, float* nz, int streams, int n,
+                                   const int* head, const float* w_hi,
+                                   const float* w_lo, const int* c02f,
+                                   const int* c13f, const int* f2b,
+                                   const float* twr, const float* twi,
+                                   float* rows, int* nz_int, float* mag,
+                                   float* nz, int streams, int n,
                                    void* stream) {
   if (stage != 1 && stage != 2) return static_cast<int>(cudaErrorInvalidValue);
-  return df ? run<true>(x, w_hi, w_lo, c02f, c13f, f2b, twr, twi, rows,
+  return df ? run<true>(x, head, w_hi, w_lo, c02f, c13f, f2b, twr, twi, rows,
                         nz_int, mag, nz, streams, n, stream, stage)
-            : run<false>(x, w_hi, w_lo, c02f, c13f, f2b, twr, twi, rows,
-                         nz_int, mag, nz, streams, n, stream, stage);
+            : run<false>(x, head, w_hi, w_lo, c02f, c13f, f2b, twr, twi,
+                         rows, nz_int, mag, nz, streams, n, stream, stage);
 }

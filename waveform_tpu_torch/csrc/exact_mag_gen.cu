@@ -104,10 +104,13 @@ __device__ __forceinline__ int widx(int c, int k, int col, int w, int ksteps) {
 }
 
 // Stage 1.  twr and twi are [N1][128] at the f32 tier and [3][N1][128] (hi,
-// lo, Veltkamp-high half of hi) under kDf.
-template <bool kDf>
+// lo, Veltkamp-high half of hi) under kDf.  kHead: the rows are a rotating
+// ring's, read at their heads (head [S, 2]); the instance without it reads
+// them in order and takes no head.
+template <bool kDf, bool kHead>
 __global__ void __launch_bounds__(kThreads)
 exact_mag_gen_stage1(const float* __restrict__ x,
+                     const int* __restrict__ head,
                      const float* __restrict__ w_hi,
                      const float* __restrict__ w_lo,
                      const int* __restrict__ f1f, const float* __restrict__ twr,
@@ -130,6 +133,18 @@ exact_mag_gen_stage1(const float* __restrict__ x,
   const int col0 = (blockIdx.x % kColTiles) * kCols;
   const int j2 = col0 + lane;
   const float* xs = x + static_cast<size_t>(s) * 2 * n;
+  // under kHead sample j of channel c's window sits at (j + hd[c]) mod n
+  // (a rotating ring's head); its window coefficient is j's
+  const int hd0 = kHead ? head[2 * s] : 0;
+  const int hd1 = kHead ? head[2 * s + 1] : 0;
+  auto at = [=](int c, int j) {
+    if constexpr (kHead) {
+      const int p = j + (c ? hd1 : hd0);
+      return xs[c * n + (p < n ? p : p - n)];
+    } else {
+      return xs[c * n + j];
+    }
+  };
 
   // ---- pass 1: raw nonzero counts, max |hi| over both channels ----------
   float m = 0.0f;
@@ -138,7 +153,7 @@ exact_mag_gen_stage1(const float* __restrict__ x,
     int count = 0;
     for (int j1 = warp; j1 < n1; j1 += kWarps) {
       const int j = j1 * kLanes + j2;
-      const float v = xs[c * n + j];
+      const float v = at(c, j);
       count += (v != 0.0f);
       float h, l;
       windowed_df(v, w_hi[j], w_lo[j], &h, &l);
@@ -175,7 +190,7 @@ exact_mag_gen_stage1(const float* __restrict__ x,
       for (int b = 0; b < 4; ++b) {
         const int j = (4 * w + b) * kLanes + j2;
         float h, l;
-        windowed_df(xs[c * n + j], w_hi[j], w_lo[j], &h, &l);
+        windowed_df(at(c, j), w_hi[j], w_lo[j], &h, &l);
         if constexpr (kDf) {
           int d[kDigits];
           slice_serial(h, l, sc_inv, d);
@@ -329,10 +344,10 @@ exact_mag_gen_stage2(const float* __restrict__ rows_g,
 // Launch stage 1 (stages & 1) and stage 2 (stages & 2) on `stream`; the
 // entry points launch both, the stage entry point one for timing.
 template <bool kDf>
-int run(const float* x, const float* w_hi, const float* w_lo, const int* f1f,
-        const int* f2b, const float* twr, const float* twi, float* rows,
-        int* nz_int, float* mag, float* nz, int streams, int n, void* stream,
-        int stages) {
+int run(const float* x, const int* head, const float* w_hi, const float* w_lo,
+        const int* f1f, const int* f2b, const float* twr, const float* twi,
+        float* rows, int* nz_int, float* mag, float* nz, int streams, int n,
+        void* stream, int stages) {
   if (streams <= 0) return static_cast<int>(cudaSuccess);
   const int n1 = n / kLanes;
   if (n % kLanes != 0 || n1 < 8 || n1 % 8 != 0 || n1 > kMaxN1)
@@ -347,9 +362,14 @@ int run(const float* x, const float* w_hi, const float* w_lo, const int* f1f,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!ready[device]) {
-    err = cudaFuncSetAttribute(exact_mag_gen_stage1<kDf>,
+    // both instances: with and without the rows' heads
+    err = cudaFuncSetAttribute(exact_mag_gen_stage1<kDf, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                stage1_smem_bytes(kMaxN1));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(exact_mag_gen_stage1<kDf, true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 stage1_smem_bytes(kMaxN1));
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[device] = true;
   }
@@ -357,8 +377,10 @@ int run(const float* x, const float* w_hi, const float* w_lo, const int* f1f,
     const int bytes = stage1_smem_bytes(n1);
     err = cudaMemsetAsync(nz_int, 0, sizeof(int) * 2 * streams, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    exact_mag_gen_stage1<kDf><<<streams * kColTiles, kThreads, bytes, st>>>(
-        x, w_hi, w_lo, f1f, twr, twi, rows, nz_int, n1, streams);
+    const auto stage1 = head ? exact_mag_gen_stage1<kDf, true>
+                             : exact_mag_gen_stage1<kDf, false>;
+    stage1<<<streams * kColTiles, kThreads, bytes, st>>>(
+        x, head, w_hi, w_lo, f1f, twr, twi, rows, nz_int, n1, streams);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -373,48 +395,51 @@ int run(const float* x, const float* w_hi, const float* w_lo, const int* f1f,
 
 }  // namespace
 
-// C entry points: x [S, 2, n], w_hi/w_lo [n], f1f [4][N1/8][k][32][4] (k =
-// N1/32 rounded up) and f2b [4][8][16][32][2] int8x4 digit words of F1r and
-// f2 in A- and B-fragment order (exact_cuda._frag_a1, _frag_b2), nz_int
-// [S, 2] int32, outputs mag [S, 2, n/2] and nz [S, 2].  n = 128*N1 with
-// N1 % 8 == 0 and n <= 32768.  Return the first failing call's cudaError_t.
+// C entry points: x [S, 2, n], head null or [S, 2] int32 (each row's
+// logical sample j at x[(j + head) mod n], a rotating ring's layout; null:
+// in order), w_hi/w_lo [n], f1f [4][N1/8][k][32][4] (k = N1/32 rounded up)
+// and f2b [4][8][16][32][2] int8x4 digit words of F1r and f2 in A- and
+// B-fragment order (exact_cuda._frag_a1, _frag_b2), nz_int [S, 2] int32,
+// outputs mag [S, 2, n/2] and nz [S, 2].  n = 128*N1 with N1 % 8 == 0 and
+// n <= 32768.  Return the first failing call's cudaError_t.
 //
 // K1-gen (f32 tier): twr/twi [N1][128], scratch rows [S, 2, N1, 256] f32.
-extern "C" int wf_exact_mag_gen(const float* x, const float* w_hi,
-                                const float* w_lo, const int* f1f,
-                                const int* f2b, const float* twr,
-                                const float* twi, float* rows, int* nz_int,
-                                float* mag, float* nz, int streams, int n,
-                                void* stream) {
-  return run<false>(x, w_hi, w_lo, f1f, f2b, twr, twi, rows, nz_int, mag, nz,
-                    streams, n, stream, 3);
+extern "C" int wf_exact_mag_gen(const float* x, const int* head,
+                                const float* w_hi, const float* w_lo,
+                                const int* f1f, const int* f2b,
+                                const float* twr, const float* twi,
+                                float* rows, int* nz_int, float* mag,
+                                float* nz, int streams, int n, void* stream) {
+  return run<false>(x, head, w_hi, w_lo, f1f, f2b, twr, twi, rows, nz_int,
+                    mag, nz, streams, n, stream, 3);
 }
 
 // K1-df (df tier): twr/twi [3][N1][128] (hi, lo, Veltkamp-high half of hi),
 // scratch rows [2][S, 2, N1, 256] f32 (hi, lo).
-extern "C" int wf_exact_mag_gen_df(const float* x, const float* w_hi,
-                                   const float* w_lo, const int* f1f,
-                                   const int* f2b, const float* twr,
-                                   const float* twi, float* rows, int* nz_int,
-                                   float* mag, float* nz, int streams, int n,
+extern "C" int wf_exact_mag_gen_df(const float* x, const int* head,
+                                   const float* w_hi, const float* w_lo,
+                                   const int* f1f, const int* f2b,
+                                   const float* twr, const float* twi,
+                                   float* rows, int* nz_int, float* mag,
+                                   float* nz, int streams, int n,
                                    void* stream) {
-  return run<true>(x, w_hi, w_lo, f1f, f2b, twr, twi, rows, nz_int, mag, nz,
-                   streams, n, stream, 3);
+  return run<true>(x, head, w_hi, w_lo, f1f, f2b, twr, twi, rows, nz_int,
+                   mag, nz, streams, n, stream, 3);
 }
 
 // One stage of K1-gen (df != 0: K1-df) alone, for timing the stages apart:
 // stage 1 or 2, the arguments of wf_exact_mag_gen; stage 2 reads the
 // scratch and counts that an earlier stage 1 left.
 extern "C" int wf_exact_mag_gen_stage(int stage, int df, const float* x,
-                                      const float* w_hi, const float* w_lo,
-                                      const int* f1f, const int* f2b,
-                                      const float* twr, const float* twi,
-                                      float* rows, int* nz_int, float* mag,
-                                      float* nz, int streams, int n,
-                                      void* stream) {
+                                      const int* head, const float* w_hi,
+                                      const float* w_lo, const int* f1f,
+                                      const int* f2b, const float* twr,
+                                      const float* twi, float* rows,
+                                      int* nz_int, float* mag, float* nz,
+                                      int streams, int n, void* stream) {
   if (stage != 1 && stage != 2) return static_cast<int>(cudaErrorInvalidValue);
-  return df ? run<true>(x, w_hi, w_lo, f1f, f2b, twr, twi, rows, nz_int, mag,
-                        nz, streams, n, stream, stage)
-            : run<false>(x, w_hi, w_lo, f1f, f2b, twr, twi, rows, nz_int, mag,
-                         nz, streams, n, stream, stage);
+  return df ? run<true>(x, head, w_hi, w_lo, f1f, f2b, twr, twi, rows,
+                        nz_int, mag, nz, streams, n, stream, stage)
+            : run<false>(x, head, w_hi, w_lo, f1f, f2b, twr, twi, rows,
+                         nz_int, mag, nz, streams, n, stream, stage);
 }

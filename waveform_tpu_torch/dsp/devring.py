@@ -5,6 +5,16 @@ window of every stream lives on the device as ``[S, C, L]`` f32, and each
 tick pushes only the newly arrived samples (padded to a hop budget ``H``)
 plus how many of them are valid.  The buffer is contiguous ``[S, C, L]``,
 which is the layout the exact |rFFT| kernel reads directly.
+
+Two layouts, chosen when the ring is made.  A shifting ring (:func:`push`)
+holds each window in order, ``buf[s, c, -1]`` the newest sample, and moves
+the whole window on every push, as the JAX ring does.  A rotating ring
+(``init_ring(..., rotating=True)``, :func:`push_rotating`) writes only the
+new samples and keeps a head per row (``DeviceRing.head``): logical
+sample ``j`` is ``buf[s, c, (head[s, c] + j) mod L]``.  Only readers that
+take the head (the exact pair kernels) read a rotating ring in the tick;
+code outside the tick reads :func:`window`, the windows in order, and
+writes them with :func:`set_window`.
 """
 
 from __future__ import annotations
@@ -15,22 +25,31 @@ import numpy as np
 import torch
 
 from ..core.device import checked_device
+from ..kernels.ring_cuda import ring_push, unrolled
 
 
 @dataclass
 class DeviceRing:
-    """Rolling sample windows: ``buf[s, c, -1]`` is the newest sample."""
+    """Rolling sample windows.  Shifting (``head`` None): ``buf[s, c, -1]``
+    is the newest sample.  Rotating: ``buf[s, c, head[s, c]]`` is the
+    oldest."""
 
     buf: torch.Tensor  # [S, C, L] f32, contiguous
+    head: torch.Tensor | None = None  # [S, C] int32 in [0, L): rotating
 
 
 def init_ring(num_streams: int, channels: int, window: int,
-              device: torch.device | str = "cuda") -> DeviceRing:
+              device: torch.device | str = "cuda",
+              rotating: bool = False) -> DeviceRing:
     """A silent ring on ``device`` (the card unless the caller asks for
-    the CPU; raises RuntimeError without one)."""
-    return DeviceRing(buf=torch.zeros(
-        (num_streams, channels, window), dtype=torch.float32,
-        device=checked_device(device, "init_ring")))
+    the CPU; raises RuntimeError without one); ``rotating``: with its
+    heads at 0, for :func:`push_rotating`."""
+    dev = checked_device(device, "init_ring")
+    buf = torch.zeros((num_streams, channels, window), dtype=torch.float32,
+                      device=dev)
+    head = (torch.zeros((num_streams, channels), dtype=torch.int32,
+                        device=dev) if rotating else None)
+    return DeviceRing(buf=buf, head=head)
 
 
 def ring_from_numpy(buf: np.ndarray,
@@ -74,3 +93,29 @@ def push(ring: DeviceRing, new: torch.Tensor,
         c = min(max(int(counts), 0), H)
         buf.copy_(full[..., c:c + L])
     return ring
+
+
+def push_rotating(ring: DeviceRing, new: torch.Tensor,
+                  counts: int | torch.Tensor) -> DeviceRing:
+    """:func:`push` on a rotating ring, in place: each row's new samples
+    are written after its newest and its head advances past them
+    (``kernels/ring_cuda.ring_push``: one kernel on the card).  The same
+    arguments and clamp; afterwards :func:`window` equals what
+    :func:`push` leaves in a shifting ring.  Returns ``ring``."""
+    ring_push(ring.buf, ring.head, new, counts)
+    return ring
+
+
+def window(ring: DeviceRing) -> torch.Tensor:
+    """The windows in order, [S, C, L]: ``ring.buf`` itself for a
+    shifting ring, a new tensor for a rotating one."""
+    if ring.head is None:
+        return ring.buf
+    return unrolled(ring.buf, ring.head)
+
+
+def set_window(ring: DeviceRing, buf: torch.Tensor) -> None:
+    """Overwrite the windows with ``buf`` [S, C, L] (in order), in place."""
+    ring.buf.copy_(buf)
+    if ring.head is not None:
+        ring.head.zero_()

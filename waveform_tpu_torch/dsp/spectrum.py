@@ -195,6 +195,22 @@ def resolve_fft_backend() -> str:
     return backend
 
 
+def reads_rotating_ring(cfg: ResolvedConfig, rfft_fn=None,
+                        device: torch.device | str = "cuda") -> bool:
+    """Whether the step :func:`make_spectrum_step` builds now reads a
+    rotating ring's windows in place (its ``head`` argument), so that an
+    engine keeps its sample ring rotating (``dsp/devring.py``): on a CUDA
+    device, on the exact backend, at an N the pair kernels take
+    (``exact_cuda.kernel_would_run``).  Any other step takes no heads
+    and raises on them, as the exact router does where the route has
+    changed since (``exactfft.check_rotated``)."""
+    from ..kernels.exact_cuda import kernel_would_run
+
+    return (torch.device(device).type == "cuda" and rfft_fn is None
+            and resolve_fft_backend() == "exact"
+            and kernel_would_run(cfg.fft_size))
+
+
 def _mag_tail(cfg: ResolvedConfig, mag: torch.Tensor,
               slope: torch.Tensor | None) -> torch.Tensor:
     """2/Σw normalization and the slope modifiers."""
@@ -370,9 +386,12 @@ def make_spectrum_step(cfg: ResolvedConfig, rfft_fn=None,
     as torch ops (:func:`spectrum_tail_ref`); both give the same bits.
 
     Returns ``step(samples, state, dt, active, input_rms, valid=None,
-    run=None) -> SpectrumState``:
+    run=None, head=None) -> SpectrumState``:
 
-    * ``samples``   [S, C, N] f32 — assembled frames
+    * ``samples``   [S, C, N] f32 — assembled frames, or a rotating ring's
+      buffer with its heads ``head`` [S, C] int32 (``dsp/devring.py``:
+      frame (s, c) starts at ``head[s, c]`` and wraps), which only the
+      exact pair kernels read (:func:`reads_rotating_ring`)
     * ``dt``        seconds since the last tick (Python float), or its
       :func:`gravity_pair` as a [2] f32 tensor on the step's device (the
       form a captured CUDA graph reads; the same bits)
@@ -397,11 +416,15 @@ def make_spectrum_step(cfg: ResolvedConfig, rfft_fn=None,
     def step(samples: torch.Tensor, state: SpectrumState,
              dt: float | torch.Tensor, active: torch.Tensor,
              input_rms: torch.Tensor, valid: torch.Tensor | None = None,
-             run: torch.Tensor | None = None) -> SpectrumState:
+             run: torch.Tensor | None = None,
+             head: torch.Tensor | None = None) -> SpectrumState:
         samples = samples.to(torch.float32)
         if backend == "exact":
-            mag, nz_k = rfft_mag_exact(samples, window)
+            mag, nz_k = rfft_mag_exact(samples, window, head)
         else:
+            if head is not None:
+                raise ValueError(f"the {backend!r} backend reads no "
+                                 f"rotating ring (reads_rotating_ring)")
             x = samples if w32 is None else samples * w32
             if backend == "matmul":
                 mag = rfft_mag(x, nbins)

@@ -2,19 +2,22 @@
 points, and the count of kernel launches.
 
 Every ``csrc/*.cu`` source (the exact FFT kernels K1-gen, K1-df, K2,
-K2-df and K3, the spectrum tail's pair, the served tick's upload) goes
+K2-df and K3, the spectrum tail's pair, the rotating ring's push, the
+served tick's upload) goes
 into one shared library, built with ``nvcc`` at first use into
 ``build/waveform_tpu_torch/`` (once per hash of the flags and the
 sources) and bound with ``ctypes`` here, every exported entry's
 signature in one place (:func:`build`).  The modules that launch the
-kernels (``kernels/exact_cuda.py``, ``kernels/tail_cuda.py``) and the
+kernels (``kernels/exact_cuda.py``, ``kernels/tail_cuda.py``,
+``kernels/ring_cuda.py``) and the
 served tick's upload (``runtime/serving.py``) call :func:`build` and the
 entry they need.
 
 :data:`LAUNCHES` counts kernel launches (not calls of the CPU twins) by
 the names of the kernel table: ``K1-gen``, ``K1-df``, ``K2``, ``K2-df``
-and ``K3`` (the values of ``exact_cuda.KERNELS``) and ``tail`` (the
-spectrum tail's pair, two a step).  Each launcher calls :func:`launched`;
+and ``K3`` (the values of ``exact_cuda.KERNELS``), ``tail`` (the
+spectrum tail's pair, two a step) and ``ring`` (the rotating ring's
+push, one a push).  Each launcher calls :func:`launched`;
 a captured tick (``runtime/graphs.GraphTick``) adds what its capture
 recorded at every replay.  A run reads the table to show that its main
 path went through the kernels it expects.
@@ -119,13 +122,14 @@ def _sig(fn, *argtypes) -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     """Every exported entry's signature; each returns a cudaError."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # the exact FFT kernels (kernels/exact_cuda.py): pointers, then
-    # (S, n, stream); K1-gen and K1-df, K2 and K2-df one signature a pair
-    _sig(lib.wf_exact_mag3, *[ptr] * 12, i32, i32, ptr)
+    # the exact FFT kernels (kernels/exact_cuda.py): pointers (the pair
+    # kernels' second the rows' heads, null for none), then (S, n,
+    # stream); K1-gen and K1-df, K2 and K2-df one signature a pair
+    _sig(lib.wf_exact_mag3, *[ptr] * 13, i32, i32, ptr)
     _sig(lib.wf_exact_mag3_df, *lib.wf_exact_mag3.argtypes)
     _sig(lib.wf_exact_cfft, *[ptr] * 9, i32, i32, ptr)
     for fn in (lib.wf_exact_mag_gen, lib.wf_exact_mag_gen_df):
-        _sig(fn, *[ptr] * 11, i32, i32, ptr)
+        _sig(fn, *[ptr] * 12, i32, i32, ptr)
     # one stage alone (chip_smoke times the stages apart): (stage, df, ...)
     # for the pair kernels, (stage, ...) for K3
     for fn, whole, ints in ((lib.wf_exact_mag3_stage, lib.wf_exact_mag3, 2),
@@ -136,6 +140,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     # the spectrum tail's pair (csrc/spectrum_tail.cu, kernels/tail_cuda.py)
     _sig(lib.wf_spectrum_tail, *[ptr] * 16, *[i32] * 8,
          *[ctypes.c_float] * 6, i32, ptr)
+    # the rotating ring's push (csrc/ring_push.cu, kernels/ring_cuda.py)
+    i64 = ctypes.c_longlong
+    _sig(lib.wf_ring_push, ptr, ptr, ptr, i64, i64, ptr, i64, *[i32] * 5,
+         ptr)
     # the served tick's upload (csrc/tick_host.cu, runtime/serving.py)
     _sig(lib.wf_tick_upload, ptr, ptr, ctypes.c_longlong, ptr, ptr, i32)
 

@@ -28,7 +28,11 @@ its digit GEMMs on the int8 tensor cores.  Entry points:
   integer partial sum stays far below 2^53).
 
 Each kernel and its twin take the same rounding steps in the same order,
-so they agree bit for bit.  Bins come out in natural order.
+so they agree bit for bit.  Bins come out in natural order.  The pair
+kernels also read a rotating ring in place (``head``, ``kernels/
+ring_cuda.py``): each load takes row r's sample j from ``(j + head[r])
+mod N`` and its window coefficient from j, so the output is the in-order
+rows' bit for bit.
 
 Geometry: N = 128·N1 (j = 128·j1 + j2, k = k1 + N1·k2), 4 base-2^7 digit
 planes with the first 6 bits deep, digit pairs with i + j <= 3 kept
@@ -59,6 +63,7 @@ import torch
 
 from ..utils.plans import plan_for
 from . import cuda_lib
+from .ring_cuda import unrolled
 from .exactfft import (_CLAMP, DIGIT_BITS, FIRST_SHIFT, N_DIGITS,
                        _df_cmul, _df_pair, _digit_gemm, _digit_planes, _left,
                        _right, _slice_df, _windowed_df, df_add, df_mul, df_neg,
@@ -542,9 +547,14 @@ def _recombine(dots: list[torch.Tensor], s: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def _windowed_blocks(x: torch.Tensor, window):
+def _windowed_blocks(x: torch.Tensor, window, head=None):
     """Raw nonzero counts [S, 2] f32 of ``x`` [S, 2, N], and its df32
-    windowed samples (hi, lo) as [S, 2, N1, 128] blocks (j = 128·j1 + j2)."""
+    windowed samples (hi, lo) as [S, 2, N1, 128] blocks (j = 128·j1 + j2).
+    ``head`` [S, 2] int32 (a rotating ring's heads, ``kernels/
+    ring_cuda.py``): sample j of a row is ``x[..., (head + j) mod N]``, as
+    the kernels read it; None: in order."""
+    if head is not None:
+        x = unrolled(x, head)
     S, _, n = x.shape
     n1 = n // LANES
     w_hi, w_lo = _window_pair(window, n, x.device)
@@ -615,12 +625,13 @@ def _twiddle_stage2(ar, ai, c: dict):
     return torch.sqrt(cr * cr + ci * ci)
 
 
-def _pair_mag(x: torch.Tensor, window, df: bool):
-    """K1's body (2-factor stage 1) at either tier."""
+def _pair_mag(x: torch.Tensor, window, df: bool, head=None):
+    """K1's body (2-factor stage 1) at either tier; ``head`` as
+    :func:`_windowed_blocks` reads it."""
     S, _, n = x.shape
     n1 = n // LANES
     c = _consts(n, x.device)
-    nz, hi, lo = _windowed_blocks(x, window)
+    nz, hi, lo = _windowed_blocks(x, window, head)
 
     # stage 1: per-channel real DFT over j1, one pow2 scale per (s, j2)
     # column taken over both channels
@@ -630,12 +641,13 @@ def _pair_mag(x: torch.Tensor, window, df: bool):
     return mag.transpose(-1, -2).reshape(S, 2, n // 2), nz
 
 
-def _pair_mag3(x: torch.Tensor, window, df: bool):
-    """K2's body (3-factor stage 1) at either tier."""
+def _pair_mag3(x: torch.Tensor, window, df: bool, head=None):
+    """K2's body (3-factor stage 1) at either tier; ``head`` as
+    :func:`_windowed_blocks` reads it."""
     S, _, n = x.shape
     a = n // LANES // 4
     c = _consts3(n, x.device)
-    nz, hi, lo = _windowed_blocks(x, window)
+    nz, hi, lo = _windowed_blocks(x, window, head)
 
     # radix-4 butterflies over the four a-row chunks, df32 adds
     ch = [(hi[:, :, q * a:(q + 1) * a], lo[:, :, q * a:(q + 1) * a])
@@ -750,6 +762,18 @@ def _check_pair(x: torch.Tensor) -> None:
                          f"{x.dtype}")
 
 
+def _check_head(x: torch.Tensor, head) -> None:
+    """``head``: None, or the [S, 2] int32 heads of ``x``'s rows on its
+    device (each in [0, N): the kernels read row r's sample j at ``(j +
+    head[r]) mod N``), contiguous for a launch."""
+    if head is not None and (
+            head.shape != x.shape[:2] or head.dtype != torch.int32
+            or head.device != x.device or not head.is_contiguous()):
+        raise ValueError(f"head must be a contiguous [S, 2] int32 tensor on "
+                         f"the input's device, got {tuple(head.shape)} "
+                         f"{head.dtype} on {head.device}")
+
+
 def _checked_window(x: torch.Tensor, window):
     """The df32 window pair for ``x`` (ones/zeros for None), checked, and
     ``x``'s device checked: CPU takes a twin, CUDA a contiguous launch."""
@@ -767,12 +791,16 @@ def _checked_window(x: torch.Tensor, window):
     return w_hi, w_lo
 
 
-def rfft_pair_mag(x: torch.Tensor, window=None):
+def rfft_pair_mag(x: torch.Tensor, window=None, head=None):
     """|rFFT| and raw nonzero counts of [S, 2, N] f32 channel pairs.
 
     Returns ``(mag [S, 2, N/2] f32, nzcount [S, 2] f32)`` in natural bin
     order.  ``window`` is a (w_hi, w_lo) df32 pair of [N] f32 tensors on
-    ``x``'s device, or None for no window.  ``N`` must be one that
+    ``x``'s device, or None for no window.  ``head`` is None (each row's
+    samples in order) or the rows' heads as a rotating ring keeps them
+    (``kernels/ring_cuda.py``), [S, 2] int32 on ``x``'s device: row r's
+    sample j is ``x[r, (j + head[r]) mod N]``, and the result is that of
+    the rows put in order, bit for bit.  ``N`` must be one that
     :func:`supports` admits; :func:`stage1_split` picks the body and
     :func:`twiddle_tier` its tier: split 2 runs :func:`rfft_pair_mag_gen`
     (K1-gen, or K1-df under df), split 3 :func:`rfft_pair_mag3` (K2, or
@@ -788,16 +816,18 @@ def rfft_pair_mag(x: torch.Tensor, window=None):
             f"{MAX_N3} under split 3; got N={n} at split {stage1_split(n)}")
     tier = twiddle_tier()
     if stage1_split(n) == 3:
-        return rfft_pair_mag3(x, window, twiddle=tier)
-    return rfft_pair_mag_gen(x, window, twiddle=tier)
+        return rfft_pair_mag3(x, window, twiddle=tier, head=head)
+    return rfft_pair_mag_gen(x, window, twiddle=tier, head=head)
 
 
-def _launch_two_stage(fn, x, w_hi, w_lo, consts, c, df: bool):
+def _launch_two_stage(fn, x, w_hi, w_lo, consts, c, df: bool, head):
     """Launch a two-launch pair kernel ``fn`` (K1-gen, K1-df, K2, K2-df)
-    on ``x`` [S, 2, N]: allocate its outputs, its stage-1 scratch rows
-    [S, 2, N1, 256] f32 (a (hi, lo) plane pair under df) and its int32
-    nonzero sums, pass ``consts`` (keys of ``c``, in the C signature's
-    order) and the tier's twiddle planes, raise on a failed launch."""
+    on ``x`` [S, 2, N] with the rows' heads ``head`` (None: a null
+    pointer, the rows in order): allocate its outputs, its stage-1
+    scratch rows [S, 2, N1, 256] f32 (a (hi, lo) plane pair under df) and
+    its int32 nonzero sums, pass ``consts`` (keys of ``c``, in the C
+    signature's order) and the tier's twiddle planes, raise on a failed
+    launch."""
     S, _, n = x.shape
     dev = x.device
     mag = torch.empty((S, 2, n // 2), dtype=torch.float32, device=dev)
@@ -807,7 +837,8 @@ def _launch_two_stage(fn, x, w_hi, w_lo, consts, c, df: bool):
     nz_int = torch.empty((S, 2), dtype=torch.int32, device=dev)
     tw = ("twr_df", "twi_df") if df else ("twr", "twi")
     with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+        err = fn(x.data_ptr(), None if head is None else head.data_ptr(),
+                 w_hi.data_ptr(), w_lo.data_ptr(),
                  *(c[k].data_ptr() for k in (*consts, *tw)), rows.data_ptr(),
                  nz_int.data_ptr(), mag.data_ptr(), nz.data_ptr(), S, n,
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -818,13 +849,13 @@ def _launch_two_stage(fn, x, w_hi, w_lo, consts, c, df: bool):
 
 
 def rfft_pair_mag_gen(x: torch.Tensor, window=None,
-                      twiddle: str | None = None):
+                      twiddle: str | None = None, head=None):
     """K1's body directly, at any N = 128·N1 with N1 % 8 == 0 up to 32768
     (N = 32768 included, which :func:`rfft_pair_mag` sends to K2): K1-gen
     under the f32 tier, K1-df under df.  ``twiddle`` names
     the tier; None reads :func:`twiddle_tier`.  The contract of
-    :func:`rfft_pair_mag`; a CPU tensor takes :func:`rfft_pair_mag_ref` or
-    :func:`rfft_pair_mag_df_ref`.
+    :func:`rfft_pair_mag` (``head`` included); a CPU tensor takes
+    :func:`rfft_pair_mag_ref` or :func:`rfft_pair_mag_df_ref`.
     """
     _check_pair(x)
     df = _tier(twiddle) == "df"
@@ -834,22 +865,24 @@ def rfft_pair_mag_gen(x: torch.Tensor, window=None,
             f"K1-gen covers N = 128·N1 with N1 % 8 == 0 up to {MAX_N2}, "
             f"got N={n}")
     w_hi, w_lo = _checked_window(x, window)
+    _check_head(x, head)
     if x.device.type == "cpu":
-        return _pair_mag(x, (w_hi, w_lo), df)
+        return _pair_mag(x, (w_hi, w_lo), df, head)
     lib = cuda_lib.build()
     out = _launch_two_stage(
         lib.wf_exact_mag_gen_df if df else lib.wf_exact_mag_gen, x, w_hi,
-        w_lo, K1GEN_CONSTS, _consts(n, x.device), df)
+        w_lo, K1GEN_CONSTS, _consts(n, x.device), df, head)
     cuda_lib.launched("K1-df" if df else "K1-gen")
     return out
 
 
-def rfft_pair_mag3(x: torch.Tensor, window=None, twiddle: str | None = None):
+def rfft_pair_mag3(x: torch.Tensor, window=None, twiddle: str | None = None,
+                   head=None):
     """K2's body directly, at any N = 512·a with a % 8 == 0 up to 65536
     (N=4096 included, which :func:`rfft_pair_mag` sends to K1's body): K2
     under the f32 tier, K2-df under df.  ``twiddle`` names the tier; None
-    reads :func:`twiddle_tier`.  The contract of :func:`rfft_pair_mag`; a
-    CPU tensor takes :func:`rfft_pair_mag3_ref` or
+    reads :func:`twiddle_tier`.  The contract of :func:`rfft_pair_mag`
+    (``head`` included); a CPU tensor takes :func:`rfft_pair_mag3_ref` or
     :func:`rfft_pair_mag3_df_ref`.
     """
     _check_pair(x)
@@ -860,12 +893,13 @@ def rfft_pair_mag3(x: torch.Tensor, window=None, twiddle: str | None = None):
         raise NotImplementedError(
             f"the 3-factor kernel covers N = 4096·k up to {MAX_N3}, got N={n}")
     w_hi, w_lo = _checked_window(x, window)
+    _check_head(x, head)
     if x.device.type == "cpu":
-        return _pair_mag3(x, (w_hi, w_lo), df)
+        return _pair_mag3(x, (w_hi, w_lo), df, head)
     lib = cuda_lib.build()
     out = _launch_two_stage(
         lib.wf_exact_mag3_df if df else lib.wf_exact_mag3, x, w_hi, w_lo,
-        K2_CONSTS, _consts3(n, x.device), df)
+        K2_CONSTS, _consts3(n, x.device), df, head)
     cuda_lib.launched("K2-df" if df else "K2")
     return out
 

@@ -425,7 +425,22 @@ def rfft_mag_real_lowering(x: torch.Tensor, window=None) -> torch.Tensor:
 # |rFFT| of real channels
 # ---------------------------------------------------------------------------
 
-def rfft_pair_mag_exact(x: torch.Tensor, window=None):
+def check_rotated(n: int, head) -> None:
+    """A rotating ring's rows (``head`` given) reach only the pair kernel,
+    which reads them at their heads: raise ValueError where it does not
+    serve ``n`` (``exact_cuda.kernel_would_run``).  An engine rotates its
+    ring only where it does (``dsp/spectrum.reads_rotating_ring``), so
+    this fails where the route changed after the engine was built."""
+    from .exact_cuda import kernel_would_run
+
+    if head is not None and not kernel_would_run(n):
+        raise ValueError(
+            f"a rotating ring's rows reach only the exact pair kernel, which "
+            f"does not serve N={n} now: the FFT route changed after the "
+            f"engine chose its ring's layout")
+
+
+def rfft_pair_mag_exact(x: torch.Tensor, window=None, head=None):
     """|rFFT| and the raw-sample nonzero predicate of channel pairs
     [..., 2, N] f32: ``(mag [..., 2, N/2] f32, nz [..., 2] bool)``.
 
@@ -433,14 +448,19 @@ def rfft_pair_mag_exact(x: torch.Tensor, window=None):
     otherwise the real-split lowering when :func:`use_real_split`; otherwise
     the pair packs into one complex transform z = x0 + i·x1
     (:func:`cfft_exact`) and unpacks by conjugate symmetry on the kept
-    bins."""
+    bins.  ``head`` [..., 2] int32: the rows are a rotating ring's
+    (``kernels/ring_cuda.py``), which only the pair kernel reads
+    (:func:`check_rotated`)."""
     from .exact_cuda import kernel_would_run, rfft_pair_mag
 
     n = x.shape[-1]
     lead = x.shape[:-2]
     nbins = n // 2
+    check_rotated(n, head)
     if kernel_would_run(n):
-        m, nzc = rfft_pair_mag(x.reshape(-1, 2, n).contiguous(), window)
+        m, nzc = rfft_pair_mag(
+            x.reshape(-1, 2, n).contiguous(), window,
+            None if head is None else head.reshape(-1, 2).contiguous())
         return m.reshape(*lead, 2, nbins), nzc.reshape(*lead, 2) > 0
     if use_real_split(n):
         return rfft_mag_real_lowering(x, window), torch.any(x != 0, dim=-1)
@@ -461,11 +481,14 @@ def rfft_pair_mag_exact(x: torch.Tensor, window=None):
     return mag, torch.any(x != 0, dim=-1)
 
 
-def rfft_mag_exact(x: torch.Tensor, window=None):
+def rfft_mag_exact(x: torch.Tensor, window=None, head=None):
     """|rFFT| and the raw-sample nonzero predicate of [..., C, N] f32.
 
     Returns ``(mag [..., C, N/2] f32, nz [..., C] bool)``, bins in natural
     order.  ``window`` is a (w_hi, w_lo) df32 pair of [N] tensors or None.
+    ``head`` [..., C] int32, or None: ``x`` is a rotating ring's buffer
+    (``dsp/devring.py``), row r's sample j at ``(j + head[r]) mod N``,
+    which the pair kernel reads in place (:func:`check_rotated`).
     Channels go through :func:`rfft_pair_mag_exact` two at a time.  A lone
     channel (mono capture, or the last of an odd count) rides the pair
     kernel by pairing streams when it runs, one zero row padding an odd
@@ -477,24 +500,32 @@ def rfft_mag_exact(x: torch.Tensor, window=None):
     from .exact_cuda import kernel_would_run, rfft_pair_mag
 
     c, n = x.shape[-2], x.shape[-1]
+    check_rotated(n, head)
     if not kernel_would_run(n) and use_real_split(n):
         return rfft_mag_real_lowering(x, window), torch.any(x != 0, dim=-1)
     lead = x.shape[:-2]
     nbins = n // 2
     mags, nzs = [], []
     for i in range(0, c - 1, 2):
-        m, nz = rfft_pair_mag_exact(x[..., i:i + 2, :], window)
+        m, nz = rfft_pair_mag_exact(
+            x[..., i:i + 2, :], window,
+            None if head is None else head[..., i:i + 2])
         mags.append(m)
         nzs.append(nz)
     if c % 2:
         xc = x[..., -1, :]
         if kernel_would_run(n):
+            # rows of different streams pair up, each with its own head
             flat = xc.reshape(-1, n)
+            hflat = None if head is None else head[..., -1].reshape(-1)
             s_flat = flat.shape[0]
             if s_flat % 2:
                 flat = torch.cat([flat, flat.new_zeros((1, n))])
-            m, nzc = rfft_pair_mag(flat.reshape(-1, 2, n).contiguous(),
-                                   window)
+                if hflat is not None:
+                    hflat = torch.cat([hflat, hflat.new_zeros(1)])
+            m, nzc = rfft_pair_mag(
+                flat.reshape(-1, 2, n).contiguous(), window,
+                None if hflat is None else hflat.reshape(-1, 2).contiguous())
             mags.append(m.reshape(-1, nbins)[:s_flat]
                         .reshape(*lead, 1, nbins))
             nzs.append(nzc.reshape(-1)[:s_flat].reshape(*lead, 1) > 0)

@@ -59,7 +59,7 @@ import torch
 
 from ..core.config import ResolvedConfig
 from ..core.device import process_count
-from ..dsp.devring import DeviceRing
+from ..dsp.devring import DeviceRing, set_window, window
 from ..runtime.meter_serving import MeterServingEngine
 from ..runtime.serving import ServingEngine
 from ..utils.checkpoint import load_pytree
@@ -132,6 +132,11 @@ class _MeterShard(_DeviceHalf, MeterServingEngine):
     pass
 
 
+def _windows(leaf) -> torch.Tensor:
+    """A leaf as a tensor: a ``DeviceRing``'s windows in order."""
+    return window(leaf) if isinstance(leaf, DeviceRing) else leaf
+
+
 class ShardedMixin:
     """The placement shared by the sharded families: the shards, the
     scattered upload, the tiles and the row gathers.  A family sets
@@ -179,6 +184,7 @@ class ShardedMixin:
             shards.append(_Shard(self._make_shard(hi - lo, dev, pixels),
                                  i, lo, hi, pixels))
         self._shards = shards
+        self._rotating = all(sh.eng._rotating for sh in shards)
 
     def _init_uploads(self) -> None:
         # the host blocks are the family's; the device buffers are the
@@ -270,20 +276,25 @@ class ShardedMixin:
 
     def _global_leaf(self, get):
         """The [S, ...] leaf ``get(shard engine)`` as this process's rows of
-        it (a ``GlobalRows``, ``parallel/mesh.from_process_local``)."""
-        local = np.concatenate([get(sh.eng).detach().cpu().numpy()
+        it (a ``GlobalRows``, ``parallel/mesh.from_process_local``); a
+        ``DeviceRing`` leaf gives its windows in order."""
+        local = np.concatenate([_windows(get(sh.eng)).detach().cpu().numpy()
                                 for sh in self._row_reps()])
         return from_process_local(self.mesh, local,
                                   (self.S,) + local.shape[1:])
 
     def _scatter_leaf(self, get, rows) -> None:
         """Write the ``GlobalRows`` ``rows`` into ``get(shard engine)`` of
-        every shard, in place (the graphs read those tensors)."""
+        every shard, in place (the graphs read those tensors); into a
+        ``DeviceRing`` leaf as its windows in order."""
         for sh in self._shards:
             dst = get(sh.eng)
-            src = rows.local[sh.lo - rows.lo:sh.hi - rows.lo]
-            dst.copy_(torch.from_numpy(np.ascontiguousarray(src)).to(
-                dst.device, dst.dtype))
+            src = torch.from_numpy(np.ascontiguousarray(
+                rows.local[sh.lo - rows.lo:sh.hi - rows.lo]))
+            if isinstance(dst, DeviceRing):
+                set_window(dst, src.to(dst.buf.device, dst.buf.dtype))
+            else:
+                dst.copy_(src.to(dst.device, dst.dtype))
 
     def _host_rows(self, read) -> np.ndarray:
         """``read(shard engine)`` (a host array) of the row blocks, stacked
@@ -376,8 +387,10 @@ class ShardedServingEngine(ShardedMixin, ServingEngine):
         pass   # each shard builds its own
 
     def _leaf_getters(self) -> list:
+        # the sample ring as it lies, read and written as its windows in
+        # order (_global_leaf, _scatter_leaf)
         st = self._shards[0].eng
-        gets = [lambda e: e.ring.buf]
+        gets = [lambda e: e._ring]
         gets += [lambda e, n=f.name: getattr(e.state, n)
                  for f in dataclasses.fields(st.state)]
         if st.rms_ring is not None:
@@ -397,7 +410,7 @@ class ShardedServingEngine(ShardedMixin, ServingEngine):
 
     @property
     def ring(self) -> DeviceRing:
-        return DeviceRing(buf=self._global_leaf(lambda e: e.ring.buf))
+        return DeviceRing(buf=self._global_leaf(lambda e: e._ring))
 
     @property
     def rms_ring(self):

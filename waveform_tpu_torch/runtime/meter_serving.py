@@ -49,7 +49,7 @@ class MeterServingEngine(ServingEngine):
     def _init_device_state(self) -> None:
         # the meter window ring: fft_size is repurposed as the meter
         # length in samples (sr*meter_ms/1000, src/source.cpp:1121)
-        self.ring = init_ring(self.S, self.C, self.cfg.fft_size, self.device)
+        self._ring = init_ring(self.S, self.C, self.cfg.fft_size, self.device)
         self.state = init_meter_state(self.cfg, self.S, self.device)
         self.rms_ring = None
 

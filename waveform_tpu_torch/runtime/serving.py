@@ -50,12 +50,20 @@ from ..core.config import (
 )
 from ..core.device import checked_device, process_count
 from ..core.ring import audio_frames_to_ns, ns_to_audio_frames
-from ..dsp.devring import init_ring, push
+from ..dsp.devring import (
+    DeviceRing,
+    init_ring,
+    push,
+    push_rotating,
+    set_window,
+    window,
+)
 from ..dsp.spectrum import (
     display_decibels,
     gravity_pair,
     init_state,
     make_spectrum_step,
+    reads_rotating_ring,
 )
 from ..kernels import cuda_lib
 from ..rebin.apply import make_rebin_fn
@@ -327,6 +335,9 @@ class PackedTickEngine(AutoMicrobatchMixin):
     (the device tick on one uploaded ``flat``; returns its output)."""
 
     _TAIL = 0
+    # whether the tick pushes into a rotating sample ring (dsp/devring.py;
+    # set where the device state is made), counted as ticks.rotating
+    _rotating = False
 
     def _init_microbatch(self, microbatch: int | str) -> None:
         """microbatch > 1: ticks accumulate k assembled frames and run them
@@ -452,6 +463,8 @@ class PackedTickEngine(AutoMicrobatchMixin):
             self._bind_buf(self._flip)
             uniform = self._stage(now_ns, dt_f)
         profiler.count("ticks.uniform" if uniform else "ticks.gather")
+        if self._rotating:
+            profiler.count("ticks.rotating")
         return self._run_tick(uniform)
 
     def _run_tick(self, uniform: bool):
@@ -489,6 +502,8 @@ class PackedTickEngine(AutoMicrobatchMixin):
         self._mb_fill = 0
         uniform = all(self._mb_uniform)
         profiler.count("ticks.uniform" if uniform else "ticks.gather", k)
+        if self._rotating:
+            profiler.count("ticks.rotating", k)
         self._flush_microbatch(host, k, uniform)
         return self._last_pixels
 
@@ -668,12 +683,29 @@ class ServingEngine(PackedTickEngine):
         [S, C, L], the spectrum state and, under volume normalization, the
         ring of raw RMS squares [S, 1, input_rms_size] (the reference's 1 s
         host ring of per-timepoint max-channel squares, src/source.cpp:
-        1843-1871, 810-835, riding the device-ring mechanism)."""
+        1843-1871, 810-835, riding the device-ring mechanism).  The sample
+        ring rotates (``dsp/devring.push_rotating``) where the step reads
+        it in place (``dsp/spectrum.reads_rotating_ring``: the exact pair
+        kernels on the card), and shifts everywhere else; the RMS ring,
+        which the tick sums in order, always shifts."""
         cfg, dev = self.cfg, self.device
-        self.ring = init_ring(self.S, self.C, cfg.fft_size, dev)
+        self._rotating = reads_rotating_ring(cfg, self._rfft_fn, dev)
+        self._ring = init_ring(self.S, self.C, cfg.fft_size, dev,
+                               rotating=self._rotating)
         self.state = init_state(cfg, self.S, dev)
         self.rms_ring = (init_ring(self.S, 1, cfg.input_rms_size, dev)
                          if self._normalize else None)
+
+    @property
+    def ring(self) -> DeviceRing:
+        """The sample windows in order, [S, C, L] (``buf[s, c, -1]`` the
+        newest sample): the shifting ring itself, or a rotating ring's
+        windows put in order (``dsp/devring.window``, a copy: write the
+        windows through :meth:`load_state`).  The tick alone reads the
+        ring as it lies (``_ring``)."""
+        if self._ring.head is None:
+            return self._ring
+        return DeviceRing(buf=window(self._ring))
 
     def _rebin_kwargs(self) -> dict:
         """Extra arguments of ``make_rebin_fn`` (a shard's pixel block)."""
@@ -695,10 +727,14 @@ class ServingEngine(PackedTickEngine):
         normalize = self._normalize
         rms_size = cfg.input_rms_size
         C, H = self.C, self.H
+        rotating = self._rotating
 
         def fused_tick(new, counts, ring, state, scalars, active, rms,
                        rms_ring, rms_sq):
-            push(ring, new, counts)
+            if rotating:
+                push_rotating(ring, new, counts)
+            else:
+                push(ring, new, counts)
             if normalize and rms_ring is not None:
                 # rms_sq holds raw (pre-mute) per-timepoint max-channel
                 # squares: the reference computes the normalization RMS
@@ -706,7 +742,8 @@ class ServingEngine(PackedTickEngine):
                 push(rms_ring, rms_sq, counts)
                 rms = torch.sqrt(rms_ring.buf.sum(-1)[:, 0] / rms_size)
             profiler.mark("tick.push")
-            assign(state, step(ring.buf, state, scalars, active, rms))
+            assign(state, step(ring.buf, state, scalars, active, rms,
+                               head=ring.head))
             values = self._display_values(state)
             profiler.mark("tick.tail")
             pixels = rebin(values)
@@ -716,15 +753,17 @@ class ServingEngine(PackedTickEngine):
         def packed_tick(flat, ring, state, scalars, rms_ring=None,
                         ucount=None):
             """fused_tick on the packed rows ``flat`` [S, W]: ``scalars``
-            is the [2] (g, 1 − g) pair; ``ucount`` (a 0-d integer tensor)
-            replaces the per-stream counts column when every stream
-            advanced alike, selecting the ring's batch shift instead of
-            the per-stream gather (dsp/devring.py)."""
+            is the [2] (g, 1 − g) pair; ``ucount`` (a 0-d tensor, the
+            upload's uniform count) replaces the per-stream counts column
+            when every stream advanced alike, selecting the ring's batch
+            shift (one count for every row) instead of the per-stream
+            gather (dsp/devring.py).  The counts stay the upload's floats:
+            each push reads them as it takes them."""
             s = flat.shape[0]
             new = flat[:, :C * H].view(s, C, H)
             rms_sq = (flat[:, C * H:C * H + H].view(s, 1, H) if normalize
                       else None)
-            counts = flat[:, -3].to(torch.int64) if ucount is None else ucount
+            counts = flat[:, -3] if ucount is None else ucount
             return fused_tick(new, counts, ring, state, scalars,
                               flat[:, -2] > 0.5, flat[:, -1], rms_ring,
                               rms_sq)
@@ -768,14 +807,14 @@ class ServingEngine(PackedTickEngine):
 
     def _packed(self, flat: torch.Tensor, uniform: bool):
         """The packed tick on one tick's uploaded ``flat``: its rows
-        [S, W], its scalars [2] and, for the uniform form, its count as a
-        0-d int64 tensor, all read on the device."""
+        [S, W], its scalars [2] and, for the uniform form, its count (a
+        0-d view of the upload), all read on the device."""
         profiler.mark(profiler.OPEN)
         S, W = self.S, self.packed_width
         tail = flat[S * W:]
         return self._packed_tick(
-            flat[:S * W].view(S, W), self.ring, self.state, tail[:2],
-            self.rms_ring, tail[2].to(torch.int64) if uniform else None)
+            flat[:S * W].view(S, W), self._ring, self.state, tail[:2],
+            self.rms_ring, tail[2] if uniform else None)
 
     def _graph_fn(self, key):
         """The base's tick kinds, and a tick_many step ("bulk", hop,
@@ -786,7 +825,7 @@ class ServingEngine(PackedTickEngine):
         hop, uniform = rest
         b = self._bulk[hop]
         return lambda: self._bulk_tick(
-            b["new"], b["ucount"] if uniform else b["counts"], self.ring,
+            b["new"], b["ucount"] if uniform else b["counts"], self._ring,
             self.state, b["scalars"], b["active"], b["rms"], self.rms_ring)
 
     # ------------------------------------------------------------------
@@ -1158,12 +1197,15 @@ class ServingEngine(PackedTickEngine):
         k = len(keep)
         if k:
             idx = torch.tensor(keep, dtype=torch.int64, device=self.device)
-            for new, old in ((eng.ring, self.ring), (eng.state, self.state),
+            # the new engine's rings are at head 0: their rows take the
+            # old windows in order
+            for new, old in ((eng._ring, self.ring),
                              (eng.rms_ring, self.rms_ring)):
-                if new is None or old is None:
-                    continue
-                for f in dataclasses.fields(new):
-                    getattr(new, f.name)[:k] = getattr(old, f.name)[idx]
+                if new is not None and old is not None:
+                    new.buf[:k] = old.buf[idx]
+            for f in dataclasses.fields(eng.state):
+                getattr(eng.state, f.name)[:k] = getattr(self.state,
+                                                         f.name)[idx]
             for i, j in enumerate(keep):
                 eng._pending[i] = self._pending[j]
             if self._native is not None and eng._native is not None:
@@ -1193,6 +1235,6 @@ class ServingEngine(PackedTickEngine):
         state, ring, rms_ring = load_pytree(
             path, (self.state, self.ring, self.rms_ring), keep=keep)
         assign(self.state, state)
-        assign(self.ring, ring)
+        set_window(self._ring, ring.buf)
         if rms_ring is not None:
-            assign(self.rms_ring, rms_ring)
+            set_window(self.rms_ring, rms_ring.buf)
