@@ -185,6 +185,7 @@ class ShardedMixin:
                                  i, lo, hi, pixels))
         self._shards = shards
         self._rotating = all(sh.eng._rotating for sh in shards)
+        self._filtered = all(sh.eng._filtered for sh in shards)
 
     def _init_uploads(self) -> None:
         # the host blocks are the family's; the device buffers are the

@@ -18,6 +18,7 @@ import torch
 from ..core.config import ResolvedConfig, check_config
 from ..core.device import checked_device
 from ..core.enums import DisplayMode, FilterMode
+from ..runtime import profiler
 from .filter import build_gauss_tables
 from .interp import build_interp_tables, mirror_indices
 
@@ -41,6 +42,12 @@ def _rows_mm(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     matmul of a [S, D, K] view runs as S separate GEMVs on CUDA)."""
     out = torch.mm(x.reshape(-1, x.shape[-1]), m)
     return out.reshape(*x.shape[:-1], m.shape[-1])
+
+
+def filters(cfg: ResolvedConfig) -> bool:
+    """Whether the rebin of ``cfg`` runs the Gaussian filter (a meter mode
+    never does)."""
+    return cfg.filter_mode == FilterMode.GAUSS and not cfg.meter_mode
 
 
 def check_full_f32_matmul(who: str = "the rebin") -> None:
@@ -98,7 +105,7 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
         dense = (mode == "dense" if mode in ("dense", "gather") else
                  device.type == "cuda" and nbins_in <= DENSE_MAX_BINS)
     n_out = tables.num_outputs
-    use_gauss = cfg.filter_mode == FilterMode.GAUSS and not cfg.meter_mode
+    use_gauss = filters(cfg)
     cols = slice(None)       # the interp columns computed
     cut = None               # the block cut from a whole rebinned row
     if pixels is not None:
@@ -141,6 +148,7 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
         if band is not None:
             vals = _rows_mm(vals, band.T)
         if use_gauss:
+            profiler.mark("tick.interp")
             # zero-padded conv divided by the per-pixel valid-weight sum is
             # exactly the reference's edge renormalization
             padded = torch.nn.functional.pad(vals, (pad, pad))
@@ -148,6 +156,7 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
             for j, w in enumerate(gw):
                 smoothed = smoothed + padded[..., j:j + vals.shape[-1]] * w
             vals = smoothed / grenorm
+            profiler.mark("tick.filter")
         if apply_pixel_map:
             t = torch.clamp(cfg.ceiling - vals, 0.0, dbrange) / dbrange
             vals = top + (bottom - top) * t

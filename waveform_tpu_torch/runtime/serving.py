@@ -66,7 +66,7 @@ from ..dsp.spectrum import (
     reads_rotating_ring,
 )
 from ..kernels import cuda_lib
-from ..rebin.apply import make_rebin_fn
+from ..rebin.apply import filters, make_rebin_fn
 from . import profiler
 from .graphs import GraphTick
 
@@ -338,6 +338,9 @@ class PackedTickEngine(AutoMicrobatchMixin):
     # whether the tick pushes into a rotating sample ring (dsp/devring.py;
     # set where the device state is made), counted as ticks.rotating
     _rotating = False
+    # whether the tick's rebin runs the Gaussian filter (set where the
+    # device programs are built), counted as ticks.filtered
+    _filtered = False
 
     def _init_microbatch(self, microbatch: int | str) -> None:
         """microbatch > 1: ticks accumulate k assembled frames and run them
@@ -465,6 +468,8 @@ class PackedTickEngine(AutoMicrobatchMixin):
         profiler.count("ticks.uniform" if uniform else "ticks.gather")
         if self._rotating:
             profiler.count("ticks.rotating")
+        if self._filtered:
+            profiler.count("ticks.filtered")
         return self._run_tick(uniform)
 
     def _run_tick(self, uniform: bool):
@@ -504,6 +509,8 @@ class PackedTickEngine(AutoMicrobatchMixin):
         profiler.count("ticks.uniform" if uniform else "ticks.gather", k)
         if self._rotating:
             profiler.count("ticks.rotating", k)
+        if self._filtered:
+            profiler.count("ticks.filtered", k)
         self._flush_microbatch(host, k, uniform)
         return self._last_pixels
 
@@ -724,6 +731,7 @@ class ServingEngine(PackedTickEngine):
         step = make_spectrum_step(cfg, self._rfft_fn, device=dev)
         rebin = make_rebin_fn(cfg, apply_pixel_map=False, device=dev,
                               **self._rebin_kwargs())
+        self._filtered = filters(cfg)
         normalize = self._normalize
         rms_size = cfg.input_rms_size
         C, H = self.C, self.H
