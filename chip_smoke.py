@@ -4,8 +4,8 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-or with ``tail`` or ``ring`` to run phases 1, 2 and 35 or 36 alone
-(``python3 chip_smoke.py tail``).
+or with ``tail``, ``ring`` or ``rebin`` to run phases 1, 2 and 35, 36 or
+37 alone (``python3 chip_smoke.py tail``).
 
 Phases, one line each; any failure raises and the script exits non-zero:
 
@@ -18,8 +18,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    from its SASS: all 14 FFT kernels (stage 1 and stage 2 of K2, K2-df,
    K1-gen, K1-df and K3, the pair kernels' stage 1 with and without the
    rows' heads) must run on the int8 tensor cores (IMMA or IGMMA, no
-   IDP.4A), beside the tail's 4 (two kernels, two widths) and the ring's
-   push;
+   IDP.4A), beside the tail's 4 (two kernels, two widths), the ring's
+   push and the rebin's 4 (the interp at 1, 4 and 8 taps, the filter);
 3. kernel  — K1-gen through the router (K1's body at K1's sizes) bit for
    bit against its plain PyTorch twin (NaN lanes by position) and against
    float64 numpy at N in {1024, 2048, 4096}, S in {1, 7, 256}, Hann df32
@@ -233,7 +233,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
    the push captured in a CUDA graph beside the plain version and the
    shifting ring's push on the device's clock and beside its byte
    bound; and K2 at (65536, 32) and K1-gen at (4096, 256) with the rows'
-   heads and without, on the device's clock.
+   heads and without, on the device's clock;
+37. rebin  — the rebin's pair (``kernels/rebin_cuda.py``) at the two
+   benchmark looks, (S, D, bins) = (256, 2, 8192) -> 800 px through 8
+   Lanczos taps with the Gaussian filter and (32, 1, 32768) -> 800 through
+   4 Catmull-Rom taps (a channel slice of the state, as the tick hands it
+   over): the interp within its T-term float32 bound of float64 and
+   against its plain version, the filter bit for bit against its plain
+   version, each checked after a synchronize; their times in a CUDA
+   graph on the device's clock beside the plain versions', the dense
+   product (``library_ms``) and the byte bounds (each bin a row's taps
+   touch read once); the studio look's whole rebin, make_rebin_fn's
+   kernels against its two plain forms (dense product or gather, then the
+   plain filter) built from the plain functions.
 
 Phases 13-15 and 16's K1-df sizes, 18's (16384, 256) and 27's 8192 and
 16384 looks test K1-gen (K1-df) at sizes the packaged H100 plan table
@@ -281,24 +293,29 @@ K1_SIZES = (1024, 2048, 4096)   # N1 = 8, 16, 32: K1's sizes, now K1-gen's
 # stage 2 of exact_mag3.cu and exact_mag_gen.cu at both tiers (stage 1 in
 # two instances, reading the rows in order or at a rotating ring's heads)
 # and of exact_cfft.cu; the spectrum tail's (spectrum_tail.cu: the gate
-# and the fused tail, each for 16-byte vectors and single floats); and
-# the rotating ring's push (ring_push.cu)
+# and the fused tail, each for 16-byte vectors and single floats); the
+# rotating ring's push (ring_push.cu); and the rebin's (rebin.cu: the
+# interp at 1, 4 and 8 taps, the Gaussian filter)
 KERNELS = 14
 TAIL_KERNELS = 4
 RING_KERNELS = 1
+REBIN_KERNELS = 4
 # the tail's launches a spectrum step, by its name in the launch table
 TAIL = {"tail": 2}
+# the rebin's launches in an unfiltered look: the interp kernel
+REBIN = {"rebin": 1}
 # the pair kernels, which read a rotating sample ring in place: a
 # spectrum engine whose step runs one pushes with one "ring" launch a tick
 PAIR_KERNELS = ("K1-gen", "K1-df", "K2", "K2-df")
 
 
 def replay_launches(counter: str | None, ticks: int = 1) -> dict:
-    """The launches a replay of ``ticks`` spectrum ticks makes where its
-    FFT is ``counter`` (None: no exact kernel): one of it, the tail's two
-    and, where ``counter`` is a pair kernel, the rotating ring's push."""
+    """The launches a replay of ``ticks`` spectrum ticks of an unfiltered
+    look makes where its FFT is ``counter`` (None: no exact kernel): one
+    of it, the tail's two, the rebin's interp and, where ``counter`` is a
+    pair kernel, the rotating ring's push."""
     want = served_launches(counter, ticks) if counter else {}
-    return {**want, **{k: n * ticks for k, n in TAIL.items()}}
+    return {**want, **{k: n * ticks for k, n in {**TAIL, **REBIN}.items()}}
 
 
 @contextlib.contextmanager
@@ -751,8 +768,9 @@ def drive_slice(wt, eng, cpu, packets, now0):
 def fft_launches() -> dict:
     """The launches in the launch table (``cuda_lib.LAUNCHES``) of the
     exact FFT kernels and the rotating ring's push, by kernel name: the
-    tail's pair and zero counts left out."""
-    return {k: n for k, n in LAUNCHES.items() if n and k != "tail"}
+    tail's pair, the rebin's kernels and zero counts left out."""
+    return {k: n for k, n in LAUNCHES.items()
+            if n and k not in ("tail", "rebin")}
 
 
 def only(counter: str, count: int) -> dict:
@@ -939,7 +957,9 @@ STAGE1 = {"K1-gen": ("exact_mag_gen_stage1", False),
           # the spectrum tail: both of its kernels, as its counter counts
           "tail": ("spectrum_tail_", None),
           # the rotating ring's push
-          "ring": ("ring_push", None)}
+          "ring": ("ring_push", None),
+          # the rebin: the interp, and the filter where the look filters
+          "rebin": ("rebin_", None)}
 
 
 def profiled(profiler, one_tick, n: int = 5):
@@ -2166,7 +2186,7 @@ def phase_matmul(wt, card: str) -> None:
             lambda: ServingEngine(cfg, S, device="cuda"), pk, now0, rows,
             cpu)
         check(not any(counts) and eng.kernels_per_replay
-              == {("tick", True): TAIL},
+              == {("tick", True): {**TAIL, **REBIN}},
               f"matmul: exact kernels launched {counts}, "
               f"{eng.kernels_per_replay}")
         e_cpu = db_vs(wt, eng.read_decibels()[rows], cpu.read_decibels(),
@@ -2205,7 +2225,8 @@ def phase_rfft_fn(wt, card: str) -> None:
     now0 = time.monotonic_ns()
     eng, counts = graph_vs_eager(
         lambda: ServingEngine(cfg, S, rfft_fn=fn, device="cuda"), pk, now0)
-    check(not any(counts) and eng.kernels_per_replay == {("tick", True): TAIL},
+    check(not any(counts)
+          and eng.kernels_per_replay == {("tick", True): {**TAIL, **REBIN}},
           f"rfft_fn: exact kernels launched {counts}")
     e_fn = oracle_err(wt, ServingEngine, 4096, 8,
                       np.random.default_rng(SEED + 43), now0, rfft_fn=fn)
@@ -2986,9 +3007,142 @@ def phase_ring(exact_cuda, card: str, dev) -> dict:
             "library_ms": shift_ms}
 
 
+def interp_gap(got, x, taps, weights) -> float:
+    """The interp's largest error against float64, as a share of its
+    bound: T products rounded once and summed in float32 in any order
+    are off by at most (T + 1) * 2^-24 * sum|x * w|.  At most 1 where the
+    kernel is right."""
+    prod = x.double()[..., taps.long()] * weights.double()
+    err = (got.double() - prod.sum(-1)).abs()
+    bound = (taps.shape[1] + 1) * 2.0 ** -24 * prod.abs().sum(-1)
+    return float((err / bound.clamp_min(1e-300)).max())
+
+
+def phase_rebin(wt, exact_cuda, card: str, dev) -> list:
+    """The rebin's pair (``kernels/rebin_cuda.py``) at the benchmark's two
+    looks: the interp against its plain version (and float64) on a
+    state's display channels as the tick hands them over (a channel
+    slice in mono), the filter bit for bit against its plain version,
+    each after a synchronize; their times on the device's clock beside
+    the plain versions', the dense product (the one PyTorch call that
+    computes the interp) and the byte bounds; the whole rebin through
+    ``make_rebin_fn`` against its two plain forms.  Returns the kernels'
+    records for the kernels line."""
+    from waveform_tpu_torch.kernels import rebin_cuda
+    from waveform_tpu_torch.rebin import apply
+    from waveform_tpu_torch.rebin.filter import build_gauss_tables
+    from waveform_tpu_torch.rebin.interp import build_interp_tables
+    rng = np.random.default_rng(SEED + 37)
+    records = []
+    # the benchmark's two looks as the rebin sees them: (label, config,
+    # streams S, dB channels O of the state, display channels D)
+    looks = (
+        ("studio16384", wt.Settings(
+            fft_size=16384, enable_large_fft=True, width=800,
+            channel_mode=wt.ChannelMode.STEREO,
+            interp_mode=wt.InterpMode.LANCZOS,
+            filter_mode=wt.FilterMode.GAUSS, filter_radius=1.5), 256, 2, 2),
+        ("curve65536", wt.Settings(
+            fft_size=65536, enable_large_fft=True, width=800,
+            interp_mode=wt.InterpMode.CATROM), 32, 2, 1))
+    for label, settings, S, O, D in looks:
+        cfg = wt.resolve(settings, wt.AudioInfo(SR, 2))
+        t = build_interp_tables(cfg)
+        nb, (P, T) = cfg.num_bins, t.taps.shape
+        state = torch.from_numpy(rng.uniform(-65.0, 0.0, (S, O, nb)).astype(
+            np.float32)).to(dev)
+        x = state[:, :D]
+        taps = torch.from_numpy(t.taps).to(dev)
+        taps64 = taps.long()
+        w = torch.from_numpy(t.weights).to(dev)
+        before = LAUNCHES["rebin"]
+        got = rebin_cuda.rebin_interp(x, taps, w)
+        torch.cuda.synchronize()
+        check(LAUNCHES["rebin"] == before + 1, f"rebin {label}: launches")
+        want = rebin_cuda.rebin_interp_ref(x, taps64, w)
+        k_gap = interp_gap(got, x, taps, w)
+        r_gap = interp_gap(want, x, taps, w)
+        diff = float((got - want).abs().max())
+        check(k_gap <= 1.0, f"rebin {label}: interp {k_gap:.3f} of its bound "
+                            "off float64")
+        imat = torch.from_numpy(apply._interp_matrix(t.taps, t.weights,
+                                                     nb)).to(dev)
+        ms = graph_ms(lambda: rebin_cuda.rebin_interp(x, taps, w))
+        plain_ms = graph_ms(lambda: rebin_cuda.rebin_interp_ref(x, taps64, w))
+        lib_ms = graph_ms(lambda: apply._rows_mm(x, imat))
+        moved = rebin_cuda.interp_bytes(S * D, t.taps)
+        bound_ms = moved / exact_cuda.HBM_PEAK_BYTES * 1e3
+        print(f"rebin [{card}]: {label} interp [{S}, {D}, {nb}] -> {P} px, "
+              f"T={T}: vs plain version max {diff:.2e} dB, vs float64 "
+              f"{k_gap:.3f} of the T-term bound (plain version {r_gap:.3f}); "
+              f"kernel {ms * 1e3:.2f} us, plain version "
+              f"{plain_ms * 1e3:.1f} us, dense product {lib_ms * 1e3:.1f} us "
+              f"(graph); bound {bound_ms * 1e3:.2f} us ({moved / 1e6:.2f} MB "
+              f"at 3.35 TB/s)", flush=True)
+        records.append({
+            "name": f"rebin_interp.{label}", "route": "cuda",
+            "source": "waveform_tpu_torch/csrc/rebin.cu",
+            "replaces": "none (waveform_tpu/rebin/apply.py is jnp code)",
+            "launches": 1, "max_abs_err": diff, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "hbm",
+            "library_ms": lib_ms})
+        if not apply.filters(cfg):
+            continue
+        gt = build_gauss_tables(cfg.settings.filter_radius, P)
+        gw = torch.from_numpy(gt.weights).to(dev)
+        gwl = [float(v) for v in gt.weights]
+        gr = torch.from_numpy(gt.renorm).to(dev)
+        studio, xs = cfg, x
+        # the studio rebin's two plain forms, from the plain functions
+        plain_forms = {
+            "dense": lambda v, imat=imat, gwl=gwl, gr=gr:
+                rebin_cuda.rebin_gauss_ref(apply._rows_mm(v, imat), gwl, gr),
+            "gather": lambda v, taps64=taps64, w=w, gwl=gwl, gr=gr:
+                rebin_cuda.rebin_gauss_ref(
+                    rebin_cuda.rebin_interp_ref(v, taps64, w), gwl, gr)}
+        a = rebin_cuda.rebin_gauss(got, gw, gr)
+        torch.cuda.synchronize()
+        b = rebin_cuda.rebin_gauss_ref(got, gwl, gr)
+        check(torch.equal(bits(a), bits(b)),
+              f"rebin {label}: filter vs rebin_gauss_ref not bit for bit")
+        g_ms = graph_ms(lambda: rebin_cuda.rebin_gauss(got, gw, gr))
+        chain_ms = graph_ms(lambda: rebin_cuda.rebin_gauss_ref(got, gwl, gr))
+        moved = rebin_cuda.gauss_bytes(S * D, P)
+        g_bound = moved / exact_cuda.HBM_PEAK_BYTES * 1e3
+        print(f"rebin [{card}]: {label} filter [{S}, {D}, {P}], K={len(gwl)}: "
+              f"bit for bit vs rebin_gauss_ref; kernel {g_ms * 1e3:.2f} us, "
+              f"node chain {chain_ms * 1e3:.1f} us (graph); bound "
+              f"{g_bound * 1e3:.2f} us ({moved / 1e6:.2f} MB)", flush=True)
+        records.append({
+            "name": f"rebin_gauss.{label}", "route": "cuda",
+            "source": "waveform_tpu_torch/csrc/rebin.cu",
+            "replaces": "none (waveform_tpu/rebin/apply.py is jnp code)",
+            "launches": 1, "max_abs_err": 0.0, "ms": g_ms,
+            "plain_ms": chain_ms, "bound_ms": g_bound, "bound_by": "hbm",
+            "library_ms": None})
+    # the whole rebin of the studio look: make_rebin_fn's kernels against
+    # the plain forms (the dense product needs full-float32 matmuls)
+    apply.check_full_f32_matmul("chip_smoke's dense rebin")
+    forms = {"kernels": apply.make_rebin_fn(studio, apply_pixel_map=False,
+                                            device=dev), **plain_forms}
+    out = {name: fn(xs) for name, fn in forms.items()}
+    torch.cuda.synchronize()
+    gaps = {name: float((v - out["kernels"]).abs().max())
+            for name, v in out.items() if name != "kernels"}
+    check(all(g < 1e-4 for g in gaps.values()),
+          f"rebin: the kernels against the plain forms {gaps} dB")
+    times = {name: graph_ms(lambda fn=fn: fn(xs)) * 1e3
+             for name, fn in forms.items()}
+    print(f"rebin [{card}]: studio16384 whole rebin (graph): " + ", ".join(
+        f"{k} {v:.1f} us" for k, v in times.items())
+        + "; kernels vs dense / gather max " + " / ".join(
+            f"{v:.2e}" for v in gaps.values()) + " dB", flush=True)
+    return records
+
+
 def kernel_label(fn: str) -> str:
     """A mangled kernel name as name<template arguments>."""
-    m = re.search(r"_cu_[0-9a-f]{8}\d+((?:exact|spectrum_tail|ring)_"
+    m = re.search(r"_cu_[0-9a-f]{8}\d+((?:exact|spectrum_tail|ring|rebin)_"
                   r"[a-z0-9_]+?)(I.*?E)?E", fn)
     if m is None:
         return fn
@@ -3031,13 +3185,16 @@ def main() -> None:
     fft = [c for fn, c in sass.items() if "exact_" in fn]
     tail = [fn for fn in sass if "spectrum_tail_" in fn]
     ring = [fn for fn in sass if "ring_push" in fn]
+    rebin = [fn for fn in sass if "rebin_" in fn]
     check(len(fft) == KERNELS and len(tail) == TAIL_KERNELS
-          and len(ring) == RING_KERNELS
-          and len(sass) == KERNELS + TAIL_KERNELS + RING_KERNELS
+          and len(ring) == RING_KERNELS and len(rebin) == REBIN_KERNELS
+          and len(sass) == (KERNELS + TAIL_KERNELS + RING_KERNELS
+                            + REBIN_KERNELS)
           and all(c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0
                   for c in fft),
           f"FFT kernels not on the int8 tensor cores, or {KERNELS} FFT, "
-          f"{TAIL_KERNELS} tail and {RING_KERNELS} ring kernels expected: "
+          f"{TAIL_KERNELS} tail, {RING_KERNELS} ring and {REBIN_KERNELS} "
+          f"rebin kernels expected: "
           f"{sass}")
     props = [ln for ln in cuda_lib.build_info.get("log", "").splitlines()
              if "spill" in ln]
@@ -3058,6 +3215,13 @@ def main() -> None:
         print(f"seconds: build {secs['build']:.1f}, ring "
               f"{time.perf_counter() - t0:.1f}", flush=True)
         print(json.dumps({"kernels": [record]}))
+        return
+    if sys.argv[1:] == ["rebin"]:
+        t0 = time.perf_counter()
+        records = phase_rebin(wt, exact_cuda, card, dev)
+        print(f"seconds: build {secs['build']:.1f}, rebin "
+              f"{time.perf_counter() - t0:.1f}", flush=True)
+        print(json.dumps({"kernels": records}))
         return
 
     # 3. kernel vs twin ---------------------------------------------------
@@ -3746,6 +3910,11 @@ def main() -> None:
     ring_record = phase_ring(exact_cuda, card, dev)
     secs["ring"] = time.perf_counter() - t0
 
+    # 37. rebin: the rebin's interp and filter kernels ------------------------
+    t0 = time.perf_counter()
+    rebin_records = phase_rebin(wt, exact_cuda, card, dev)
+    secs["rebin"] = time.perf_counter() - t0
+
     jax_mods =[m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "waveform_tpu")]
     check(not jax_mods, f"the JAX package or jax was imported: {jax_mods}")
@@ -3788,6 +3957,7 @@ def main() -> None:
               f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})",
               flush=True)
     records.append(ring_record)
+    records += rebin_records
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

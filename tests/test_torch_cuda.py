@@ -139,14 +139,18 @@ def test_k2_runs_on_the_int8_tensor_cores(dev):
     holds int8 tensor-core products
     (IMMA from mma.sync, or IGMMA from wgmma) and no __dp4a (IDP.4A); the
     library's other kernels are the spectrum tail's four (its gate and
-    fused tail, each for 16-byte vectors and single floats) and the
-    rotating ring's push."""
+    fused tail, each for 16-byte vectors and single floats), the
+    rotating ring's push and the rebin's four (the interp at 1, 4 and 8
+    taps, the Gaussian filter)."""
     counts = sass_counts()
     fft = {fn: c for fn, c in counts.items() if "exact_" in fn}
     tail = [fn for fn in counts if "spectrum_tail_" in fn]
     ring = [fn for fn in counts if "ring_push" in fn]
-    assert len(fft) == 14 and len(tail) == 4 and len(ring) == 1, counts
-    assert len(counts) == len(fft) + len(tail) + len(ring), counts
+    rebin = [fn for fn in counts if "rebin_" in fn]
+    assert (len(fft) == 14 and len(tail) == 4 and len(ring) == 1
+            and len(rebin) == 4), counts
+    assert len(counts) == (len(fft) + len(tail) + len(ring)
+                           + len(rebin)), counts
     for fn, c in fft.items():
         assert c["IMMA"] + c["IGMMA"] > 0 and c["IDP.4A"] == 0, (fn, c)
     cfft = [fn for fn in counts if "exact_cfft_stage" in fn]
@@ -513,28 +517,31 @@ def _feed(eng, x, now):
 
 TAIL = {"tail": 2}     # the spectrum tail's kernel pair a step
 RING = {"ring": 1}     # the rotating ring's push, where a pair kernel reads it
+REBIN = {"rebin": 1}   # the rebin's interp kernel (an unfiltered look)
 
 GRAPH_PATHS = {
     # path: (settings, channels, environment, kernels a replay); every
-    # path's spectrum tail is one kernel pair (TAIL); the pair kernels'
-    # paths push into a rotating ring (RING)
-    "k1_gen": (dict(fft_size=4096), 2, {}, {"K1-gen": 1, **RING, **TAIL}),
+    # path's spectrum tail is one kernel pair (TAIL) and its rebin the
+    # interp kernel (REBIN); the pair kernels' paths push into a rotating
+    # ring (RING)
+    "k1_gen": (dict(fft_size=4096), 2, {},
+               {"K1-gen": 1, **RING, **TAIL, **REBIN}),
     "k1_gen_per_stream": (dict(fft_size=4096, normalize_volume=True), 2, {},
-                          {"K1-gen": 1, **RING, **TAIL}),
+                          {"K1-gen": 1, **RING, **TAIL, **REBIN}),
     "k1_df": (dict(fft_size=4096), 2, {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"},
-              {"K1-df": 1, **RING, **TAIL}),
+              {"K1-df": 1, **RING, **TAIL, **REBIN}),
     "k2": (dict(fft_size=32768, enable_large_fft=True), 2, {},
-           {"K2": 1, **RING, **TAIL}),
+           {"K2": 1, **RING, **TAIL, **REBIN}),
     "k2_df": (dict(fft_size=32768, enable_large_fft=True), 2,
               {"WAVEFORM_TPU_KERNEL_TWIDDLE": "df"},
-              {"K2-df": 1, **RING, **TAIL}),
+              {"K2-df": 1, **RING, **TAIL, **REBIN}),
     "k3": (dict(fft_size=1024), 2, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
-           {"K3": 1, **TAIL}),
+           {"K3": 1, **TAIL, **REBIN}),
     "k3_mono": (dict(fft_size=1024), 1, {"WAVEFORM_TPU_EXACT_FUSED": "never"},
-                {"K3": 1, **TAIL}),
-    "lowering": (dict(auto_fft_size=True), 2, {}, dict(TAIL)),
+                {"K3": 1, **TAIL, **REBIN}),
+    "lowering": (dict(auto_fft_size=True), 2, {}, {**TAIL, **REBIN}),
     "matmul": (dict(fft_size=4096), 2, {"WAVEFORM_TPU_FFT_BACKEND": "matmul"},
-               dict(TAIL)),
+               {**TAIL, **REBIN}),
 }
 
 
@@ -543,8 +550,8 @@ def test_graph_tick_matches_eager_bitwise(path, dev, monkeypatch):
     """The graph tick against the eager packed tick on the same packets,
     bit for bit in every tick's pixels and in the final state, on every
     kernel path and the lowering (path c, N=800); each replay launches
-    its path's kernel once and the tail's pair, counted from the
-    capture."""
+    its path's kernel once, the tail's pair and the rebin's interp,
+    counted from the capture."""
     settings, channels, envs, want = GRAPH_PATHS[path]
     for k, v in envs.items():
         monkeypatch.setenv(k, v)
@@ -714,7 +721,7 @@ def test_microbatch_flush_matches_single_ticks(dev):
             for i in range(4):
                 assert torch.equal(batch[i], singles[k - 3 + i]), (k, i)
     assert mb.kernels_per_replay[("mb", 4, True)] == {"K1-gen": 4, "ring": 4,
-                                                      "tail": 8}
+                                                      "tail": 8, "rebin": 4}
 
 
 def test_meter_graph_matches_eager(dev):
@@ -1067,7 +1074,7 @@ def test_bus_graph_matches_eager_bus(dev):
         _bus_tick((graph, eager), x, now, eager=eager)
         for a, b in zip(_bus_state(graph), _bus_state(eager)):
             assert torch.equal(a, b), k
-    assert graph._graph.launches == {"K1-gen": 2, "tail": 4}
+    assert graph._graph.launches == {"K1-gen": 2, "tail": 4, "rebin": 2}
 
 
 def test_bus_ring_growth_keeps_history(dev):
@@ -1105,8 +1112,8 @@ def test_bus_ring_growth_keeps_history(dev):
 def test_render_frames_on_card_match_cpu(dev):
     """``MultiEngine.render_frames`` on the card against the CPU port's
     scene fed the same packets: every frame within 1e-5 (the card's
-    values within 1e-4 dB of the CPU's; the dense and gather rebins round
-    differently)."""
+    values within 1e-4 dB of the CPU's; the interp kernel and the CPU's
+    gather add the taps in different orders)."""
     from waveform_tpu_torch.runtime.multi import MultiEngine
     cfgs = _scene_cfgs()
     card, cpu = MultiEngine(device=dev), MultiEngine(device="cpu")
@@ -1196,7 +1203,7 @@ def test_rfft_fn_graph_tick_matches_eager(dev):
         eager.feed_batch(x, now, now_ns=now)
         assert torch.equal(graph.tick(now_ns=now), _eager_tick(eager, now))
     assert _counts() == before
-    assert graph.kernels_per_replay == {("tick", True): dict(TAIL)}
+    assert graph.kernels_per_replay == {("tick", True): {**TAIL, **REBIN}}
 
     def syncs(x):
         z = torch.fft.rfft(x)
@@ -1262,7 +1269,8 @@ def test_sharded_mesh_on_one_card_matches_single_engine(dev):
     np.testing.assert_allclose(got[vis], want[vis], rtol=0, atol=1e-4)
     assert graph.kernels_per_replay[("tick", True)] == {"K1-gen": 2,
                                                         "ring": 2,
-                                                        "tail": 4}
+                                                        "tail": 4,
+                                                        "rebin": 2}
 
 
 def test_graph_tick_generator_draws_anew_each_replay(dev):
@@ -1566,9 +1574,9 @@ def test_rotating_engine_equals_the_shifting_engine(per_stream, dev,
     assert torch.equal(rot.ring.buf, devring.window(rot._ring))
     assert not torch.equal(rot.ring.buf, rot._ring.buf)
     replays = rot.kernels_per_replay
-    assert all(r == {"K2": 1, "ring": 1, "tail": 2}
+    assert all(r == {"K2": 1, "ring": 1, "tail": 2, "rebin": 1}
                for r in replays.values()), replays
-    assert all(r == {"K2": 1, "tail": 2}
+    assert all(r == {"K2": 1, "tail": 2, "rebin": 1}
                for r in shift.kernels_per_replay.values())
 
 
@@ -1579,13 +1587,13 @@ STUDIO_STAGES = ("tick.push", "tick.fft", "tick.tail", "tick.interp",
 def test_studio_look_stamped_twin_matches_plain_graph(dev, tracing,
                                                       monkeypatch):
     """The benchmark's studio look at (16384, 256): stereo,
-    Blackman-Harris, fast peaks, slope, roll-off, the dense Lanczos
-    product and the Gaussian filter.  Two engines on the same packets,
+    Blackman-Harris, fast peaks, slope, roll-off, the Lanczos interp and
+    the Gaussian filter.  Two engines on the same packets,
     one ticked with tracing on: the pixels agree bit for bit over 20
     ticks; the rebin's two extra stages read positive once a replay, a
     traced tick's six stages fit inside the device interval around it,
     every traced tick counts as filtered, and a replay launches K2, the
-    ring's push and the tail's pair alone."""
+    ring's push, the tail's pair and the rebin's two kernels alone."""
     from waveform_tpu_torch import FilterMode
 
     # the split the packaged H100 plan picks at 16384 (this file's tests
@@ -1637,4 +1645,4 @@ def test_studio_look_stamped_twin_matches_plain_graph(dev, tracing,
     assert all(us > 0 for us in got)
     assert sum(got) <= e0.elapsed_time(e1) * 1e3, (got, e0.elapsed_time(e1))
     assert traced.kernels_per_replay == {
-        ("tick", True): {"K2": 1, "ring": 1, "tail": 2}}
+        ("tick", True): {"K2": 1, "ring": 1, "tail": 2, "rebin": 2}}

@@ -54,20 +54,22 @@ def _imported(tree: ast.Module) -> set:
 
 
 def test_launchers_count_the_kernel_tables_names():
-    """Every kernel of ``exact_cuda.KERNELS``, the tail's pair and the
-    rotating ring's push is a name that a launcher counts, and no launcher
-    counts another name."""
+    """Every kernel of ``exact_cuda.KERNELS``, the tail's pair, the
+    rotating ring's push and the rebin's pair is a name that a launcher
+    counts, and no launcher counts another name."""
     counted = set()
     for path in sorted((PKG / "kernels").glob("*.py")):
         counted |= _launched_names(_tree(path))
-    assert counted == {*exact_cuda.KERNELS.values(), "tail", "ring"}
+    assert counted == {*exact_cuda.KERNELS.values(), "tail", "ring",
+                       "rebin"}
 
 
 def test_cpu_twins_count_no_launch_and_build_nothing(monkeypatch):
     """The CPU twins of every exact kernel (with and without heads), the
-    rotating ring's push and the spectrum step on CPU tensors (its FFT
-    twin and the plain tail) leave the launch table as it was and never
-    ask for the library."""
+    rotating ring's push, the spectrum step on CPU tensors (its FFT
+    twin and the plain tail) and a filtered rebin (the plain interp and
+    filter) leave the launch table as it was and never ask for the
+    library."""
     def no_build():
         raise AssertionError("the library was built on the CPU")
     monkeypatch.setattr(cuda_lib, "build", no_build)
@@ -90,6 +92,12 @@ def test_cpu_twins_count_no_launch_and_build_nothing(monkeypatch):
     state = step(x[..., :1024].contiguous(), state, 1 / 60,
                  torch.ones(2, dtype=torch.bool), torch.full((2,), 0.1))
     assert torch.isfinite(state.tsmooth).all()
+    from waveform_tpu_torch.rebin.apply import make_rebin_fn
+    gauss = wt.resolve(wt.Settings(fft_size=1024, width=200,
+                                   filter_mode=wt.FilterMode.GAUSS),
+                       wt.AudioInfo(48000, 2))
+    px = make_rebin_fn(gauss, device="cpu")(state.decibels)
+    assert px.shape == (2, 2, 200)
     assert cuda_lib.LAUNCHES == before
 
 

@@ -186,7 +186,7 @@ def test_tail_pair_matches_plain_version_bitwise(config, shape, dev):
 def test_serving_tick_replays_one_tail_pair(dev, tmp_path, monkeypatch):
     """A captured ``ServingEngine`` tick at (65536, 32), mono (the
     benchmark's configuration): two tail launches a replay beside the one
-    K2 launch."""
+    K2 launch, the ring's push and the rebin's interp."""
     monkeypatch.setenv("WAVEFORM_TPU_PLAN_FILE", str(tmp_path / "none.json"))
     monkeypatch.setattr(plans, "_packaged_plans", lambda: {})
     cfg = wt.resolve(wt.Settings(fft_size=65536, enable_large_fft=True,
@@ -202,5 +202,5 @@ def test_serving_tick_replays_one_tail_pair(dev, tmp_path, monkeypatch):
         eng.tick(now_ns=now)
         assert LAUNCHES["tail"] == before + 2, k
     assert eng.kernels_per_replay == {("tick", True): {"K2": 1, "ring": 1,
-                                                       "tail": 2}}
+                                                       "tail": 2, "rebin": 1}}
     assert torch.isfinite(eng.state.decibels).all()

@@ -3,22 +3,24 @@ points, and the count of kernel launches.
 
 Every ``csrc/*.cu`` source (the exact FFT kernels K1-gen, K1-df, K2,
 K2-df and K3, the spectrum tail's pair, the rotating ring's push, the
-served tick's upload) goes
+rebin's interp and filter, the served tick's upload) goes
 into one shared library, built with ``nvcc`` at first use into
 ``build/waveform_tpu_torch/`` (once per hash of the flags and the
 sources) and bound with ``ctypes`` here, every exported entry's
 signature in one place (:func:`build`).  The modules that launch the
 kernels (``kernels/exact_cuda.py``, ``kernels/tail_cuda.py``,
-``kernels/ring_cuda.py``) and the
+``kernels/ring_cuda.py``, ``kernels/rebin_cuda.py``) and the
 served tick's upload (``runtime/serving.py``) call :func:`build` and the
 entry they need.
 
 :data:`LAUNCHES` counts kernel launches (not calls of the CPU twins) by
 the names of the kernel table: ``K1-gen``, ``K1-df``, ``K2``, ``K2-df``
 and ``K3`` (the values of ``exact_cuda.KERNELS``), ``tail`` (the
-spectrum tail's pair, two a step) and ``ring`` (the rotating ring's
-push, one a push).  Each launcher calls :func:`launched`;
-a captured tick (``runtime/graphs.GraphTick``) adds what its capture
+spectrum tail's pair, two a step), ``ring`` (the rotating ring's
+push, one a push) and ``rebin`` (the rebin's interp, and its filter
+where the look filters: one or two a rebin).  Each launcher calls
+:func:`launched`; a captured tick (``runtime/graphs.GraphTick``) adds
+what its capture
 recorded at every replay.  A run reads the table to show that its main
 path went through the kernels it expects.
 """
@@ -144,6 +146,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     i64 = ctypes.c_longlong
     _sig(lib.wf_ring_push, ptr, ptr, ptr, i64, i64, ptr, i64, *[i32] * 5,
          ptr)
+    # the rebin's interp and Gaussian filter (csrc/rebin.cu,
+    # kernels/rebin_cuda.py)
+    _sig(lib.wf_rebin_interp, ptr, i64, i64, i32, i32, ptr, ptr, i32, i32,
+         ptr, i32, ptr)
+    _sig(lib.wf_rebin_gauss, ptr, ptr, i32, ptr, ptr, i32, i32, ptr)
     # the served tick's upload (csrc/tick_host.cu, runtime/serving.py)
     _sig(lib.wf_tick_upload, ptr, ptr, ctypes.c_longlong, ptr, ptr, i32)
 

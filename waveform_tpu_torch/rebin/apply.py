@@ -18,11 +18,11 @@ import torch
 from ..core.config import ResolvedConfig, check_config
 from ..core.device import checked_device
 from ..core.enums import DisplayMode, FilterMode
+from ..kernels.rebin_cuda import (rebin_gauss, rebin_gauss_ref, rebin_interp,
+                                  rebin_interp_ref)
 from ..runtime import profiler
 from .filter import build_gauss_tables
 from .interp import build_interp_tables, mirror_indices
-
-DENSE_MAX_BINS = 8192
 
 
 def _interp_matrix(taps: np.ndarray, weights: np.ndarray,
@@ -53,10 +53,10 @@ def filters(cfg: ResolvedConfig) -> bool:
 def check_full_f32_matmul(who: str = "the rebin") -> None:
     """Raise unless float32 matrix products run in full float32.
 
-    The dense interp product needs every mantissa bit (a reduced-precision
-    variant failed the 1e-4 dB gate), and so does the matmul FFT
-    (``kernels/matfft.py``): TF32 or bf16 internal precision is refused
-    here rather than switched off behind the caller's back.
+    The CPU's forced dense interp product needs every mantissa bit (a
+    reduced-precision variant failed the 1e-4 dB gate), and so does the
+    matmul FFT (``kernels/matfft.py``): TF32 or bf16 internal precision
+    is refused here rather than switched off behind the caller's back.
     """
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
@@ -78,13 +78,16 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
     ``(0, cpos - channel_offset)``, bars ``(border_top, border_bottom)``);
     with ``apply_pixel_map=False`` the output stays in dBFS.
 
-    ``dense`` picks the interp form: one [nbins, P] f32 matmul, or a
-    gather of the taps and a weighted sum.  With ``dense=None``,
-    ``WAVEFORM_TPU_REBIN`` = ``dense`` or ``gather`` (read here, as the JAX
-    package reads it) forces the form; otherwise it is dense on CUDA up to
-    ``DENSE_MAX_BINS`` input bins (the matrix stays a few MB) and the
-    gather elsewhere.  The dense form raises unless float32 matmuls run
-    in full float32 (:func:`check_full_f32_matmul`).
+    On CUDA the interp and the Gaussian filter run as two hand-written
+    kernels (``kernels/rebin_cuda.py``, one launch each, counted as
+    ``LAUNCHES["rebin"]``), and nothing else: a forced form raises
+    ValueError there.  On the CPU they run as the plain gather of the taps
+    and a weighted sum, and the padded filter loop; ``dense=True`` forces
+    one [nbins, P] f32 matmul in place of the gather, and with
+    ``dense=None`` ``WAVEFORM_TPU_REBIN`` = ``dense`` or ``gather`` (read
+    here, as the JAX package reads it) picks the form.  The dense form
+    raises unless float32 matmuls run in full float32
+    (:func:`check_full_f32_matmul`).
 
     ``pixels=(p0, p1)`` returns output columns ``[p0, p1)`` only: one
     block of a mesh's pixel axis (``parallel/sharded_serving.py``, the
@@ -102,8 +105,16 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
                 else cfg.num_bins)
     if dense is None:
         mode = os.environ.get("WAVEFORM_TPU_REBIN", "auto")
-        dense = (mode == "dense" if mode in ("dense", "gather") else
-                 device.type == "cuda" and nbins_in <= DENSE_MAX_BINS)
+        if mode in ("dense", "gather"):
+            dense = mode == "dense"
+    kernels = device.type == "cuda"
+    if kernels and dense is not None:
+        raise ValueError(
+            "make_rebin_fn: on CUDA the rebin runs its kernels; the forced "
+            "dense and gather forms (dense=, WAVEFORM_TPU_REBIN) are the "
+            "CPU's")
+    interp, smooth = ((rebin_interp, rebin_gauss) if kernels
+                      else (rebin_interp_ref, rebin_gauss_ref))
     n_out = tables.num_outputs
     use_gauss = filters(cfg)
     cols = slice(None)       # the interp columns computed
@@ -122,17 +133,17 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
         imat = torch.from_numpy(np.ascontiguousarray(_interp_matrix(
             tables.taps, tables.weights, nbins_in)[:, cols])).to(device)
     else:
-        taps = torch.from_numpy(
-            tables.taps[cols].astype(np.int64)).to(device)
+        taps = torch.from_numpy(tables.taps[cols].astype(
+            np.int32 if kernels else np.int64)).to(device)
         weights = torch.from_numpy(
             np.ascontiguousarray(tables.weights[cols])).to(device)  # [P, T]
     band = (None if tables.band_matrix is None
             else torch.from_numpy(tables.band_matrix).to(device))  # [B, P]
     if use_gauss:
         gt = build_gauss_tables(cfg.settings.filter_radius, n_out)
-        gw = [float(w) for w in gt.weights]
+        gw = (torch.from_numpy(gt.weights).to(device) if kernels
+              else [float(w) for w in gt.weights])
         grenorm = torch.from_numpy(gt.renorm).to(device)
-        pad = (len(gw) - 1) // 2
     if cfg.mirror_freq_axis:
         mirror = torch.from_numpy(
             mirror_indices(n_out).astype(np.int64)).to(device)
@@ -140,22 +151,12 @@ def make_rebin_fn(cfg: ResolvedConfig, *, apply_pixel_map: bool = True,
 
     def rebin(db: torch.Tensor, top: float = 0.0,
               bottom: float = 0.0) -> torch.Tensor:
-        if dense:
-            vals = _rows_mm(db, imat)
-        else:
-            gathered = db[..., taps]                       # [..., P, T]
-            vals = (gathered * weights).sum(-1)
+        vals = _rows_mm(db, imat) if dense else interp(db, taps, weights)
         if band is not None:
             vals = _rows_mm(vals, band.T)
         if use_gauss:
             profiler.mark("tick.interp")
-            # zero-padded conv divided by the per-pixel valid-weight sum is
-            # exactly the reference's edge renormalization
-            padded = torch.nn.functional.pad(vals, (pad, pad))
-            smoothed = torch.zeros_like(vals)
-            for j, w in enumerate(gw):
-                smoothed = smoothed + padded[..., j:j + vals.shape[-1]] * w
-            vals = smoothed / grenorm
+            vals = smooth(vals, gw, grenorm)
             profiler.mark("tick.filter")
         if apply_pixel_map:
             t = torch.clamp(cfg.ceiling - vals, 0.0, dbrange) / dbrange
