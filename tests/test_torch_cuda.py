@@ -1646,3 +1646,78 @@ def test_studio_look_stamped_twin_matches_plain_graph(dev, tracing,
     assert sum(got) <= e0.elapsed_time(e1) * 1e3, (got, e0.elapsed_time(e1))
     assert traced.kernels_per_replay == {
         ("tick", True): {"K2": 1, "ring": 1, "tail": 2, "rebin": 2}}
+
+
+def test_default_look_under_per_stream_packets(dev, tracing):
+    """The benchmark's default look (``wfbench/configs/default4096.json``:
+    mono, Hann, Catmull-Rom, 4096 points) at 256 sources fed as its
+    ``packets`` traffic feeds them: one ``feed`` a 1024-frame packet at
+    each source's own phase.  Two engines on the same packets, one ticked
+    with tracing on: the pixels agree bit for bit; the per-row tick's
+    replay launches K1-gen, the ring's push, the tail's pair and the
+    interp kernel alone; the ring's heads differ from row to row; the
+    counters count every packet and tick; and four late ticks hold to the
+    float64 PyTorch reference within the configuration's limits."""
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    from waveform_tpu_torch import VideoInfo
+    from waveform_tpu_torch.core.settings_io import settings_from_obs
+    from wfbench import compare
+    from wfbench.generator import Traffic
+
+    root = Path(__file__).resolve().parents[1] / "wfbench"
+    dep = json.loads((root / "configs" / "default4096.json").read_text())
+    mix = json.loads((root / "traffic" / "packets.json").read_text())
+    spec = importlib.util.spec_from_file_location(
+        "default_reference", root / "reference" / "spectrum_torch.py")
+    reference = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reference)
+    cfg = resolve(settings_from_obs(dep["settings"]), AudioInfo(48000, 2),
+                  VideoInfo(60))
+    S, ticks = 256, 60
+    gen = Traffic(mix, S, 2, cfg.fft_size, 48000, 60, 2 ** 31 + 2027)
+    checked = [48, 53, 57, 60]
+    plain = ServingEngine(cfg, S, device=dev)
+    traced = ServingEngine(cfg, S, device=dev)
+    kept, fed = [], 0
+    for k in range(1, ticks + 1):
+        now = gen.now_ns(k)
+        packets = gen.packets(k)
+        tracing.set_tracing(False)
+        for s, data, ts in packets:
+            plain.feed(s, data, ts, now_ns=now)
+        a = plain.tick(now_ns=now)
+        tracing.set_tracing(True)
+        for s, data, ts in packets:
+            traced.feed(s, data, ts, now_ns=now)
+        b = traced.tick(now_ns=now)
+        fed += len(packets)
+        assert torch.equal(a, b), k
+        if k in checked:
+            kept.append(a.double().cpu().numpy())
+    torch.cuda.synchronize()
+    tracing.set_tracing(False)
+    assert plain.kernels_per_replay[("tick", False)] == {
+        "K1-gen": 1, "ring": 1, "tail": 2, "rebin": 1}
+    assert traced.kernels_per_replay == plain.kernels_per_replay
+    # each row's head sits past the samples it was fed: 45 or 46 packets
+    # by now, by its phase
+    head = plain._ring.head.cpu()
+    L = plain._ring.buf.shape[-1]
+    fed_head = torch.from_numpy((gen.ends(ticks) % L).astype(np.int32))
+    assert torch.equal(head, fed_head[:, None].expand_as(head))
+    assert len(torch.unique(head)) > 1
+    assert torch.equal(head, traced._ring.head.cpu())
+    c = tracing.snapshot()["counters"]
+    assert c["feed.packets"] == fed == int(gen.fed(ticks).sum())
+    assert c["ticks.rotating"] == ticks
+    assert c["ticks.gather"] + c.get("ticks.uniform", 0) == ticks
+    look = reference.Look(dep["settings"], dep["audio"], dep["fps"])
+    want = reference.expected_pixels(look, gen.ends, gen.frames,
+                                     gen.first_tick, checked, ticks,
+                                     device=dev)
+    checks = compare.checks(np.stack(kept), want, dep["check"])
+    assert set(checks) == {"max_db_gap", "p99_db_gap"}
+    assert all(v["value"] <= v["limit"] for v in checks.values()), checks

@@ -158,14 +158,16 @@ def test_setup_timers_stay_on():
 def test_microbatch_flush_records_each_tick():
     """A flush of k = 2 ticks runs the tick's function twice: its stages
     twice, its pushes counted as 2 ticks (each staged by one native call
-    where the native assembler is loaded)."""
+    where the native assembler is loaded); each tick's ``feed_batch``
+    counts its S packets."""
     cfg = resolve(Settings(fft_size=FFT, width=64), AudioInfo(48000, 2))
     eng = ServingEngine(cfg, S, microbatch=2, device="cpu")
     profiler.set_tracing(True)
     _drive(eng, 4, "batch")
     snap = profiler.snapshot()
     native = {"ticks.native": 4} if eng._native is not None else {}
-    assert snap["counters"] == {"ticks.uniform": 4, **native}
+    assert snap["counters"] == {"ticks.uniform": 4, "feed.packets": 4 * S,
+                                **native}
     assert [snap["marks"][n]["count"] for n in STAGES] == [4, 4, 4, 4]
 
 

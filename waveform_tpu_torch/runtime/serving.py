@@ -840,8 +840,10 @@ class ServingEngine(PackedTickEngine):
 
     def feed(self, stream: int, data: np.ndarray | None, timestamp_ns: int,
              now_ns: int | None = None, muted: bool = False) -> None:
-        """Queue one packet ([channels, frames] float32 planar)."""
-        profiler.refresh()
+        """Queue one packet ([channels, frames] float32 planar); counts
+        one ``feed.packets`` while tracing."""
+        if profiler.refresh():
+            profiler.count("feed.packets")
         with profiler.span("serving.feed"):
             self._feed(stream, data, timestamp_ns, now_ns, muted)
 
@@ -913,9 +915,11 @@ class ServingEngine(PackedTickEngine):
 
         ``data`` is [S, channels, frames] float32 planar with one shared
         timestamp.  Streams fed this way share sync state; don't mix with
-        per-stream ``feed`` on the same engine.
+        per-stream ``feed`` on the same engine.  Counts S
+        ``feed.packets`` while tracing: one a stream.
         """
-        profiler.refresh()
+        if profiler.refresh():
+            profiler.count("feed.packets", self.S)
         with profiler.span("serving.feed"):
             self._feed_batch(data, timestamp_ns, now_ns)
 
